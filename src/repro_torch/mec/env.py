@@ -1,0 +1,275 @@
+"""Dynamic MEC simulator — Eqs (1)–(11) of the paper, in PyTorch.
+
+Counterpart of ``repro/mec/env.py``. Where the reference ``vmap``s one
+network's physics over fleets and candidates, every method here takes
+leading batch axes written out: state and task leaves carry ``batch``
+(``()`` for one network, ``(B,)`` for B fleets), ``evaluate`` scores a
+``batch + (S, M)`` decision tensor in one call, and the FCFS recursion
+(Eqs 6–7) is a Python loop over the M sorted queue positions with every
+op batched over ``batch + (S,)`` — never a loop over candidates or fleets.
+
+Arithmetic follows the reference op for op (reciprocal-multiplies where
+it has them, ``(k-1)τ`` in float32, ``lexsort`` as two stable sorts), so
+on the same inputs the two agree to float32 rounding.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.mec.config import MECConfig, ScenarioParams
+
+
+class MECState(NamedTuple):
+    """Persistent queue state across slots (leaves carry ``batch``)."""
+    dev_free: torch.Tensor   # [..., M] time instant each device's uplink is free
+    es_free: torch.Tensor    # [..., N] time instant each ES is free
+    slot: torch.Tensor       # [...] int32
+
+
+class SlotTasks(NamedTuple):
+    """One slot's task draw (estimated + realized views)."""
+    size_bits: torch.Tensor      # [..., M]
+    deadline_s: torch.Tensor     # [..., M]
+    rate_true: torch.Tensor      # [..., M, N] bps
+    rate_est: torch.Tensor       # [..., M, N] bps (±csi_error)
+    capacity: torch.Tensor       # [..., N] available fraction (observed)
+    cmp_true: torch.Tensor       # [..., N, L] realized per-exit seconds
+    cmp_est: torch.Tensor        # [..., N, L] estimated per-exit seconds
+    connect: torch.Tensor        # [..., M, N] 1.0 if link up
+    active: torch.Tensor         # [..., M] 1.0 if the device has a task
+
+
+class SlotResult(NamedTuple):
+    reward: torch.Tensor        # [...] Q(G_k, x_k)
+    t_total: torch.Tensor       # [..., M] completion time (Eq 8)
+    success: torch.Tensor       # [..., M] bool, t_total <= deadline (Eq 11)
+    accuracy: torch.Tensor      # [..., M] φ of the chosen exit
+    t_com: torch.Tensor         # [..., M]
+    t_wait: torch.Tensor        # [..., M]
+    t_cmp: torch.Tensor         # [..., M]
+
+
+def _uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device)
+    return lo + (hi - lo) * u
+
+
+def assemble_slot(sp: ScenarioParams, m: int, *, rate_true: torch.Tensor,
+                  capacity: torch.Tensor, active: torch.Tensor,
+                  generator: torch.Generator) -> SlotTasks:
+    """Finish a slot draw from given rates/capacity/active mask.
+
+    Task sizes, CSI-error estimates, inference jitter and connectivity
+    (with the never-lose-every-link fallback), drawn from ``generator``
+    for the leading batch axes of ``rate_true`` ([..., M, N]).
+    """
+    n, l = sp.exit_times_s.shape
+    batch = rate_true.shape[:-2]
+    dev = rate_true.device
+    size_bits = _uniform(generator, batch + (m,), sp.task_kb[0],
+                         sp.task_kb[1], dev) * 8e3             # KB -> bits
+    eps = _uniform(generator, batch + (m, n), -sp.csi_error, sp.csi_error, dev)
+    rate_est = rate_true * (1.0 + eps)
+    jit = _uniform(generator, batch + (n, l), -sp.inference_jitter,
+                   sp.inference_jitter, dev)
+    cmp_base = sp.exit_times_s / capacity[..., :, None]
+    cmp_true = cmp_base * (1.0 + jit)
+    connect = (torch.rand(batch + (m, n), generator=generator, device=dev)
+               >= sp.connectivity_drop).to(torch.float32)
+    # never let a device lose every link
+    has_link = connect.sum(-1, keepdim=True) > 0
+    connect = torch.where(has_link, connect, torch.ones_like(connect))
+    deadline = sp.deadline_s.expand(batch + (m,)).clone()
+    return SlotTasks(size_bits, deadline, rate_true, rate_est, capacity,
+                     cmp_true, cmp_base, connect, active)
+
+
+def _at_candidates(x: torch.Tensor, n_trailing: int) -> torch.Tensor:
+    """Insert the candidate axis S in front of ``x``'s last
+    ``n_trailing`` axes, so per-network leaves broadcast against
+    ``batch + (S, ...)``."""
+    return x.unsqueeze(x.dim() - n_trailing)
+
+
+class MECEnv:
+    """Stateless-core environment; state is threaded explicitly.
+
+    ``device=None`` means the card; pass ``device="cpu"`` for the plain
+    path.
+    """
+
+    def __init__(self, cfg: MECConfig, *, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.M, self.N, self.L = cfg.n_devices, cfg.n_servers, cfg.n_exits
+        self.params: ScenarioParams = cfg.scenario_params(self.device)
+        self.exit_acc = self.params.exit_acc
+
+    # ------------------------------------------------------------------ state
+    def reset(self, batch: Tuple[int, ...] = ()) -> MECState:
+        dev = self.device
+        return MECState(
+            dev_free=torch.zeros(batch + (self.M,), device=dev),
+            es_free=torch.zeros(batch + (self.N,), device=dev),
+            slot=torch.zeros(batch, dtype=torch.int32, device=dev),
+        )
+
+    # ------------------------------------------------------------- task draws
+    def sample_slot(self, generator: torch.Generator,
+                    batch: Tuple[int, ...] = ()) -> SlotTasks:
+        """One slot's iid task draw (paper §VI-A) for ``batch`` networks.
+
+        The draws come from ``generator`` (on this env's device); they
+        follow the reference's distributions, not its threefry bits.
+        """
+        sp, dev = self.params, self.device
+        rate_true = _uniform(generator, batch + (self.M, self.N),
+                             sp.rate_mbps[0], sp.rate_mbps[1], dev) * 1e6
+        capacity = _uniform(generator, batch + (self.N,),
+                            sp.capacity_range[0], sp.capacity_range[1], dev)
+        return assemble_slot(sp, self.M, rate_true=rate_true,
+                             capacity=capacity,
+                             active=torch.ones(batch + (self.M,), device=dev),
+                             generator=generator)
+
+    # ------------------------------------------------------------ core physics
+    def _simulate(self, state: MECState, tasks: SlotTasks,
+                  decision: torch.Tensor, *, realized: bool):
+        """One slot's queueing physics for decisions ``batch + (S, M)``
+        in [0, N*L). Returns SlotResult (leaves ``batch + (S, ...)``) and
+        the end-of-slot (dev_free, es_free)."""
+        cfg, sp, L = self.cfg, self.params, self.L
+        decision = decision.long()
+        n_idx = decision // L                                    # [..., S, M]
+        l_idx = decision % L
+        rate = _at_candidates(tasks.rate_true if realized else tasks.rate_est, 2)
+        cmp_tab = (tasks.cmp_true if realized else tasks.cmp_est).flatten(-2)
+        cmp_tab = _at_candidates(cmp_tab, 1)                     # [..., 1, N*L]
+        size_bits = _at_candidates(tasks.size_bits, 1)
+        deadline = _at_candidates(tasks.deadline_s, 1)
+        active = _at_candidates(tasks.active, 1)
+        connect = _at_candidates(tasks.connect, 2)
+        dev_free = _at_candidates(state.dev_free, 1)
+
+        gen_time = (state.slot.to(torch.float32) * cfg.slot_s)[..., None, None]
+        r_sel = torch.take_along_dim(rate, n_idx[..., None], -1)[..., 0]
+        t_com = size_bits / torch.clamp_min(r_sel, 1.0)          # Eq (1)
+        # Eq (6): device transmits sequentially; new task starts after the
+        # previous transmission and not before its own generation instant.
+        start_tx = torch.maximum(dev_free, gen_time)
+        arrival = start_tx + t_com
+        t_cmp = torch.take_along_dim(cmp_tab, decision, -1)      # Eq (4)
+
+        # Inactive devices (dynamic-M scenarios) occupy no resources.
+        act = active > 0.5
+        arrival_eff = torch.where(act, arrival, math.inf)
+        t_cmp_eff = torch.where(act, t_cmp, 0.0)
+
+        # Eqs (6)-(7): per-ES FCFS. lexsort((arrival, server)) as two
+        # stable sorts (secondary key first), ties broken by device index.
+        by_arrival = torch.sort(arrival_eff, dim=-1, stable=True).indices
+        by_server = torch.sort(n_idx.gather(-1, by_arrival), dim=-1,
+                               stable=True).indices
+        order = by_arrival.gather(-1, by_server)
+        srv_sorted = n_idx.gather(-1, order)
+        arr_sorted = arrival_eff.gather(-1, order)
+        cmp_sorted = t_cmp_eff.gather(-1, order)
+
+        busy = _at_candidates(state.es_free, 1).expand(
+            srv_sorted.shape[:-1] + (self.N,)).clone()           # [..., S, N]
+        starts = []
+        for i in range(self.M):
+            srv = srv_sorted[..., i:i + 1]
+            arr = arr_sorted[..., i:i + 1]
+            free = busy.gather(-1, srv)
+            start = torch.maximum(arr, free)
+            done = torch.where(torch.isinf(arr), free, start + cmp_sorted[..., i:i + 1])
+            busy.scatter_(-1, srv, done)
+            starts.append(start)
+        start_sorted = torch.cat(starts, dim=-1)
+        inv = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(self.M, device=order.device).expand_as(order))
+        start_srv = start_sorted.gather(-1, inv)
+        t_wait = torch.where(act, start_srv - arrival, 0.0)       # Eq (7)
+        t_total = t_com + t_wait + t_cmp                          # Eq (8)
+
+        phi = sp.exit_acc[l_idx]                                  # Eq (5)
+        # links that are down make the task infeasible
+        link = torch.take_along_dim(connect, n_idx[..., None], -1)[..., 0]
+        t_total = torch.where(link > 0.5, t_total, math.inf)
+
+        # reciprocal-multiply (not /), as the reference spells it
+        psi = 1.0 - torch.sigmoid(5.0 * t_total * (1.0 / deadline))
+        psi = torch.where(torch.isinf(t_total), 0.0, psi)
+        reward = torch.where(act, phi * psi, 0.0).sum(-1)         # Eq (9)
+        success = act & (t_total <= deadline)                     # Eq (11)
+
+        new_dev_free = torch.where(act & (link > 0.5), arrival, dev_free)
+        result = SlotResult(reward, t_total, success, phi, t_com, t_wait, t_cmp)
+        return result, (new_dev_free, busy)
+
+    # ------------------------------------------------------------- public API
+    def evaluate(self, state: MECState, tasks: SlotTasks,
+                 decisions: torch.Tensor) -> torch.Tensor:
+        """Reward Q for candidate decisions ``batch + (S, M)`` (Eq 15
+        critic) from the *estimated* quantities -> ``batch + (S,)``."""
+        res, _ = self._simulate(state, tasks, decisions, realized=False)
+        return res.reward
+
+    def step(self, state: MECState, tasks: SlotTasks, decision: torch.Tensor):
+        """Realize decisions ``batch + (M,)``; returns (new_state,
+        SlotResult)."""
+        res, (dev_free, es_free) = self._simulate(
+            state, tasks, decision.unsqueeze(-2), realized=True)
+        result = SlotResult(res.reward.squeeze(-1),
+                            *(x.squeeze(-2) for x in res[1:]))
+        new_state = MECState(dev_free=dev_free.squeeze(-2),
+                             es_free=es_free.squeeze(-2),
+                             slot=state.slot + 1)
+        return new_state, result
+
+    # ------------------------------------------------------------ observation
+    def observe(self, state: MECState, tasks: SlotTasks) -> dict:
+        """Feature views used by the agents (normalized, estimate-side).
+
+        Returns dict with:
+          device  [..., M, 6] — task size, deadline, mean/best rate, tx
+                                backlog, active
+          option  [..., N*L, 4] — est compute time, accuracy, ES backlog,
+                                  capacity
+          edge_rate [..., M, N] — normalized rate estimate per link
+          connect [..., M, N]
+        """
+        cfg, sp = self.cfg, self.params
+        batch = state.slot.shape
+        gen_time = (state.slot.to(torch.float32) * cfg.slot_s)[..., None]
+        inv_dl = 1.0 / sp.deadline_s
+        d_norm = tasks.size_bits * (1.0 / (sp.task_kb[1] * 8e3))
+        dl_norm = tasks.deadline_s / sp.deadline_s
+        r_norm = tasks.rate_est * (1.0 / (sp.rate_mbps[1] * 1e6))
+        r_norm = r_norm * tasks.connect
+        # log-compress queue backlogs: under overload they grow to many
+        # multiples of the deadline and would otherwise saturate the GCN
+        backlog_dev = torch.log1p(
+            torch.clamp_min(state.dev_free - gen_time, 0.0) * inv_dl)
+        device = torch.stack(
+            [d_norm, dl_norm, r_norm.mean(-1), r_norm.amax(-1), backlog_dev,
+             tasks.active], dim=-1)
+
+        nl = (self.N, self.L)
+        cmp_norm = tasks.cmp_est * inv_dl                         # [..., N, L]
+        backlog_es = torch.log1p(
+            torch.clamp_min(state.es_free - gen_time, 0.0) * inv_dl)
+        option = torch.stack(
+            [cmp_norm,
+             sp.exit_acc.expand(batch + nl),
+             backlog_es[..., None].expand(batch + nl),
+             tasks.capacity[..., None].expand(batch + nl)],
+            dim=-1).reshape(batch + (self.N * self.L, 4))
+        return {"device": device, "option": option,
+                "edge_rate": r_norm, "connect": tasks.connect}
+

@@ -1,0 +1,119 @@
+"""repro_torch actor-path kernels: the plain versions against the JAX
+Pallas kernels (interpret mode), and the dispatch rules. The CUDA kernels
+are held against the plain versions in test_torch_cuda.py, on a GPU."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.edge_score import edge_score as jax_edge_score
+from repro.kernels.gcn_agg import gcn_agg as jax_gcn_agg
+from repro_torch.kernels import edge_score as edge_mod
+from repro_torch.kernels import gcn_agg as gcn_mod
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+# f32, the tolerance of tests/test_kernels.py's actor-path kernels
+TOL = dict(rtol=1e-5, atol=1e-5)
+ACTOR_SHAPES = [(b, m, o) for b in (1, 64) for m in (5, 14)
+                for o in (6, 12)]
+# (M, O, Fs, Fn, H) of the four gcn_agg launches of one actor forward at
+# the paper's width (core/gcn.py): device then option side, layers 1 and 2
+SLICE_GCN = [(14, 10, 7, 4, 128), (10, 14, 4, 7, 128),
+             (14, 10, 128, 128, 64), (10, 14, 128, 128, 64)]
+
+
+def gcn_args(seed, b, m, o, fs=7, fn=4, h=16):
+    rng = np.random.default_rng(seed)
+    adj = (rng.uniform(size=(b, m, o)) * (rng.uniform(size=(b, m, o)) > 0.3))
+    arrays = (adj, rng.normal(size=(b, m, fs)), rng.normal(size=(b, o, fn)),
+              rng.normal(size=(fs, h)), rng.normal(size=(fn, h)),
+              rng.normal(size=(h,)))
+    return tuple(a.astype(np.float32) for a in arrays)
+
+
+def edge_args(seed, b, m, o, h=9, e=11):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(b, m, h)), rng.normal(size=(b, o, h)),
+              rng.uniform(size=(b, m, o)), rng.normal(size=(h, e)),
+              rng.normal(size=(e,)), rng.normal(size=(h, e)),
+              rng.normal(size=(e,)), rng.normal(size=(e,)),
+              rng.normal(size=(1,)))
+    return tuple(a.astype(np.float32) for a in arrays)
+
+
+def to_torch(args, device="cpu"):
+    return tuple(torch.tensor(a, device=device) for a in args)
+
+
+@pytest.mark.parametrize("b,m,o", ACTOR_SHAPES)
+def test_gcn_agg_ref_matches_pallas(b, m, o):
+    args = gcn_args(b * 100 + m * 10 + o, b, m, o)
+    want = jax_gcn_agg(*map(jnp.asarray, args), interpret=True)
+    got = ref.gcn_agg_ref(*to_torch(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("m,o,fs,fn,h", SLICE_GCN)
+def test_gcn_agg_ref_matches_pallas_slice_shapes(m, o, fs, fn, h):
+    args = gcn_args(fs + fn + h, 3, m, o, fs, fn, h)
+    want = jax_gcn_agg(*map(jnp.asarray, args), interpret=True)
+    got = ref.gcn_agg_ref(*to_torch(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("b,m,o", ACTOR_SHAPES)
+def test_edge_score_ref_matches_pallas(b, m, o):
+    args = edge_args(b * 100 + m * 10 + o, b, m, o)
+    want = jax_edge_score(*map(jnp.asarray, args), interpret=True)
+    got = ref.edge_score_ref(*to_torch(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_edge_score_ref_matches_pallas_slice_shape():
+    args = edge_args(7, 3, 14, 10, h=64, e=64)
+    want = jax_edge_score(*map(jnp.asarray, args), interpret=True)
+    got = ref.edge_score_ref(*to_torch(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ----------------------------------------------------------------- dispatch
+def test_ops_on_cpu_runs_plain_version_and_launches_nothing():
+    ops.reset_launch_counts()
+    g_args = to_torch(gcn_args(0, 2, 5, 6))
+    e_args = to_torch(edge_args(0, 2, 5, 6))
+    assert torch.equal(ops.gcn_agg(*g_args), ref.gcn_agg_ref(*g_args))
+    assert torch.equal(ops.edge_score(*e_args), ref.edge_score_ref(*e_args))
+    assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0}
+
+
+def test_ops_strided_adjacency_on_cpu():
+    """The option-side layer passes a transposed adjacency view."""
+    adj, hs, hn, ws, wn, b = to_torch(gcn_args(1, 2, 6, 5))
+    adj_t = adj.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not adj_t.is_contiguous() and torch.equal(adj_t, adj)
+    np.testing.assert_allclose(
+        ops.gcn_agg(adj_t, hs, hn, ws, wn, b).numpy(),
+        ref.gcn_agg_ref(adj, hs, hn, ws, wn, b).numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["gcn_agg", "edge_score"])
+def test_ops_raise_on_requires_grad(op):
+    args = to_torch(gcn_args(0, 1, 4, 3) if op == "gcn_agg"
+                    else edge_args(0, 1, 4, 3))
+    args[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        getattr(ops, op)(*args)
+
+
+@pytest.mark.parametrize("op", ["gcn_agg", "edge_score"])
+def test_wrappers_refuse_other_devices(op):
+    args = gcn_args(0, 1, 4, 3) if op == "gcn_agg" else edge_args(0, 1, 4, 3)
+    fn = gcn_mod.gcn_agg if op == "gcn_agg" else edge_mod.edge_score
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fn(*to_torch(args, "meta"))
+    mixed = to_torch(args)[:-1] + to_torch(args[-1:], "meta")
+    with pytest.raises(ValueError, match="several devices"):
+        fn(*mixed)

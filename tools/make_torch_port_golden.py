@@ -1,0 +1,220 @@
+"""Write ``tests/data/torch_port_golden.npz``: a JAX GRLE decision trace
+with the random draws that produced it, for holding the PyTorch port
+(``repro_torch``) against the JAX package where JAX is not installed.
+
+    PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
+
+Runs on the CPU with JAX only. Steps:
+
+1. train GRLE on ``fig5_baseline`` with ``RolloutDriver(train=True)``
+   (seed 0, 4 fleets, 200 slots) so its decisions are not near-uniform;
+2. run ``RolloutDriver(train=False).run(mode="loop")`` with the trained
+   params for B=4 fleets and T=32 slots;
+3. rebuild that run's draws from the driver's own key schedule (task
+   keys per fleet for ``sample_slot``, decision keys for the Gumbel
+   exploration candidates) and replay the decision path on them
+   (``reference_episode``), which also records every slot's ``MECState``
+   and the critic's top-two margin.
+
+The file holds the params, exit mask, the driver's trace, the draws
+(``SlotTasks`` leaves, exploration candidates as int8), the states and
+margins, and the ``metrics_finalize`` values. ``tests/test_torch_rollout.py``
+checks that a rebuild equals the stored file.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core.graph import build_graph
+from repro.core.policy import agent_def
+from repro.core.quantize import one_hot_candidates
+from repro.mec import MECEnv, make_scenario
+from repro.mec.env import SlotTasks
+from repro.rollout import RolloutDriver
+from repro.rollout.metrics import metrics_finalize
+from repro.rollout.vecenv import VecMECEnv
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+SCENARIO, TRAIN_SEED, TRAIN_FLEETS, TRAIN_SLOTS = "fig5_baseline", 0, 4, 200
+EVAL_SEED, N_FLEETS, N_SLOTS = 1, 4, 32
+TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
+               "cmp_true", "cmp_est", "connect", "active")
+
+
+def grle(scenario: str):
+    return agent_def("grle", MECEnv(make_scenario(scenario)))
+
+
+def train_params(adef):
+    """GRLE params after a short training run (numpy tree)."""
+    drv = RolloutDriver(adef, n_fleets=TRAIN_FLEETS, train=True)
+    carry, _ = drv.run(jax.random.PRNGKey(TRAIN_SEED), TRAIN_SLOTS,
+                       mode="scan")
+    return jax.tree_util.tree_map(np.asarray, carry.agent_state.params)
+
+
+def agent_state(adef, params, exit_mask):
+    """A JAX ``AgentState`` holding the given numpy params and mask."""
+    st = adef.init(jax.random.PRNGKey(0))
+    return st._replace(params=jax.tree_util.tree_map(jnp.asarray, params),
+                       exit_mask=jnp.asarray(exit_mask))
+
+
+def driver_trace(adef, state, seed: int, n_fleets: int, n_slots: int):
+    """The JAX driver's own ``train=False`` loop run (numpy leaves)."""
+    drv = RolloutDriver(adef, n_fleets=n_fleets, train=False)
+    carry, trace = drv.run(jax.random.PRNGKey(seed), n_slots, mode="loop",
+                           agent_state=state)
+    metrics = {k: np.asarray(v) for k, v in metrics_finalize(
+        carry.metrics, slot_s=adef.env.cfg.slot_s, n_fleets=n_fleets).items()}
+    return {k: np.asarray(v) for k, v in trace._asdict().items()}, metrics
+
+
+def driver_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int):
+    """The draws ``RolloutDriver.run(PRNGKey(seed))`` makes, rebuilt from
+    its key schedule (``driver.py`` init_carry/_slot, ``policy.py``
+    decide_with): ``SlotTasks`` leaves [T, B, ...] and the exploration
+    candidates [T, B, K, M]. The candidates are an argmax over Gumbel
+    noise restricted to allowed options, which depends on the tasks'
+    links but not on the actor."""
+    env = adef.env
+    vec = VecMECEnv(env, n_fleets)
+    k_task, k_dec, _, _ = jax.random.split(jax.random.PRNGKey(seed), 4)
+    task_keys, dec_keys = vec.fleet_keys(k_task), vec.fleet_keys(k_dec)
+    mask = jnp.asarray(exit_mask)
+
+    @jax.jit
+    def slot(task_keys, dec_keys):
+        task_keys, task_subs = VecMECEnv.split_keys(task_keys)
+        dec_keys, dec_subs = VecMECEnv.split_keys(dec_keys)
+        tasks = jax.vmap(env.sample_slot)(task_subs)
+
+        def rand(dk, connect):
+            g_mask = jnp.repeat(connect, env.L, axis=-1)
+            allowed = (mask[None, :] > 0.5) & (g_mask > 0.5)
+            gumbel = jax.random.gumbel(dk, (adef.n_random, *allowed.shape))
+            return jnp.argmax(jnp.where(allowed[None], gumbel, -jnp.inf),
+                              axis=-1).astype(jnp.int32)
+
+        return task_keys, dec_keys, tasks, jax.vmap(rand)(dec_subs,
+                                                          tasks.connect)
+
+    tasks, rands = [], []
+    for _ in range(n_slots):
+        task_keys, dec_keys, t, r = slot(task_keys, dec_keys)
+        tasks.append(t)
+        rands.append(r)
+    tasks = {f: np.stack([np.asarray(getattr(t, f)) for t in tasks])
+             for f in TASK_FIELDS}
+    return tasks, np.stack([np.asarray(r) for r in rands])
+
+
+def reference_episode(adef, params, exit_mask, tasks, rand_cands):
+    """Replay the JAX decision path on injected draws, fleet-batched.
+
+    Returns decisions, q_est, reward, the ``MECState`` before every slot
+    and after the last ([T+1, B, ...]), and per slot and fleet the
+    critic's margin between the best candidate and the best one with a
+    different decision (``q_margin``) and the smallest per-device gap
+    between the actor's top two allowed scores (``xhat_margin``).
+    """
+    env = adef.env
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    mask = jnp.asarray(exit_mask)
+
+    def fleet(state, t, rand):
+        g = build_graph(env.observe(state, t), env.N, env.L)
+        x_hat, _ = adef.scores(jparams, g, mask)
+        cands = jnp.concatenate(
+            [one_hot_candidates(x_hat, adef.n_candidates), rand], axis=0)
+        q = env.evaluate(state, t, cands)
+        best = jnp.argmax(q)
+        new_state, res = env.step(state, t, cands[best])
+        return new_state, res.reward, cands, q, best, x_hat
+
+    step = jax.jit(jax.vmap(fleet))
+    n_slots, n_fleets = rand_cands.shape[:2]
+    state = VecMECEnv(env, n_fleets).reset()
+    states, out = [state], {k: [] for k in
+                            ("decisions", "q_est", "reward", "q_margin",
+                             "xhat_margin")}
+    for t in range(n_slots):
+        t_tasks = SlotTasks(**{f: jnp.asarray(tasks[f][t])
+                               for f in TASK_FIELDS})
+        state, reward, cands, q, best, x_hat = step(
+            state, t_tasks, jnp.asarray(rand_cands[t], jnp.int32))
+        states.append(state)
+        cands, q, best = map(np.asarray, (cands, q, best))
+        x_hat = np.sort(np.asarray(x_hat), axis=-1)
+        dec = cands[np.arange(n_fleets), best]
+        other = (cands != dec[:, None, :]).any(-1)
+        q_other = np.where(other, q, -np.inf).max(-1)
+        out["decisions"].append(dec)
+        out["q_est"].append(q[np.arange(n_fleets), best])
+        out["reward"].append(np.asarray(reward))
+        out["q_margin"].append(q[np.arange(n_fleets), best] - q_other)
+        out["xhat_margin"].append((x_hat[..., -1] - x_hat[..., -2]).min(-1))
+    out = {k: np.stack(v) for k, v in out.items()}
+    for name in ("dev_free", "es_free", "slot"):
+        out[f"state_{name}"] = np.stack(
+            [np.asarray(getattr(s, name)) for s in states])
+    return out
+
+
+def build(seed: int = EVAL_SEED, params=None):
+    """Everything the golden file holds, as a flat dict of arrays."""
+    adef = grle(SCENARIO)
+    if params is None:
+        params = train_params(adef)
+    exit_mask = np.asarray(adef.exit_mask())
+    trace, metrics = driver_trace(adef, agent_state(adef, params, exit_mask),
+                                  seed, N_FLEETS, N_SLOTS)
+    tasks, rand = driver_draws(adef, exit_mask, seed, N_FLEETS, N_SLOTS)
+    ref = reference_episode(adef, params, exit_mask, tasks, rand)
+    data = {"scenario": np.asarray(SCENARIO), "seed": np.asarray(seed),
+            "exit_mask": exit_mask, "rand_cands": rand.astype(np.int8)}
+    for layer, leaves in params.items():
+        for name, x in leaves.items():
+            data[f"params/{layer}/{name}"] = x
+    data.update({f"tasks/{k}": v for k, v in tasks.items()})
+    data.update({f"trace/{k}": v for k, v in trace.items()})
+    data.update({f"metrics/{k}": v for k, v in metrics.items()})
+    for k in ("state_dev_free", "state_es_free", "state_slot", "q_margin",
+              "xhat_margin"):
+        data[k] = ref[k]
+    return data
+
+
+def load(path: str = GOLDEN) -> dict:
+    """The golden file as a flat dict, params regrouped into a tree."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    params = {}
+    for k in [k for k in data if k.startswith("params/")]:
+        _, layer, name = k.split("/")
+        params.setdefault(layer, {})[name] = data.pop(k)
+    data["params"] = params
+    return data
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=GOLDEN)
+    args = ap.parse_args(argv)
+    data = build()
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    np.savez_compressed(args.out, **data)
+    print(f"wrote {args.out}: {os.path.getsize(args.out)} bytes, "
+          f"{len(data)} arrays")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
