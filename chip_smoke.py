@@ -1,4 +1,5 @@
-"""Drive repro_torch's GRLE decision path on one NVIDIA GPU and check it.
+"""Drive repro_torch's GRLE decision path and its LM serving path on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,17 +11,42 @@ order, each fatal on failure:
    and convolutions, so the plain versions run in full float32;
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together) and print the build time;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and inputs for B in {1, 64}: max abs error <= 1e-5;
-   time both (CUDA-graph replay, so host launch overhead is excluded);
+3. hold each actor kernel against its plain PyTorch version on the card,
+   at the main path's shapes and inputs for B in {1, 64}: max abs error
+   <= 1e-5; time both (CUDA-graph replay, so host launch overhead is
+   excluded);
 4. golden replay: ``tests/data/torch_port_golden.npz`` (a JAX run with
    its draws) through the port's driver on the card — every decision
    matches, or differs only at a recorded near-tie (margin <= 1e-5);
-5. the main path: GRLE on fig5_baseline at full width (M=14, N=2, L=5,
-   hidden (128, 64), edge 64, 143 candidates), 64 fleets, 200 slots on
-   the port's own generator, random weights from seed 0; the launch
+5. the decision path: GRLE on fig5_baseline at full width (M=14, N=2,
+   L=5, hidden (128, 64), edge 64, 143 candidates), 64 fleets, 200 slots
+   on the port's own generator, random weights from seed 0; the launch
    counts must read exactly 4 per slot for gcn_agg and 1 for edge_score;
-6. one ``{"kernels": [...]}`` line, the card line again, and last
+6. the attention kernels against their plain versions: flash_attention at
+   Llama-3.2-1B's prefill shape [4, 2048, 32 heads, 8 kv heads, 64] in
+   bf16 and on tests/test_kernels.py's grid in f32 and bf16 (window 64
+   included); decode_attention at [B in {1, 64}, 32, 8, 64, S=4096] with
+   lengths from numpy seed 0 in [1, S] and all equal to S, at the serve
+   shape [8, 32, 8, 64, 256], and on tests/test_kernels.py's grid;
+   tolerances as there (f32 2e-5, bf16 2e-2); at the main path's shapes,
+   kernel, plain and library times (scaled_dot_product_attention, the
+   yardstick only) and the bound;
+7. LM golden replay: ``tests/data/torch_lm_golden.npz`` (reduced Llama,
+   f32, JAX outputs) through the port's prefill and serve steps on the
+   card: prefill logits, prefill cache and every exit's serve logits
+   within 1e-4;
+8. prefill at full width: llama3_2_1b, bf16, random weights from seed 0,
+   B=4, S=2048; exactly 16 flash_attention and 0 decode_attention
+   launches;
+9. serve at full width: greedy decoding as EdgeServingEngine._decode does
+   it, B=8 prompts of 16..64 tokens (numpy seed 0), 32 new tokens, a
+   256-row cache, at each exit (4, 8, 12, 16); decode_attention launches
+   = exit x steps; then one serve_step per exit at B=64 against a
+   4096-row cache from a prefill (pos = 4095);
+10. consistency at full width: a 256-token prefill at B=2 against the
+   same tokens teacher-forced through serve_step: last logits and every
+   layer's K/V within relative L2 2e-2 (bf16);
+11. one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -35,17 +61,29 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
 TOL = 1e-5            # max abs error, kernel vs plain, float32
 NEAR_TIE = 1e-5       # golden: a flipped decision must sit at such a margin
 N_FLEETS, N_SLOTS, SEED = 64, 200, 0
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor-core
-# float32 FLOP/s — the kernels are plain float32 FMA code
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# attention: tests/test_kernels.py's tolerances; LM golden; consistency
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LM_GOLDEN_TOL = 1e-4
+CONSIST_TOL = 2e-2
+# the LM path: Llama-3.2-1B at full width
+LM_ARCH = "llama3_2_1b"
+PREFILL_B, PREFILL_S = 4, 2048
+SERVE_B, SERVE_NEW, SERVE_CACHE, PROMPT_LENS = 8, 32, 256, (16, 64)
+LONG_B, LONG_S = 64, 4096
+CONSIST_B, CONSIST_P = 2, 256
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor-core float32
+# FLOP/s (the actor kernels are float32 FMA code) and dense bf16 FLOP/s
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
 
@@ -124,9 +162,389 @@ def edge_score_cost(hs, hd, ef, ws, bs, wd, wf, wo, bo):
     return nbytes, flops
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+def bound(nbytes, flops, peak_flops=PEAK_F32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def causal_pairs(s, window):
+    """(query, key) pairs a causal mask keeps, with an optional window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_cost(q, k, window):
+    """Each of q, k, v read once, the output written once; QK^T and PV
+    over the kept (causal) pairs only."""
+    b, s, h, d = q.shape
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return nbytes, 4 * b * h * d * causal_pairs(s, window)
+
+
+def decode_cost(q, k, lengths):
+    """q and the output once, the K/V rows below each length once (the
+    kernel reads no others), the lengths; QK^T and PV over those rows."""
+    b, h, d = q.shape
+    rows = int(lengths.clamp(max=k.shape[1]).sum())
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * rows * k.shape[2] * d)
+              + 4 * b)
+    return nbytes, 4 * h * d * rows
+
+
+def peak_for(dtype):
+    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+# -------------------------------------------------------------- LM phases
+def attention_phase(dev):
+    """Phase 6: both attention kernels against their plain versions; at
+    the main path's shapes also kernel, plain and library times and the
+    bound. Returns the summary fields of each kernel."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(kernel, label, dtype, got, want):
+        """|kernel - plain| <= tol + tol * |plain| elementwise, as
+        np.testing.assert_allclose(rtol=tol, atol=tol)."""
+        diff = (got.float() - want.float()).abs()
+        tol = ATTN_TOL[dtype]
+        err = float(diff.max())
+        print(f"  {kernel:16s} {label:44s} {str(dtype)[6:]:8s} max_abs_err "
+              f"{err:.3e}", flush=True)
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            raise SystemExit(f"{kernel} {label} {dtype}: kernel differs from "
+                             f"plain by more than {tol} (rtol and atol); max "
+                             f"abs error {err}")
+        return err
+
+    def library_ms(library, inner, reps):
+        """The yardstick's time; None (and why) if it cannot run here."""
+        try:
+            return graph_ms(library, inner=inner, reps=reps)
+        except (RuntimeError, ValueError, TypeError) as exc:
+            print(f"  library call not timed: {type(exc).__name__}: "
+                  f"{str(exc).splitlines()[0] if str(exc) else ''}")
+            return None
+
+    def timed(kernel, label, fn, plain, library, cost, dtype, inner, reps):
+        ms = graph_ms(fn, inner=inner, reps=reps)
+        plain_ms = graph_ms(plain, inner=inner, reps=reps)
+        lib_ms = library_ms(library, inner, reps)
+        b_ms, b_by = bound(*cost, peak_flops=peak_for(dtype))
+        lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:9.2f} us"
+        print(f"  {kernel:16s} {label:44s} kernel {ms * 1e3:9.2f} us  plain "
+              f"{plain_ms * 1e3:9.2f} us  library {lib}  "
+              f"bound {b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
+              f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+
+    out = {}
+    # flash_attention: the prefill shape, then tests/test_kernels.py's grid
+    grid = [(PREFILL_B, PREFILL_S, 32, 8, 64, None, torch.bfloat16)] + [
+        (b, s, h, kvh, d, win, dt) for dt in (torch.float32, torch.bfloat16)
+        for b, s, h, kvh, d, win in ((1, 128, 2, 2, 32, None),
+                                     (2, 128, 4, 2, 64, None),
+                                     (1, 256, 8, 2, 32, 64),
+                                     (2, 64, 4, 1, 128, None))]
+    errs = []
+    for i, (b, s, h, kvh, d, win, dt) in enumerate(grid):
+        q, k, v = normal(dt, b, s, h, d), normal(dt, b, s, kvh, d), \
+            normal(dt, b, s, kvh, d)
+        label = f"[{b}, {s}, {h}, {kvh}, {d}] window {win}"
+        got = flash_mod.flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        err = check("flash_attention", label, dt, got,
+                    ref.flash_attention_ref(q, k, v, window=win))
+        if i == 0:
+            errs.append(err)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out["flash_attention"] = timed(
+                "flash_attention", label,
+                lambda: flash_mod.flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                flash_cost(q, k, None), dt, inner=5, reps=4)
+    out["flash_attention"]["max_abs_err"] = max(errs)
+
+    # decode_attention: the main path's shapes, then the test grid
+    lens_rng = np.random.default_rng(SEED)
+    errs = []
+    # (B, H, KVH, d, S, dtype, lengths, at a main-path shape)
+    cases = [(bb, 32, 8, 64, LONG_S, torch.bfloat16, lens, True)
+             for bb in (1, LONG_B) for lens in ("random", "full")]
+    cases += [(SERVE_B, 32, 8, 64, SERVE_CACHE, torch.bfloat16, "random",
+               True)]
+    cases += [(b, h, kvh, d, s, dt, "random", False)
+              for dt in (torch.float32, torch.bfloat16)
+              for b, h, kvh, d, s in ((2, 4, 2, 32, 256), (3, 8, 2, 64, 512),
+                                      (1, 2, 2, 128, 128))]
+    for b, h, kvh, d, s, dt, kind, main_shape in cases:
+        q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
+            normal(dt, b, s, kvh, d)
+        lens = (np.full(b, s) if kind == "full"
+                else lens_rng.integers(1, s + 1, size=b))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        label = f"[{b}, {h}, {kvh}, {d}, S={s}] lengths {kind}"
+        got = decode_mod.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = check("decode_attention", label, dt, got,
+                    ref.decode_attention_ref(q, k, v, lengths))
+        if main_shape:
+            errs.append(err)
+            mask = (torch.arange(s, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+            stats = timed(
+                "decode_attention", label,
+                lambda: decode_mod.decode_attention(q, k, v, lengths),
+                lambda: ref.decode_attention_ref(q, k, v, lengths),
+                lambda: F.scaled_dot_product_attention(
+                    q4, kt, vt, attn_mask=mask, enable_gqa=True),
+                decode_cost(q, k, lengths), dt, inner=20, reps=10)
+            if b == LONG_B and kind == "full":
+                out["decode_attention"] = stats
+    out["decode_attention"]["max_abs_err"] = max(errs)
+    return out
+
+
+def lm_golden_phase(dev):
+    """Phase 7: the reduced-Llama JAX run through the port on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    with np.load(LM_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    cfg = get_arch(str(gold["arch"])).reduced(
+        **{k.split("/")[1]: int(gold[k]) for k in gold
+           if k.startswith("reduced/")})
+    params = lm_params_from_numpy(lm_params_numpy(cfg, int(gold["seed"])),
+                                  cfg, dev)
+    toks = torch.tensor(gold["tokens"], device=dev)
+    b, t = toks.shape
+    n = int(gold["prefill_len"])
+
+    def err(got, key):
+        want = torch.tensor(gold[key], device=dev)
+        return float(((got.float() - want).abs() / (1 + want.abs())).max())
+
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": toks[:, :n]})
+    errs = {"prefill/logits": err(logits, "prefill/logits"),
+            "prefill/k": err(cache["layers"].k, "prefill/k"),
+            "prefill/v": err(cache["layers"].v, "prefill/v")}
+    for e in (int(x) for x in gold["exits"]):
+        step = make_serve_step(cfg, exit_layer=e)
+        c = DecoderLM.init_cache(cfg, b, t, device=dev)
+        got = []
+        for i in range(t):
+            lg, c = step(params, c, toks[:, i],
+                         torch.full((b,), i, dtype=torch.int64, device=dev))
+            got.append(lg)
+        errs[f"serve/logits_{e}"] = err(torch.stack(got), f"serve/logits_{e}")
+    for k, v in errs.items():
+        print(f"  {k:18s} max |d| / (1 + |ref|) {v:.3e}")
+    worst = max(errs.values())
+    if not worst <= LM_GOLDEN_TOL:
+        raise SystemExit(f"LM golden: error {worst} above {LM_GOLDEN_TOL}")
+    return worst
+
+
+def lm_model(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM
+
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = DecoderLM.init(gen, cfg, device=dev)
+    n = sum(x.numel() for x in _leaves(params))
+    print(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, exits "
+          f"{cfg.exit_layers}, {cfg.dtype}; {n / 1e9:.3f} B params "
+          f"(random, torch.Generator seed {SEED})", flush=True)
+    return cfg, params, gen
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def prefill_phase(dev, cfg, params, gen):
+    """Phase 8: one full-width prefill, its launches counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                         device=dev)
+    prefill(params, {"tokens": toks[:, :256]})      # warm-up: cuBLAS, attrs
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"B={PREFILL_B} S={PREFILL_S}: {wall * 1e3:.3f} ms, "
+          f"{PREFILL_B * PREFILL_S / wall:.1f} prompt tokens/s; launches "
+          f"{counts}")
+    if counts["flash_attention"] != cfg.n_layers or counts["decode_attention"]:
+        raise SystemExit(f"prefill launches {counts}: expected "
+                         f"flash_attention {cfg.n_layers}, decode_attention 0")
+    kv = (cfg.n_layers, PREFILL_B, PREFILL_S, cfg.n_kv_heads, cfg.head_dim)
+    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())
+            or tuple(cache["layers"].k.shape) != kv
+            or not bool(torch.isfinite(cache["layers"].k).all())):
+        raise SystemExit("prefill output malformed")
+    return counts["flash_attention"]
+
+
+def greedy_decode(params, step, cache, prompt_mat, lens, max_new):
+    """EdgeServingEngine._decode's loop: teacher-force each prompt, then
+    feed back the argmax; returns each request's ``max_new`` outputs and
+    the number of steps."""
+    b, total = prompt_mat.shape
+    dev = prompt_mat.device
+    lens_d = torch.tensor(lens, device=dev)
+    cur = prompt_mat[:, 0]
+    toks = []
+    for pos in range(total):
+        logits, cache = step(params, cache, cur,
+                             torch.full((b,), pos, dtype=torch.int64,
+                                        device=dev))
+        nxt = torch.argmax(logits, -1)
+        toks.append(nxt)
+        if pos + 1 < total:
+            cur = torch.where(pos + 1 < lens_d, prompt_mat[:, pos + 1], nxt)
+    gen = torch.stack(toks, 1).cpu().numpy()
+    return [gen[i, lens[i] - 1: lens[i] - 1 + max_new]
+            for i in range(b)], total
+
+
+def serve_phase(dev, cfg, params, gen):
+    """Phase 9: greedy decoding at every exit, launches counted; then one
+    serve_step per exit at B=64 against a 4096-row cache."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_B)
+    total = int(lens.max()) + SERVE_NEW
+    mat = np.zeros((SERVE_B, total), np.int64)
+    for i, n in enumerate(lens):
+        mat[i, :n] = rng.integers(0, cfg.vocab, size=n)
+    prompt_mat = torch.tensor(mat, device=dev)
+    print(f"B={SERVE_B} prompts of {sorted(lens.tolist())} tokens, "
+          f"max_new {SERVE_NEW}, cache {SERVE_CACHE} rows, {total} steps")
+    warm = DecoderLM.init_cache(cfg, SERVE_B, SERVE_CACHE, device=dev)
+    greedy_decode(params, make_serve_step(cfg), warm, prompt_mat[:, :3],
+                  lens.clip(max=3), 0)
+    del warm
+    decode_launches, rows = 0, {}
+    for e in cfg.exit_layers:
+        step = make_serve_step(cfg, exit_layer=e)
+        cache = DecoderLM.init_cache(cfg, SERVE_B, SERVE_CACHE, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, steps = greedy_decode(params, step, cache, prompt_mat, lens,
+                                    SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        decode_launches += counts["decode_attention"]
+        rows[e] = wall / steps * 1e3
+        print(f"  exit {e:2d}: {wall / steps * 1e3:8.3f} ms/step, "
+              f"{SERVE_B * SERVE_NEW / wall:9.1f} generated tokens/s, "
+              f"launches {counts}", flush=True)
+        if (counts["decode_attention"] != e * steps
+                or counts["flash_attention"]):
+            raise SystemExit(f"exit {e}: launches {counts}, expected "
+                             f"decode_attention {e * steps}")
+        if any(len(o) != SERVE_NEW or o.min() < 0 or o.max() >= cfg.vocab
+               for o in outs):
+            raise SystemExit(f"exit {e}: generated tokens malformed")
+        if cache["layers"].k[e:].any():
+            raise SystemExit(f"exit {e}: a layer past the exit wrote the cache")
+        del cache
+
+    # one serve_step against a 4096-row cache filled by a prefill
+    prefill = make_prefill_step(cfg)
+    cache = DecoderLM.init_cache(cfg, LONG_B, LONG_S, device=dev)
+    toks = torch.randint(0, cfg.vocab, (LONG_B, LONG_S), generator=gen,
+                         device=dev)
+    chunk = 16
+    for i in range(0, LONG_B, chunk):
+        _, c = prefill(params, {"tokens": toks[i:i + chunk]})
+        cache["layers"].k[:, i:i + chunk] = c["layers"].k
+        cache["layers"].v[:, i:i + chunk] = c["layers"].v
+        del c
+    pos = torch.full((LONG_B,), LONG_S - 1, dtype=torch.int64, device=dev)
+    for e in cfg.exit_layers:
+        step = make_serve_step(cfg, exit_layer=e)
+        step(params, cache, toks[:, -1], pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            logits, _ = step(params, cache, toks[:, -1], pos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"B={LONG_B} exit {e}: logits not finite")
+        print(f"  B={LONG_B} cache {LONG_S} exit {e:2d}: {ms:8.3f} ms/step, "
+              f"{LONG_B / ms * 1e3:9.1f} tokens/s")
+    del cache
+    torch.cuda.empty_cache()
+    return decode_launches
+
+
+def consistency_phase(dev, cfg, params, gen):
+    """Phase 10: prefill against teacher-forced decode on the same tokens."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    toks = torch.randint(0, cfg.vocab, (CONSIST_B, CONSIST_P), generator=gen,
+                         device=dev)
+    logits_p, cache_p = make_prefill_step(cfg)(params, {"tokens": toks})
+    step = make_serve_step(cfg)
+    cache_d = DecoderLM.init_cache(cfg, CONSIST_B, CONSIST_P, device=dev)
+    for t in range(CONSIST_P):
+        logits_d, cache_d = step(params, cache_d, toks[:, t],
+                                 torch.full((CONSIST_B,), t,
+                                            dtype=torch.int64, device=dev))
+    errs = {"logits": rel_l2(logits_d, logits_p)}
+    for i in range(cfg.n_layers):
+        errs[f"k[{i}]"] = rel_l2(cache_d["layers"].k[i], cache_p["layers"].k[i])
+        errs[f"v[{i}]"] = rel_l2(cache_d["layers"].v[i], cache_p["layers"].v[i])
+    print("relative L2, decode vs prefill: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    worst = max(errs.values())
+    if not worst <= CONSIST_TOL:
+        raise SystemExit(f"consistency: relative L2 {worst} above "
+                         f"{CONSIST_TOL}")
+    return worst
 
 
 # ------------------------------------------------------------------ phases
@@ -272,7 +690,8 @@ def main() -> int:
     print(f"wall {wall:.4f} s  fleet-slots/s {N_FLEETS * N_SLOTS / wall:.1f}  "
           f"slot {wall / N_SLOTS * 1e3:.3f} ms")
     print(f"launches {counts}")
-    if counts != {"gcn_agg": 4 * N_SLOTS, "edge_score": N_SLOTS}:
+    if counts != {"gcn_agg": 4 * N_SLOTS, "edge_score": N_SLOTS,
+                  "flash_attention": 0, "decode_attention": 0}:
         raise SystemExit(f"launch counts {counts}, expected gcn_agg "
                          f"{4 * N_SLOTS} and edge_score {N_SLOTS}")
     dec = trace.decisions
@@ -284,7 +703,23 @@ def main() -> int:
             or not 0.0 < m["avg_accuracy"] <= float(env.exit_acc.max())):
         raise SystemExit("main path output malformed")
 
-    phase(6, "summary")
+    phase(6, "attention kernels vs plain versions on the card")
+    attn = attention_phase(dev)
+
+    phase(7, "LM golden replay of a JAX run (reduced Llama, f32)")
+    lm_golden_phase(dev)
+
+    phase(8, "LM prefill: llama3_2_1b, full width, bf16")
+    cfg, params, lm_gen = lm_model(dev)
+    flash_launches = prefill_phase(dev, cfg, params, lm_gen)
+
+    phase(9, "LM serve: greedy early-exit decoding, full width, bf16")
+    decode_launches = serve_phase(dev, cfg, params, lm_gen)
+
+    phase(10, "LM consistency: prefill vs teacher-forced decode")
+    consistency_phase(dev, cfg, params, lm_gen)
+
+    phase(11, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -299,8 +734,22 @@ def main() -> int:
             "max_abs_err": max(v["err"] for v in stats[name].values()),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
-    print("times are per slot at B=64: the sum over one actor forward's "
-          "launches (gcn_agg: 4, edge_score: 1)")
+    launches = {"flash_attention": flash_launches,
+                "decode_attention": decode_launches}
+    for name, replaces in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:70"),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:56")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            **attn[name]})
+    print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
+          "actor forward's launches (4 and 1); flash_attention: one call at "
+          f"[{PREFILL_B}, {PREFILL_S}, 32, 8, 64] bf16, launches of one "
+          f"prefill; decode_attention: one call at [{LONG_B}, 32, 8, 64, "
+          f"S={LONG_S}] bf16, every row read, launches of the serve phase's "
+          "four exits")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
 """Carry weights across from the JAX package.
 
-The caller converts a JAX GCN param tree to numpy first
-(``jax.tree_util.tree_map(np.asarray, state.params)``), so this module
-needs neither JAX nor anything of ``repro``. Names, shapes and dtypes are
-checked against the port's layout (``core.gcn.param_shapes``) and any
-mismatch raises. The msgpack checkpoint reader comes later.
+The caller converts a JAX param tree to numpy first
+(``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
+neither JAX nor anything of ``repro``. Names, shapes and dtypes are
+checked against the port's layout (``core.gcn.param_shapes`` for the GCN
+actor, ``DecoderLM.param_shapes`` for a decoder LM) and any mismatch
+raises. The msgpack checkpoint reader comes later.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import gcn
 from repro_torch.core.policy import DEV_DIM, OPT_DIM, AgentState
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import DecoderLM
 
 
 def params_from_numpy(tree: dict, device, *, hidden=(128, 64),
@@ -58,3 +64,79 @@ def agent_state_from_numpy(params: dict, exit_mask: np.ndarray, device, *,
                                  edge_hidden=edge_hidden),
         exit_mask=torch.tensor(exit_mask, device=device),
         step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict, depth first in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for path, x in flat.items():
+        *heads, leaf = path.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = x
+    return out
+
+
+def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """A numpy decoder-LM param tree (the reference's ``DecoderLM.init``
+    layout) -> the port's param dict on ``device`` (the card unless
+    ``"cpu"``). Every leaf's name, shape and dtype (``cfg.dtype``; a
+    bfloat16 leaf is ml_dtypes' ``bfloat16``, as ``np.asarray`` gives it
+    for a JAX array) must match ``DecoderLM.param_shapes(cfg)``."""
+    device = resolve_device(device)
+    want = dict(_leaves(DecoderLM.param_shapes(cfg)))
+    got = dict(_leaves(tree))
+    if set(got) != set(want):
+        raise ValueError(f"param leaves differ: missing "
+                         f"{sorted(set(want) - set(got))}, unexpected "
+                         f"{sorted(set(got) - set(want))}")
+    out = {}
+    for path, shape in want.items():
+        x = got[path]
+        if not isinstance(x, np.ndarray):
+            raise TypeError(f"{path}: expected a numpy array, got "
+                            f"{type(x).__name__}")
+        if x.dtype.name != cfg.dtype:
+            raise TypeError(f"{path}: dtype {x.dtype.name}, expected "
+                            f"{cfg.dtype}")
+        if x.shape != shape:
+            raise ValueError(f"{path}: shape {x.shape}, expected {shape}")
+        if cfg.dtype == "bfloat16":
+            t = torch.from_numpy(np.array(x).view(np.uint16))
+            t = t.view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(x))
+        out[path] = t.to(device)
+    return _unflatten(out)
+
+
+def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
+    """Random float32 decoder-LM params drawn with numpy from ``seed``,
+    leaf by leaf in the order of ``DecoderLM.param_shapes(cfg)``: weights
+    Xavier-uniform per [in, out] matrix, biases and the embedding
+    N(0, 0.02), norm scales 1 + N(0, 0.1). Both frameworks can rebuild
+    them from the seed alone (``tools/make_torch_lm_golden.py``,
+    ``chip_smoke.py``); biases and scales are nonzero and not one, so
+    a test sees them."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, shape in _leaves(DecoderLM.param_shapes(cfg)):
+        leaf = path.rsplit("/", 1)[1]
+        if leaf == "w":
+            limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+            x = rng.uniform(-limit, limit, size=shape)
+        elif leaf == "scale":
+            x = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            x = 0.02 * rng.standard_normal(shape)
+        flat[path] = x.astype(np.float32)
+    return _unflatten(flat)

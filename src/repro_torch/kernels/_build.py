@@ -2,9 +2,10 @@
 
 Each source becomes its own shared library with a plain C interface,
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout. The
-hash covers the source and the flags, so a library is rebuilt only when
-its source changes. ``build_all`` starts one ``nvcc`` per source, all
-together. No PyTorch header is compiled: a build takes seconds, where
+hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so a library is rebuilt only when one of them changes.
+``build_all`` starts one ``nvcc`` per source, all together. No PyTorch
+header is compiled: a build takes seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes and needs ``ninja``.
 
 The binding helpers at the bottom are shared by the kernel wrappers.
@@ -24,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("gcn_agg", "edge_score")
+KERNELS = ("gcn_agg", "edge_score", "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +48,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -112,12 +114,30 @@ def device_of(*tensors: torch.Tensor) -> torch.device:
     return devices.pop()
 
 
-def check_f32(names: str, *tensors: torch.Tensor, contiguous: bool = True):
+def check_dtype(names: str, *tensors: torch.Tensor,
+                dtypes=(torch.float32,), contiguous: bool = True):
+    """Each tensor's dtype is one of ``dtypes`` (and, if ``contiguous``,
+    the tensor is contiguous); raises otherwise."""
     for name, t in zip(names.split(), tensors):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: the CUDA kernel takes {allowed}, got {t.dtype}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes a contiguous tensor")
+
+
+def check_rows(names: str, *tensors: torch.Tensor):
+    """Each tensor's last axis is contiguous and every row starts on a
+    16-byte boundary, as the attention kernels' vector loads need."""
+    for name, t in zip(names.split(), tensors):
+        vec = 16 // t.element_size()
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(st % vec for st in t.stride()[:-1])
+                or t.shape[-1] % vec):
+            raise ValueError(
+                f"{name}: the CUDA kernel reads rows of 16-byte vectors: the "
+                f"last axis must be contiguous and every row 16-byte aligned "
+                f"(strides {t.stride()}, shape {tuple(t.shape)})")
 
 
 def launch(fn, kernel: str, device: torch.device, *args) -> None:

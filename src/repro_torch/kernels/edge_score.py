@@ -46,7 +46,7 @@ def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
 
 def _launch(device, hs, hd, ef, ws, bs, wd, wf, wo, bo):
     global launches
-    _build.check_f32("h_src h_dst edge_feat w_src b_src w_dst w_feat w_out "
+    _build.check_dtype("h_src h_dst edge_feat w_src b_src w_dst w_feat w_out "
                      "b_out", hs, hd, ef, ws, bs, wd, wf, wo, bo)
     b, m, o = ef.shape
     h, e = ws.shape

@@ -42,8 +42,8 @@ def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
 
 def _launch(device, adj, hs, hn, ws, wn, bias):
     global launches
-    _build.check_f32("adj", adj, contiguous=False)
-    _build.check_f32("self_feat nbr_feat w_self w_nbr bias",
+    _build.check_dtype("adj", adj, contiguous=False)
+    _build.check_dtype("self_feat nbr_feat w_self w_nbr bias",
                      hs, hn, ws, wn, bias)
     b, m, o = adj.shape
     fs, fn, h = hs.shape[-1], hn.shape[-1], ws.shape[-1]

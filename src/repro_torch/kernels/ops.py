@@ -1,17 +1,23 @@
-"""Dispatch for the actor-path kernels, forward only.
+"""Dispatch for the hand-written kernels, forward only.
 
-Counterpart of ``repro/kernels/ops.py::gcn_agg`` / ``::edge_score``. The
-tensor's device picks the backend: CUDA tensors go to the hand-written
-kernels, CPU tensors to their plain versions. There is no switch and no
-fallback. The hand-written backwards (``repro/kernels/ops.py:85-105,
+Counterpart of ``repro/kernels/ops.py::gcn_agg`` / ``::edge_score`` /
+``::flash_attention`` / ``::decode_attention``. The tensor's device picks
+the backend: CUDA tensors go to the hand-written kernels, CPU tensors to
+their plain versions. There is no switch and no fallback. The
+hand-written backwards of the actor kernels (``repro/kernels/ops.py:85-105,
 141-171``) come with the training slice as ``torch.autograd.Function``s;
-until then an input that requires grad raises, so a missing gradient
-cannot go unnoticed.
+the TPU attention kernels have no backward. Until then an input that
+requires grad raises, so a missing gradient cannot go unnoticed.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import edge_score as _edge
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn
+
+_MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
+            "flash_attention": _flash, "decode_attention": _decode}
 
 
 def _forward_only(op: str, *tensors) -> None:
@@ -41,11 +47,25 @@ def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
     return _edge.edge_score(*args)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Causal GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] ->
+    [B,S,H,d], keys j <= i with i - j < ``window``."""
+    _forward_only("flash_attention", q, k, v)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, lengths):
+    """One query token per sequence against a KV cache: q [B,H,d],
+    k/v [B,S,KVH,d], keys j < lengths[b] -> [B,H,d]."""
+    _forward_only("decode_attention", q, k, v)
+    return _decode.decode_attention(q, k, v, lengths)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
-    return {"gcn_agg": _gcn.launches, "edge_score": _edge.launches}
+    return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _gcn.launches = 0
-    _edge.launches = 0
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -1,12 +1,17 @@
-"""Plain PyTorch versions of the actor-path kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Counterparts of ``repro/kernels/ref.py::gcn_agg_ref`` and
-``::edge_score_ref``. They are what a CPU tensor runs, and what
-``chip_smoke.py`` holds the CUDA kernels against on the card.
+Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
+``::flash_attention_ref`` and ``::decode_attention_ref``. They are what a
+CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
+on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+_NEG = -1e30
 
 
 def gcn_agg_ref(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
@@ -33,3 +38,39 @@ def edge_score_ref(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat,
     x = src[..., :, None, :] + dst[..., None, :, :] \
         + edge_feat[..., None] * w_feat
     return torch.sum(torch.relu(x) * w_out, dim=-1) + b_out[0]
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """q [B,S,H,d], k/v [B,S,KVH,d] -> [B,S,H,d]: plain softmax attention
+    in float32 with kv head h // (H / KVH), scale 1/sqrt(d), keys j kept
+    where j <= i (causal) and i - j < window; cast to q's dtype."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qf = q.float().reshape(b, s, kvh, h // kvh, d)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= pos[:, None] - pos[None, :] < window
+    logits = torch.where(ok, logits, _NEG)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths):
+    """q [B,H,d] one token; k/v [B,S,KVH,d]; lengths [B] = number of valid
+    cache rows -> [B,H,d], in float32, cast to q's dtype."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, kvh, h // kvh, d)
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * scale
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    logits = torch.where(valid[:, None, None, :], logits, _NEG)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)

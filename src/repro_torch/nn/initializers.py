@@ -1,7 +1,8 @@
 """Weight initializers drawing from an explicit ``torch.Generator``.
 
-Counterpart of ``repro/nn/initializers.py`` (``xavier_uniform``,
-``zeros_init``). Same distributions as the reference, not its bits.
+Counterpart of ``repro/nn/initializers.py`` (``normal_init``,
+``xavier_uniform``, ``zeros_init``, ``ones_init``). Same distributions as
+the reference, not its bits.
 """
 from __future__ import annotations
 
@@ -10,17 +11,30 @@ import math
 import torch
 
 
+def normal_init(generator: torch.Generator, shape, *, device,
+                scale: float = 0.02, dtype=torch.float32):
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
 def xavier_uniform(generator: torch.Generator, shape, *, device,
                    dtype=torch.float32):
     fan_in, fan_out = _fans(shape)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
-    return u * (2.0 * limit) - limit
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return (u * (2.0 * limit) - limit).to(dtype)
 
 
 def zeros_init(generator, shape, *, device, dtype=torch.float32):
     del generator
     return torch.zeros(shape, device=device, dtype=dtype)
+
+
+def ones_init(generator, shape, *, device, dtype=torch.float32):
+    del generator
+    return torch.ones(shape, device=device, dtype=dtype)
 
 
 def _fans(shape):

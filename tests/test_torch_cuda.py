@@ -9,12 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import agent_def
+from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import edge_score as edge_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import gcn_agg as gcn_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.mec import MECEnv, make_scenario
+from repro_torch.models import DecoderLM
 from repro_torch.rollout import RolloutDriver
+from repro_torch.train import make_prefill_step, make_serve_step
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +102,129 @@ def test_driver_launches_each_kernel_per_slot(cuda):
     ops.reset_launch_counts()
     _, trace = drv.run(0, 3)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"gcn_agg": 12, "edge_score": 3}
+    assert ops.launch_counts() == {"gcn_agg": 12, "edge_score": 3,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
     assert trace.decisions.shape == (3, 8, env.M)
     assert bool(torch.isfinite(trace.reward).all())
+
+
+# ---------------------------------------------------------------- attention
+# tests/test_kernels.py's attention tolerances
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# (B, S, H, KVH, d, window): tests/test_kernels.py's grid, a ragged S, and
+# Llama-3.2-1B's prefill shape at B=1
+FLASH_SHAPES = [(1, 128, 2, 2, 32, None), (2, 128, 4, 2, 64, None),
+                (1, 256, 8, 2, 32, 64), (2, 64, 4, 1, 128, None),
+                (2, 100, 4, 2, 64, 48), (1, 2048, 32, 8, 64, None)]
+# (B, H, KVH, d, S): tests/test_kernels.py's grid and Llama-3.2-1B's decode
+DECODE_SHAPES = [(2, 4, 2, 32, 256), (3, 8, 2, 64, 512), (1, 2, 2, 128, 128),
+                 (8, 32, 8, 64, 256), (64, 32, 8, 64, 4096)]
+
+
+def normal(device, dtype, *shape, seed=0):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.tensor(x, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,win", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d,
+                                              win):
+    q = normal(cuda, dtype, b, s, h, d, seed=1)
+    k = normal(cuda, dtype, b, s, kvh, d, seed=2)
+    v = normal(cuda, dtype, b, s, kvh, d, seed=3)
+    before = flash_mod.launches
+    got = flash_mod.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, window=win)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,d,s", DECODE_SHAPES)
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, d, s):
+    q = normal(cuda, dtype, b, h, d, seed=1)
+    k = normal(cuda, dtype, b, s, kvh, d, seed=2)
+    v = normal(cuda, dtype, b, s, kvh, d, seed=3)
+    lens = np.random.default_rng(4).integers(1, s + 1, size=b)
+    for lengths in (lens, np.full(b, s)):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        before = decode_mod.launches
+        got = decode_mod.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        assert decode_mod.launches == before + 1
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **ATTN_TOL[dtype])
+
+
+def test_decode_attention_reads_a_strided_cache_layer(cuda):
+    """A layer's slice of the stacked [L, B, S, KVH, d] cache, and a query
+    with a non-unit batch stride, as the model passes them."""
+    cache = normal(cuda, torch.bfloat16, 3, 2, 128, 2, 64, seed=5)
+    q = normal(cuda, torch.bfloat16, 2, 1, 4, 64, seed=6)[:, 0]
+    lengths = torch.tensor([5, 128], dtype=torch.int32, device=cuda)
+    got = decode_mod.decode_attention(q, cache[1], cache[2], lengths)
+    want = ref.decode_attention_ref(q, cache[1], cache[2], lengths)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "decode_attention"])
+def test_attention_wrappers_refuse_what_the_kernel_cannot_take(cuda, op):
+    fn = getattr(ops, op)
+    decode = op == "decode_attention"
+    qshape = (1, 4, 64) if decode else (1, 64, 4, 64)
+    q = normal(cuda, torch.float32, *qshape)
+    k = normal(cuda, torch.float32, 1, 64, 2, 64)
+    extra = ((torch.full((1,), 64, dtype=torch.int32, device=cuda),)
+             if decode else ())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn(q.double(), k.double(), k.double(), *extra)
+    with pytest.raises(TypeError, match="share a dtype"):
+        fn(q, k.bfloat16(), k.bfloat16(), *extra)
+    with pytest.raises(ValueError, match="several devices"):
+        fn(q, k.cpu(), k, *extra)
+    q3 = normal(cuda, torch.float32, *qshape[:-2], 3, 64)
+    with pytest.raises(ValueError, match="do not split"):
+        fn(q3, k, k, *extra)
+    q48 = normal(cuda, torch.float32, *qshape[:-1], 48)
+    k48 = normal(cuda, torch.float32, 1, 64, 2, 48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fn(q48, k48, k48, *extra)
+    if decode:
+        with pytest.raises(TypeError, match="int32"):
+            fn(q, k, k, extra[0].long())
+
+
+def test_lm_launch_counts(cuda):
+    """A full-depth prefill of a 16-layer config launches flash_attention
+    16 times; one serve_step at exit e launches decode_attention e times."""
+    cfg = get_arch("llama3_2_1b").reduced(n_layers=16, n_kv_heads=2)
+    params = DecoderLM.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    ops.reset_launch_counts()
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 16
+    assert ops.launch_counts()["decode_attention"] == 0
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    for e in cfg.exit_layers:
+        ops.reset_launch_counts()
+        c = DecoderLM.init_cache(cfg, 2, 32, device=cuda)
+        lg, _ = make_serve_step(cfg, exit_layer=e)(
+            params, c, toks[:, 0], torch.zeros(2, dtype=torch.int64,
+                                               device=cuda))
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0,
+                                       "flash_attention": 0,
+                                       "decode_attention": e}
+        assert not c["layers"].k[e:].any()

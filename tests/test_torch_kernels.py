@@ -1,12 +1,16 @@
-"""repro_torch actor-path kernels: the plain versions against the JAX
-Pallas kernels (interpret mode), and the dispatch rules. The CUDA kernels
-are held against the plain versions in test_torch_cuda.py, on a GPU."""
+"""repro_torch's kernels: the plain versions against the JAX Pallas
+kernels (interpret mode) and the JAX refs, and the dispatch rules. The
+CUDA kernels are held against the plain versions in test_torch_cuda.py,
+on a GPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jax_ref
+from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.edge_score import edge_score as jax_edge_score
+from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.gcn_agg import gcn_agg as jax_gcn_agg
 from repro_torch.kernels import edge_score as edge_mod
 from repro_torch.kernels import gcn_agg as gcn_mod
@@ -22,6 +26,12 @@ ACTOR_SHAPES = [(b, m, o) for b in (1, 64) for m in (5, 14)
 # the paper's width (core/gcn.py): device then option side, layers 1 and 2
 SLICE_GCN = [(14, 10, 7, 4, 128), (10, 14, 4, 7, 128),
              (14, 10, 128, 128, 64), (10, 14, 128, 128, 64)]
+# tests/test_kernels.py's attention grids and tolerances
+ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+FLASH_GRID = [(1, 128, 2, 2, 32, None), (2, 128, 4, 2, 64, None),
+              (1, 256, 8, 2, 32, 64), (2, 64, 4, 1, 128, None)]
+DECODE_GRID = [(2, 4, 2, 32, 256), (3, 8, 2, 64, 512), (1, 2, 2, 128, 128)]
 
 
 def gcn_args(seed, b, m, o, fs=7, fn=4, h=16):
@@ -85,7 +95,9 @@ def test_ops_on_cpu_runs_plain_version_and_launches_nothing():
     e_args = to_torch(edge_args(0, 2, 5, 6))
     assert torch.equal(ops.gcn_agg(*g_args), ref.gcn_agg_ref(*g_args))
     assert torch.equal(ops.edge_score(*e_args), ref.edge_score_ref(*e_args))
-    assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0}
+    assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
 
 
 def test_ops_strided_adjacency_on_cpu():
@@ -99,10 +111,105 @@ def test_ops_strided_adjacency_on_cpu():
         rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("op", ["gcn_agg", "edge_score"])
+def attn_args(seed, b, s, h, kvh, d, dtype="float32", decode=False):
+    """numpy-drawn q/k/v (and lengths in [1, S] for decode) as JAX and as
+    torch arrays, both rounded to ``dtype`` from the same float32 bits."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d) if decode else (b, s, h, d))
+    k = rng.standard_normal((b, s, kvh, d))
+    v = rng.standard_normal((b, s, kvh, d))
+    arrays = [a.astype(np.float32) for a in (q, k, v)]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrays]
+    if decode:
+        lens = rng.integers(1, s + 1, size=(b,)).astype(np.int32)
+        jx.append(jnp.asarray(lens))
+        tx.append(torch.tensor(lens))
+    return jx, tx
+
+
+def as_f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32), np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kvh,d,win", FLASH_GRID)
+def test_flash_attention_ref_matches_pallas_and_jax_ref(dtype, b, s, h, kvh,
+                                                        d, win):
+    (jq, jk, jv), (q, k, v) = attn_args(s + h + d, b, s, h, kvh, d, dtype)
+    got = ref.flash_attention_ref(q, k, v, window=win)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    for want in (jax_flash(jq, jk, jv, window=win, block_q=64, block_k=64),
+                 jax_ref.flash_attention_ref(jq, jk, jv, window=win)):
+        np.testing.assert_allclose(as_f32(got), as_f32(want),
+                                   **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,d,s", DECODE_GRID)
+def test_decode_attention_ref_matches_pallas_and_jax_ref(dtype, b, h, kvh, d,
+                                                         s):
+    jx, tx = attn_args(s + h + d, b, s, h, kvh, d, dtype, decode=True)
+    got = ref.decode_attention_ref(*tx)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    for want in (jax_decode(*jx, block_k=128),
+                 jax_ref.decode_attention_ref(*jx)):
+        np.testing.assert_allclose(as_f32(got), as_f32(want),
+                                   **ATTN_TOL[dtype])
+
+
+def test_flash_attention_ref_non_causal_and_ragged_length():
+    """The port's kernel takes any S (the TPU kernel needs S % block == 0)
+    and causal=False; the plain version agrees with the JAX ref there."""
+    (jq, jk, jv), (q, k, v) = attn_args(3, 2, 100, 4, 2, 64)
+    for causal in (True, False):
+        np.testing.assert_allclose(
+            as_f32(ops.flash_attention(q, k, v, causal=causal)),
+            as_f32(jax_ref.flash_attention_ref(jq, jk, jv, causal=causal)),
+            **ATTN_TOL["float32"])
+
+
+def test_attention_ops_on_cpu_run_plain_versions():
+    ops.reset_launch_counts()
+    _, (q, k, v) = attn_args(0, 2, 64, 4, 2, 32)
+    assert torch.equal(ops.flash_attention(q, k, v, window=16),
+                       ref.flash_attention_ref(q, k, v, window=16))
+    _, dx = attn_args(1, 2, 64, 4, 2, 32, decode=True)
+    assert torch.equal(ops.decode_attention(*dx),
+                       ref.decode_attention_ref(*dx))
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "decode_attention"])
+def test_attention_wrappers_refuse_bad_shapes_and_devices(op):
+    decode = op == "decode_attention"
+    fn = getattr(ops, op)
+    _, args = attn_args(0, 1, 64, 3, 2, 32, decode=decode)   # 3 % 2 != 0
+    with pytest.raises(ValueError, match="do not split"):
+        fn(*args)
+    _, args = attn_args(0, 1, 64, 4, 2, 32, decode=decode)
+    with pytest.raises(ValueError, match="must be"):
+        fn(args[0], args[1][:, :, :1], *args[2:])
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fn(*meta)
+    with pytest.raises(ValueError, match="several devices"):
+        fn(*args[:-1], meta[-1])
+    if not decode:
+        with pytest.raises(ValueError, match="window"):
+            fn(*args, window=0)
+
+
+@pytest.mark.parametrize("op", ["gcn_agg", "edge_score", "flash_attention",
+                                "decode_attention"])
 def test_ops_raise_on_requires_grad(op):
-    args = to_torch(gcn_args(0, 1, 4, 3) if op == "gcn_agg"
-                    else edge_args(0, 1, 4, 3))
+    if op in ("flash_attention", "decode_attention"):
+        _, args = attn_args(0, 1, 64, 4, 2, 32,
+                            decode=op == "decode_attention")
+    else:
+        args = to_torch(gcn_args(0, 1, 4, 3) if op == "gcn_agg"
+                        else edge_args(0, 1, 4, 3))
     args[1].requires_grad_(True)
     with pytest.raises(NotImplementedError, match="forward-only"):
         getattr(ops, op)(*args)
