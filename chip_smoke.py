@@ -23,14 +23,16 @@ order, each fatal on failure:
    on the port's own generator, random weights from seed 0; the launch
    counts must read exactly 4 per slot for gcn_agg and 1 for edge_score;
 6. the attention kernels against their plain versions: flash_attention at
-   Llama-3.2-1B's prefill shape [4, 2048, 32 heads, 8 kv heads, 64] in
-   bf16 and on tests/test_kernels.py's grid in f32 and bf16 (window 64
-   included); decode_attention at [B in {1, 64}, 32, 8, 64, S=4096] with
-   lengths from numpy seed 0 in [1, S] and all equal to S, at the serve
-   shape [8, 32, 8, 64, 256], and on tests/test_kernels.py's grid;
-   tolerances as there (f32 2e-5, bf16 2e-2); at the main path's shapes,
-   kernel, plain and library times (scaled_dot_product_attention, the
-   yardstick only) and the bound;
+   Llama-3.2-1B's prefill shape [4, 2048, 32 heads, 8 kv heads, 64] and
+   on tests/test_kernels.py's grid (window 64 included); decode_attention
+   at [B in {1, 64}, 32, 8, 64, S=4096] with lengths from numpy seed 0 in
+   [1, S] and all equal to S, at the serve shape [8, 32, 8, 64, 256], and
+   on tests/test_kernels.py's grid; every shape in f32 and bf16, with the
+   tolerances there (f32 2e-5, bf16 2e-2; the kernels compute in f32 in
+   both, so the f32 checks hold the arithmetic tightly at the main path's
+   shapes too); at the main path's shapes in bf16, kernel, plain and
+   library times (scaled_dot_product_attention, the yardstick only) and
+   the bound;
 7. LM golden replay: ``tests/data/torch_lm_golden.npz`` (reduced Llama,
    f32, JAX outputs) through the port's prefill and serve steps on the
    card: prefill logits, prefill cache and every exit's serve logits
@@ -253,8 +255,10 @@ def attention_phase(dev):
                     bound_ms=b_ms, bound_by=b_by)
 
     out = {}
-    # flash_attention: the prefill shape, then tests/test_kernels.py's grid
-    grid = [(PREFILL_B, PREFILL_S, 32, 8, 64, None, torch.bfloat16)] + [
+    # flash_attention: the prefill shape in bf16 (timed) and f32, then
+    # tests/test_kernels.py's grid
+    grid = [(PREFILL_B, PREFILL_S, 32, 8, 64, None, dt)
+            for dt in (torch.bfloat16, torch.float32)] + [
         (b, s, h, kvh, d, win, dt) for dt in (torch.float32, torch.bfloat16)
         for b, s, h, kvh, d, win in ((1, 128, 2, 2, 32, None),
                                      (2, 128, 4, 2, 64, None),
@@ -269,8 +273,9 @@ def attention_phase(dev):
         torch.cuda.synchronize()
         err = check("flash_attention", label, dt, got,
                     ref.flash_attention_ref(q, k, v, window=win))
-        if i == 0:
+        if i < 2:
             errs.append(err)
+        if i == 0:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             out["flash_attention"] = timed(
                 "flash_attention", label,
@@ -281,34 +286,39 @@ def attention_phase(dev):
                 flash_cost(q, k, None), dt, inner=5, reps=4)
     out["flash_attention"]["max_abs_err"] = max(errs)
 
-    # decode_attention: the main path's shapes, then the test grid
+    # decode_attention: the main path's shapes in bf16 (timed) and f32,
+    # then the test grid; one draw of lengths serves both dtypes
     lens_rng = np.random.default_rng(SEED)
     errs = []
-    # (B, H, KVH, d, S, dtype, lengths, at a main-path shape)
-    cases = [(bb, 32, 8, 64, LONG_S, torch.bfloat16, lens, True)
+    main_dts = (torch.bfloat16, torch.float32)
+    # (B, H, KVH, d, S, dtypes, lengths, at a main-path shape)
+    cases = [(bb, 32, 8, 64, LONG_S, main_dts, lens, True)
              for bb in (1, LONG_B) for lens in ("random", "full")]
-    cases += [(SERVE_B, 32, 8, 64, SERVE_CACHE, torch.bfloat16, "random",
-               True)]
-    cases += [(b, h, kvh, d, s, dt, "random", False)
+    cases += [(SERVE_B, 32, 8, 64, SERVE_CACHE, main_dts, "random", True)]
+    cases += [(b, h, kvh, d, s, (dt,), "random", False)
               for dt in (torch.float32, torch.bfloat16)
               for b, h, kvh, d, s in ((2, 4, 2, 32, 256), (3, 8, 2, 64, 512),
                                       (1, 2, 2, 128, 128))]
-    for b, h, kvh, d, s, dt, kind, main_shape in cases:
-        q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
-            normal(dt, b, s, kvh, d)
+    for b, h, kvh, d, s, dts, kind, main_shape in cases:
         lens = (np.full(b, s) if kind == "full"
                 else lens_rng.integers(1, s + 1, size=b))
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         label = f"[{b}, {h}, {kvh}, {d}, S={s}] lengths {kind}"
-        got = decode_mod.decode_attention(q, k, v, lengths)
-        torch.cuda.synchronize()
-        err = check("decode_attention", label, dt, got,
-                    ref.decode_attention_ref(q, k, v, lengths))
-        if main_shape:
-            errs.append(err)
+        for dt in dts:
+            q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
+                normal(dt, b, s, kvh, d)
+            got = decode_mod.decode_attention(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err = check("decode_attention", label, dt, got,
+                        ref.decode_attention_ref(q, k, v, lengths))
+            if main_shape:
+                errs.append(err)
+            if not main_shape or dt != torch.bfloat16:
+                continue
             mask = (torch.arange(s, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
-            q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+            q4, kt, vt = (q[:, :, None, :], k.transpose(1, 2),
+                          v.transpose(1, 2))
             stats = timed(
                 "decode_attention", label,
                 lambda: decode_mod.decode_attention(q, k, v, lengths),

@@ -153,15 +153,19 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   static unsigned long long configured = 0;
   const int g = (int)(H / KVH);
   const size_t smem = smem_bytes<D>(g);
-  // the largest group seen so far sets the limit; raise it again if larger
+  // the largest group launched so far sets the limit; a larger one raises
+  // it on every device again. A group the card cannot hold is refused
+  // here (cudaErrorInvalidValue) and leaves the limit as it was.
   static size_t limit = 0;
-  if (smem > limit) {
-    configured = 0;
-    limit = smem;
-  }
+  if (smem > limit) configured = 0;
+  const size_t want = smem > limit ? smem : limit;
   cudaError_t err =
-      attn::allow_smem(decode_attention_kernel<T, D>, limit, &configured);
-  if (err != cudaSuccess) return (int)err;
+      attn::allow_smem(decode_attention_kernel<T, D>, want, &configured);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return (int)err;
+  }
+  limit = want;
   const float scale_log2 = attn::kLog2e / sqrtf((float)D);
   const dim3 grid((unsigned)KVH, (unsigned)B);
   decode_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(

@@ -202,6 +202,17 @@ def test_attention_wrappers_refuse_what_the_kernel_cannot_take(cuda, op):
     if decode:
         with pytest.raises(TypeError, match="int32"):
             fn(q, k, k, extra[0].long())
+        # 512 query heads on one kv head need more shared memory than a
+        # block has: the kernel refuses the launch, and the next launch of
+        # a group that fits is not affected
+        q512 = normal(cuda, torch.float32, 1, 512, 64)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(q512, k[:, :, :1], k[:, :, :1], *extra)
+        got = fn(q, k, k, *extra)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(
+            got.cpu().numpy(), ref.decode_attention_ref(q, k, k, *extra)
+            .cpu().numpy(), **ATTN_TOL[torch.float32])
 
 
 def test_lm_launch_counts(cuda):

@@ -24,6 +24,7 @@ from repro.models.lm import DecoderLM as JaxLM
 from repro.models.rope import apply_rope as jax_rope
 from repro.nn import Embedding as JaxEmbedding
 from repro.nn import RMSNorm as JaxRMSNorm
+from repro.train.steps import make_prefill_step as jax_make_prefill_step
 from repro_torch.configs import get_arch
 from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
 from repro_torch.kernels import ops
@@ -202,6 +203,27 @@ def test_prefill_matches_reference(arch):
                                        cfg.head_dim)
     close(cache["layers"].k, jk, MODULE_TOL)
     close(cache["layers"].v, jv, MODULE_TOL)
+
+
+def test_reference_prefill_cache_is_not_its_decode_cache():
+    """The reference's fault that the port does not copy (ROADMAP §3): the
+    K/V that JAX's ``DecoderLM.prefill`` returns are those of the ln2
+    output, not the ln1 K/V that its ``serve_step`` writes over the same
+    tokens, while its prefill logits agree with the decode's. If this
+    fails, the reference changed: revisit ROADMAP §3."""
+    cfg, jcfg = configs("llama3_2_1b")
+    _, jp = params(cfg)
+    toks = golden_tool.tokens(cfg, B, P, seed=7)
+    logits, cache = jax.jit(jax_make_prefill_step(jcfg))(
+        jp, {"tokens": jnp.asarray(toks)})
+    want, jk, jv = golden_tool.serve(jcfg, jp, toks, P)
+    close(torch.tensor(np.asarray(logits)), want[-1], MODEL_TOL)
+    per_layer = lambda a: np.abs(a).max(axis=(1, 2, 3, 4))  # noqa: E731
+    dk = per_layer(np.asarray(cache["layers"].k) - jk)
+    dv = per_layer(np.asarray(cache["layers"].v) - jv)
+    # every layer's cache is off by a sizeable share of its largest entry
+    assert (dk > 0.25 * per_layer(jk)).all(), (dk, per_layer(jk))
+    assert (dv > 0.25 * per_layer(jv)).all(), (dv, per_layer(jv))
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen1_5_0_5b"])

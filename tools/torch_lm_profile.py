@@ -22,12 +22,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
@@ -35,42 +32,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import DecoderLM  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
+from torch_profiling import card, device_summary, profiled  # noqa: E402
 
 OUR_KERNELS = ("flash_attention_kernel", "decode_attention_kernel")
 
 
-def device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0)))
-
-
-def profiled(fn, n_calls: int) -> dict:
-    """Run ``fn`` ``n_calls`` times under the profiler; per-call numbers."""
-    fn()                                              # warm-up
+def measure(fn, n_calls: int) -> dict:
+    """One warm-up call, then ``n_calls`` under the profiler; per call."""
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == cuda and device_us(e) > 0]
-    total = sum(device_us(e) for e in kernels)
-    top = sorted(kernels, key=device_us, reverse=True)[:6]
-    return {
-        "wall_ms_per_call": wall / n_calls * 1e3,
-        "device_us_per_call": total / n_calls,
-        "device_busy_share": total / (wall * 1e6),
-        "kernel_launches_per_call": sum(e.count for e in kernels) / n_calls,
-        "attention_kernels_device_us_per_call": {
-            k: sum(device_us(e) for e in kernels if k in e.key) / n_calls
-            for k in OUR_KERNELS},
-        "top_kernels_device_us_per_call": {
-            e.key[:60]: device_us(e) / n_calls for e in top},
-    }
+    prof, wall = profiled(fn, n_calls)
+    return {"wall_ms_per_call": wall / n_calls * 1e3,
+            **device_summary(prof, wall, n_calls, "call", OUR_KERNELS)}
 
 
 def main(argv=None) -> int:
@@ -82,10 +55,8 @@ def main(argv=None) -> int:
         print("torch_lm_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(card)
+    card_name = card()
+    print(card_name)
     dev = torch.device("cuda")
     cfg = get_arch("llama3_2_1b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -93,11 +64,12 @@ def main(argv=None) -> int:
     prefill = make_prefill_step(cfg)
 
     def emit(name, row):
-        print(json.dumps({"case": name, **row, "card": card}), flush=True)
+        print(json.dumps({"case": name, **row, "card": card_name}),
+              flush=True)
 
     toks = torch.randint(0, cfg.vocab, (4, 2048), generator=gen, device=dev)
     emit("prefill B=4 S=2048",
-         profiled(lambda: prefill(params, {"tokens": toks}), 1))
+         measure(lambda: prefill(params, {"tokens": toks}), 1))
 
     # B=8: a 256-row cache holding a 128-token prefill
     b, p0 = 8, 128
@@ -117,7 +89,7 @@ def main(argv=None) -> int:
                  torch.full((b,), i, dtype=torch.int64, device=dev))
             pos[0] += 1
 
-        emit(f"decode B=8 cache 256 exit {e}", profiled(one, args.steps))
+        emit(f"decode B=8 cache 256 exit {e}", measure(one, args.steps))
         del cache
     del filled
 
@@ -134,7 +106,7 @@ def main(argv=None) -> int:
     for e in cfg.exit_layers:
         step = make_serve_step(cfg, exit_layer=e)
         emit(f"decode B=64 cache 4096 exit {e}",
-             profiled(lambda: step(params, cache, toks[:, -1], pos), 5))
+             measure(lambda: step(params, cache, toks[:, -1], pos), 5))
     return 0
 
 
