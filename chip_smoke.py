@@ -1,5 +1,5 @@
-"""Drive repro_torch's GRLE decision path and its LM serving path on one
-NVIDIA GPU and check them.
+"""Drive repro_torch's GRLE decision path and its LM serving paths (dense
+GQA and RWKV-6) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -48,13 +48,47 @@ order, each fatal on failure:
 10. consistency at full width: a 256-token prefill at B=2 against the
    same tokens teacher-forced through serve_step: last logits and every
    layer's K/V within relative L2 2e-2 (bf16);
-11. one ``{"kernels": [...]}`` line, the card line again, and last
+11. ssm_scan against its plain version: tests/test_kernels.py's grid in
+   both semantics (Mamba without a bonus, RWKV with one) and RWKV-6-7B's
+   prefill shape [4, 2048, 64, 64, 64], chunk 128, RWKV semantics, in f32
+   and bf16, unit-normal q, k, v; each with the fast log decay -exp(0.5 N)
+   of the tests and a slow one -exp(0.5 N - 5) with a nonzero initial
+   state, so the carried state matters; y and the final state within f32
+   1e-4 / bf16 3e-2 of 1 + the largest |value| of their (sequence, head)
+   (float32 rounding scales with the sums a recurrence adds, and |y|
+   reaches ~400 at slow decays); at the prefill shape in f32 the same
+   tolerance must reject the plain version with the initial state
+   dropped, the decays one token late or the bonus dropped; in bf16
+   kernel time (CUDA-graph replay), plain time (CUDA events around one
+   eager call: the plain version is a 2048-step loop) and the bound (the
+   recurrence's 5 dk dv operations per token and head);
+12. RWKV golden replay: ``tests/data/torch_rwkv_golden.npz`` (reduced
+   RWKV-6, f32, JAX outputs) through the port on the card: prefill logits
+   and state and every exit's serve logits within 1e-4;
+13. prefill at full width: rwkv6_7b (Llama's params freed first), bf16,
+   random weights from seed 0, B=4, S=2048; exactly 32 ssm_scan launches
+   and no attention launch;
+14. serve at full width: greedy decoding as in phase 9, B=8 prompts of
+   16..64 tokens, 32 new tokens, at each exit (8, 16, 24, 32); no kernel
+   launch (decode runs the plain recurrence step) and no state past the
+   exit written; then one serve_step per exit at B=64 from the state of a
+   256-token prefill;
+15. consistency at full width: a 256-token prefill at B=2 against the
+   same tokens teacher-forced through serve_step, relative L2 of the last
+   logits and every layer's wkv, shift_tm and shift_cm: in bf16 all
+   printed and layer 0's (same inputs on both paths) within 2e-2; then on
+   the same weights in float32, all within 2e-3, once with the init's
+   decays and once with w0 uniform in [-6, 0] (slow decays, so the state
+   carried across prefill's two chunks matters); in bf16 the drift grows
+   with depth to ~0.1-0.2, in the JAX reference too (tools/rwkv_drift.py);
+16. one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -70,6 +104,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
+RWKV_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rwkv_golden.npz")
 TOL = 1e-5            # max abs error, kernel vs plain, float32
 NEAR_TIE = 1e-5       # golden: a flipped decision must sit at such a margin
 N_FLEETS, N_SLOTS, SEED = 64, 200, 0
@@ -77,14 +112,30 @@ N_FLEETS, N_SLOTS, SEED = 64, 200, 0
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_GOLDEN_TOL = 1e-4
 CONSIST_TOL = 2e-2
+# RWKV-6 in bf16 drifts far more than that over its 32 layers, in the JAX
+# reference too (tools/rwkv_drift.py); its full-depth consistency is held in
+# float32, 10x tighter than the bf16 limit, and in bf16 at layer 0 only,
+# whose inputs both paths share
+CONSIST_F32_TOL = 2e-3
 # the LM path: Llama-3.2-1B at full width
 LM_ARCH = "llama3_2_1b"
 PREFILL_B, PREFILL_S = 4, 2048
 SERVE_B, SERVE_NEW, SERVE_CACHE, PROMPT_LENS = 8, 32, 256, (16, 64)
 LONG_B, LONG_S = 64, 4096
 CONSIST_B, CONSIST_P = 2, 256
+# the SSM path: RWKV-6-7B at full width; tests/test_kernels.py's ssm grid
+# (B, T, H, dk, dv, chunk) and tolerances, taken of 1 + the largest |value|
+# of each (sequence, head) (scan_err)
+SSM_ARCH = "rwkv6_7b"
+SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSM_GRID = ((2, 64, 2, 8, 16, 16), (1, 128, 4, 16, 16, 32),
+            (2, 32, 1, 64, 32, 32))
+SSM_PREFILL = (PREFILL_B, PREFILL_S, 64, 64, 64, 128)
+SSM_LONG_B, SSM_LONG_P = 64, 256
+STATE_FIELDS = ("wkv", "shift_tm", "shift_cm")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor-core float32
-# FLOP/s (the actor kernels are float32 FMA code) and dense bf16 FLOP/s
+# FLOP/s and dense bf16 FLOP/s; a bound takes the rate of its inputs' type
+# (peak_for), whatever units the kernel itself computes on
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
@@ -375,17 +426,20 @@ def lm_golden_phase(dev):
     return worst
 
 
-def lm_model(dev):
+def lm_model(dev, arch=LM_ARCH):
     from repro_torch.configs import get_arch
     from repro_torch.models import DecoderLM
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = DecoderLM.init(gen, cfg, device=dev)
     n = sum(x.numel() for x in _leaves(params))
+    heads = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads x "
+             f"{cfg.head_dim}" if cfg.n_heads else
+             f"{cfg.d_model // cfg.ssm_head_dim} {cfg.ssm_kind} heads x "
+             f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}")
     print(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_heads} heads over "
-          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, exits "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {heads}, exits "
           f"{cfg.exit_layers}, {cfg.dtype}; {n / 1e9:.3f} B params "
           f"(random, torch.Generator seed {SEED})", flush=True)
     return cfg, params, gen
@@ -418,7 +472,8 @@ def prefill_phase(dev, cfg, params, gen):
     print(f"B={PREFILL_B} S={PREFILL_S}: {wall * 1e3:.3f} ms, "
           f"{PREFILL_B * PREFILL_S / wall:.1f} prompt tokens/s; launches "
           f"{counts}")
-    if counts["flash_attention"] != cfg.n_layers or counts["decode_attention"]:
+    if (counts["flash_attention"] != cfg.n_layers
+            or counts["decode_attention"] or counts["ssm_scan"]):
         raise SystemExit(f"prefill launches {counts}: expected "
                          f"flash_attention {cfg.n_layers}, decode_attention 0")
     kv = (cfg.n_layers, PREFILL_B, PREFILL_S, cfg.n_kv_heads, cfg.head_dim)
@@ -556,6 +611,359 @@ def consistency_phase(dev, cfg, params, gen):
                          f"{CONSIST_TOL}")
     return worst
 
+
+# ------------------------------------------------------------- SSM phases
+def ssm_cost(q, v, log_w, u, s0):
+    """(bytes, flops) the function needs: q, k, v, log_w, u and the initial
+    state read once, y and the final state written once; per token and
+    head the recurrence's decay (dk·dv), update (2·dk·dv) and read-out
+    (2·dk·dv), plus RWKV's bonus term (3·dk + 2·dv). The kernel's chunked
+    form does more; that is its cost, not the function's."""
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    es = q.element_size()
+    nbytes = (es * (2 * q.numel() + 2 * v.numel()) + 4 * log_w.numel()
+              + 4 * b * h * dk * dv
+              + sum(4 * x.numel() for x in (u, s0) if x is not None))
+    per_token = 5 * dk * dv + (3 * dk + 2 * dv if u is not None else 0)
+    return nbytes, b * t * h * per_token
+
+
+def scan_err(got, want, state=False):
+    """Max over elements of |got - want| / (1 + the largest |want| of the
+    same (sequence, head)), for y [B,T,H,dv] or a state [B,H,dk,dv]. The
+    float32 rounding of a recurrence's output scales with the sums it is
+    made of, so with the largest outputs of its (sequence, head), not with
+    each element's own size."""
+    got, want = got.float(), want.float()
+    scale = 1 + want.abs().amax(dim=(2, 3) if state else (1, 3),
+                                keepdim=True)
+    return float(((got - want).abs() / scale).max())
+def event_ms(fn, *, reps=3) -> float:
+    """Device time of one eager ``fn()`` between CUDA events, host launch
+    path included (for the plain scan, a loop too long to capture)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ssm_scan_phase(dev):
+    """Phase 11: ssm_scan against its plain version, y and final state;
+    at the prefill shape in f32 with slow decays, that the tolerance
+    rejects three wrong answers; in bf16 kernel and plain times and the
+    bound. Returns the kernel's summary fields."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    def check(label, dtype, got, want, tol, state=False):
+        err = scan_err(got, want, state)
+        if not err <= tol:
+            raise SystemExit(f"ssm_scan {label} {dtype}: kernel differs from "
+                             f"plain by {err} of 1 + its (sequence, head)'s "
+                             f"largest |value|, above {tol}")
+        return err
+
+    cases = [(shape, dt, rwkv, slow) for dt in (torch.float32, torch.bfloat16)
+             for shape in SSM_GRID for rwkv in (False, True)
+             for slow in (False, True)]
+    cases += [(SSM_PREFILL, dt, True, slow)
+              for dt in (torch.bfloat16, torch.float32) for slow in (False, True)]
+    out, errs = None, []
+    for (b, t, h, dk, dv, c), dt, rwkv, slow in cases:
+        main_shape = (b, t, h, dk, dv, c) == SSM_PREFILL
+        q = normal(b, t, h, dk).to(dt)
+        k = normal(b, t, h, dk).to(dt)
+        v = normal(b, t, h, dv).to(dt)
+        log_w = -torch.exp(normal(b, t, h, dk, scale=0.5,
+                                  shift=-5.0 if slow else 0.0))
+        u = normal(h, dk, scale=0.2) if rwkv else None
+        s0 = normal(b, h, dk, dv) if slow else None
+        y, st = ssm_mod.ssm_scan(q, k, v, log_w, u, chunk=c, initial_state=s0)
+        torch.cuda.synchronize()
+        want_y, want_s = ref.ssm_scan_ref(q, k, v, log_w, bonus_u=u,
+                                          initial_state=s0)
+        label = (f"[{b}, {t}, {h}, {dk}, {dv}] chunk {c} "
+                 f"{'rwkv' if rwkv else 'mamba'} {'slow' if slow else 'fast'}")
+        err_y = check(label + " y", dt, y, want_y, SSM_TOL[dt])
+        err_s = check(label + " state", dt, st, want_s, SSM_TOL[torch.float32],
+                      state=True)
+        print(f"  ssm_scan {label:46s} {str(dt)[6:]:8s} err y {err_y:.3e} "
+              f"state {err_s:.3e} (max |y| "
+              f"{float(want_y.float().abs().max()):.1f}, max abs error "
+              f"{float((y.float() - want_y.float()).abs().max()):.3e})",
+              flush=True)
+        if main_shape:
+            errs.append(float((y.float() - want_y.float()).abs().max()))
+        if main_shape and dt == torch.float32 and slow:
+            # the tolerance must still reject a kernel that drops the
+            # initial state, applies each decay one token late or drops
+            # RWKV's bonus
+            late = torch.cat([log_w[:, :1], log_w[:, :-1]], dim=1)
+            for what, w_c, u_c, s0_c in (
+                    ("initial state dropped", log_w, u, None),
+                    ("decays one token late", late, u, s0),
+                    ("bonus dropped", log_w, torch.zeros_like(u), s0)):
+                wrong, _ = ref.ssm_scan_ref(q, k, v, w_c, bonus_u=u_c,
+                                            initial_state=s0_c)
+                e = scan_err(wrong, want_y)
+                print(f"  control: plain with the {what}: err y {e:.3e} "
+                      f"(tolerance {SSM_TOL[dt]})")
+                if not e > SSM_TOL[dt]:
+                    raise SystemExit(f"ssm_scan: the tolerance accepts the "
+                                     f"plain version with the {what}")
+                del wrong
+        if main_shape and dt == torch.bfloat16 and not slow:
+            ms = graph_ms(lambda: ssm_mod.ssm_scan(q, k, v, log_w, u, chunk=c),
+                          inner=5, reps=4)
+            plain_ms = event_ms(lambda: ref.ssm_scan_ref(q, k, v, log_w,
+                                                         bonus_u=u))
+            cost = ssm_cost(q, v, log_w, u, None)
+            b_ms, b_by = bound(*cost, peak_for(dt))
+            print(f"  ssm_scan {label:46s} kernel {ms * 1e3:9.2f} us  plain "
+                  f"{plain_ms * 1e3:9.2f} us (eager)  library n/a  bound "
+                  f"{b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
+                  f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
+            out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, log_w, y, st, want_y, want_s
+    out["max_abs_err"] = max(errs)
+    return out
+
+
+def rwkv_golden_phase(dev):
+    """Phase 12: the reduced-RWKV JAX run through the port on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    with np.load(RWKV_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    cfg = get_arch(str(gold["arch"])).reduced(
+        **{k.split("/")[1]: int(gold[k]) for k in gold
+           if k.startswith("reduced/")})
+    params = lm_params_from_numpy(lm_params_numpy(cfg, int(gold["seed"])),
+                                  cfg, dev)
+    toks = torch.tensor(gold["tokens"], device=dev)
+    b, n = toks.shape[0], int(gold["serve_len"])
+
+    def err(got, key):
+        want = torch.tensor(gold[key], device=dev)
+        return float(((got.float() - want).abs() / (1 + want.abs())).max())
+
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": toks})
+    errs = {"prefill/logits": err(logits, "prefill/logits")}
+    errs.update({f"prefill/{f}": err(getattr(cache["layers"], f),
+                                     f"prefill/{f}") for f in STATE_FIELDS})
+    for e in (int(x) for x in gold["exits"]):
+        step = make_serve_step(cfg, exit_layer=e)
+        c = DecoderLM.init_cache(cfg, b, n, device=dev)
+        got = []
+        for i in range(n):
+            lg, c = step(params, c, toks[:, i],
+                         torch.full((b,), i, dtype=torch.int64, device=dev))
+            got.append(lg)
+        errs[f"serve/logits_{e}"] = err(torch.stack(got), f"serve/logits_{e}")
+    for k, v in errs.items():
+        print(f"  {k:18s} max |d| / (1 + |ref|) {v:.3e}")
+    worst = max(errs.values())
+    if not worst <= LM_GOLDEN_TOL:
+        raise SystemExit(f"RWKV golden: error {worst} above {LM_GOLDEN_TOL}")
+    return worst
+
+
+def rwkv_prefill_phase(dev, cfg, params, gen):
+    """Phase 13: one full-width RWKV-6 prefill, its launches counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                         device=dev)
+    prefill(params, {"tokens": toks[:, :256]})      # warm-up: cuBLAS, attrs
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"B={PREFILL_B} S={PREFILL_S}: {wall * 1e3:.3f} ms, "
+          f"{PREFILL_B * PREFILL_S / wall:.1f} prompt tokens/s; launches "
+          f"{counts}")
+    if counts["ssm_scan"] != cfg.n_layers or any(
+            n for k, n in counts.items() if k != "ssm_scan"):
+        raise SystemExit(f"prefill launches {counts}: expected ssm_scan "
+                         f"{cfg.n_layers} and nothing else")
+    h = cfg.d_model // cfg.ssm_head_dim
+    st = cache["layers"]
+    if (tuple(logits.shape) != (PREFILL_B, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())
+            or tuple(st.wkv.shape) != (cfg.n_layers, PREFILL_B, h,
+                                       cfg.ssm_head_dim, cfg.ssm_head_dim)
+            or tuple(st.shift_tm.shape) != (cfg.n_layers, PREFILL_B,
+                                            cfg.d_model)
+            or not all(bool(torch.isfinite(x).all()) for x in st)):
+        raise SystemExit("RWKV prefill output malformed")
+    return counts["ssm_scan"]
+
+
+def rwkv_serve_phase(dev, cfg, params, gen):
+    """Phase 14: greedy decoding at every exit, launches counted; then one
+    serve_step per exit at B=64 from a prefilled state."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_B)
+    total = int(lens.max()) + SERVE_NEW
+    mat = np.zeros((SERVE_B, total), np.int64)
+    for i, n in enumerate(lens):
+        mat[i, :n] = rng.integers(0, cfg.vocab, size=n)
+    prompt_mat = torch.tensor(mat, device=dev)
+    print(f"B={SERVE_B} prompts of {sorted(lens.tolist())} tokens, "
+          f"max_new {SERVE_NEW}, {total} steps")
+    warm = DecoderLM.init_cache(cfg, SERVE_B, total, device=dev)
+    greedy_decode(params, make_serve_step(cfg), warm, prompt_mat[:, :3],
+                  lens.clip(max=3), 0)
+    del warm
+    launches = 0
+    for e in cfg.exit_layers:
+        step = make_serve_step(cfg, exit_layer=e)
+        cache = DecoderLM.init_cache(cfg, SERVE_B, total, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, steps = greedy_decode(params, step, cache, prompt_mat, lens,
+                                    SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launches += counts["ssm_scan"]
+        print(f"  exit {e:2d}: {wall / steps * 1e3:8.3f} ms/step, "
+              f"{SERVE_B * SERVE_NEW / wall:9.1f} generated tokens/s, "
+              f"launches {counts}", flush=True)
+        if any(counts.values()):
+            raise SystemExit(f"exit {e}: launches {counts}, expected none "
+                             f"(decode runs the plain recurrence step)")
+        if any(len(o) != SERVE_NEW or o.min() < 0 or o.max() >= cfg.vocab
+               for o in outs):
+            raise SystemExit(f"exit {e}: generated tokens malformed")
+        if any(bool(x[e:].any()) for x in cache["layers"]):
+            raise SystemExit(f"exit {e}: a layer past the exit wrote its state")
+        if not all(bool(x[:e].any()) for x in cache["layers"]):
+            raise SystemExit(f"exit {e}: a layer up to the exit kept a zero "
+                             f"state")
+        del cache
+
+    # one serve_step per exit from the state of a 256-token prefill
+    toks = torch.randint(0, cfg.vocab, (SSM_LONG_B, SSM_LONG_P),
+                         generator=gen, device=dev)
+    _, filled = make_prefill_step(cfg)(params, {"tokens": toks})
+    pos = torch.full((SSM_LONG_B,), SSM_LONG_P, dtype=torch.int64, device=dev)
+    nxt = toks[:, -1]
+    for e in cfg.exit_layers:
+        step = make_serve_step(cfg, exit_layer=e)
+        cache = {"layers": type(filled["layers"])(
+            *(x.clone() for x in filled["layers"]))}
+        step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            logits, _ = step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"B={SSM_LONG_B} exit {e}: logits not finite")
+        print(f"  B={SSM_LONG_B} after a {SSM_LONG_P}-token prefill, exit "
+              f"{e:2d}: {ms:8.3f} ms/step, {SSM_LONG_B / ms * 1e3:9.1f} "
+              f"tokens/s")
+        del cache
+    del filled
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_drift(dev, cfg, params, toks):
+    """Relative L2 between a prefill of ``toks`` and the same tokens
+    teacher-forced through serve_step: last logits and every layer's
+    wkv, shift_tm and shift_cm."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    b, n = toks.shape
+    logits_p, cache_p = make_prefill_step(cfg)(params, {"tokens": toks})
+    step = make_serve_step(cfg)
+    cache_d = DecoderLM.init_cache(cfg, b, n, device=dev)
+    for t in range(n):
+        logits_d, cache_d = step(params, cache_d, toks[:, t],
+                                 torch.full((b,), t, dtype=torch.int64,
+                                            device=dev))
+    errs = {"logits": rel_l2(logits_d, logits_p)}
+    for f in STATE_FIELDS:
+        for i in range(cfg.n_layers):
+            errs[f"{f}[{i}]"] = rel_l2(getattr(cache_d["layers"], f)[i],
+                                       getattr(cache_p["layers"], f)[i])
+    return errs
+
+
+def rwkv_consistency_phase(dev, cfg, params, gen):
+    """Phase 15: prefill against teacher-forced decode on the same tokens,
+    in bf16 (layer 0 gated), then on the same weights cast to float32
+    (every layer gated), then in float32 with slow decays."""
+    toks = torch.randint(0, cfg.vocab, (CONSIST_B, CONSIST_P), generator=gen,
+                         device=dev)
+    errs = rwkv_drift(dev, cfg, params, toks)
+    print("bf16, relative L2, decode vs prefill: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    first = max(errs[f"{f}[0]"] for f in STATE_FIELDS)
+    if not first <= CONSIST_TOL:
+        raise SystemExit(f"RWKV consistency (bf16): layer 0's state differs "
+                         f"by relative L2 {first}, above {CONSIST_TOL}")
+    for leaves in _dicts(params):          # in place: the bf16 copy goes
+        for k, x in leaves.items():
+            if not isinstance(x, dict):
+                leaves[k] = x.float()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = 0.0
+    for decays in ("init", "slow"):
+        if decays == "slow":
+            # w0 uniform in [-6, 0], as lm_params_numpy draws it: the
+            # init's zero w0 decays the state by ~e^-1 a step, these by
+            # down to ~0.9975, so the state that prefill carries from its
+            # first chunk into its second matters
+            w0 = params["blocks"]["core"]["w0"]
+            w0.copy_(-6.0 * torch.rand(w0.shape, generator=gen, device=dev))
+        errs = rwkv_drift(dev, cfg32, params, toks)
+        print(f"f32, {decays} decays, relative L2, decode vs prefill: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        worst = max(worst, *errs.values())
+        if not worst <= CONSIST_F32_TOL:
+            raise SystemExit(f"RWKV consistency (f32, {decays} decays): "
+                             f"relative L2 {worst} above {CONSIST_F32_TOL}")
+    return worst
+
+
+def _dicts(tree):
+    """Every dict of a nested param tree, the tree itself included."""
+    yield tree
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _dicts(v)
 
 # ------------------------------------------------------------------ phases
 def main() -> int:
@@ -701,7 +1109,8 @@ def main() -> int:
           f"slot {wall / N_SLOTS * 1e3:.3f} ms")
     print(f"launches {counts}")
     if counts != {"gcn_agg": 4 * N_SLOTS, "edge_score": N_SLOTS,
-                  "flash_attention": 0, "decode_attention": 0}:
+                  "flash_attention": 0, "decode_attention": 0,
+                  "ssm_scan": 0}:
         raise SystemExit(f"launch counts {counts}, expected gcn_agg "
                          f"{4 * N_SLOTS} and edge_score {N_SLOTS}")
     dec = trace.decisions
@@ -728,8 +1137,26 @@ def main() -> int:
 
     phase(10, "LM consistency: prefill vs teacher-forced decode")
     consistency_phase(dev, cfg, params, lm_gen)
+    del params
+    torch.cuda.empty_cache()
 
-    phase(11, "summary")
+    phase(11, "ssm_scan vs its plain version on the card")
+    ssm = ssm_scan_phase(dev)
+
+    phase(12, "RWKV golden replay of a JAX run (reduced RWKV-6, f32)")
+    rwkv_golden_phase(dev)
+
+    phase(13, "RWKV prefill: rwkv6_7b, full width, bf16")
+    cfg, params, lm_gen = lm_model(dev, SSM_ARCH)
+    ssm_launches = rwkv_prefill_phase(dev, cfg, params, lm_gen)
+
+    phase(14, "RWKV serve: greedy early-exit decoding, full width, bf16")
+    rwkv_serve_phase(dev, cfg, params, lm_gen)
+
+    phase(15, "RWKV consistency: prefill vs teacher-forced decode")
+    rwkv_consistency_phase(dev, cfg, params, lm_gen)
+
+    phase(16, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -754,12 +1181,19 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             **attn[name]})
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:93",
+        "launches": ssm_launches, **ssm})
     print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
           "actor forward's launches (4 and 1); flash_attention: one call at "
           f"[{PREFILL_B}, {PREFILL_S}, 32, 8, 64] bf16, launches of one "
           f"prefill; decode_attention: one call at [{LONG_B}, 32, 8, 64, "
           f"S={LONG_S}] bf16, every row read, launches of the serve phase's "
-          "four exits")
+          f"four exits; ssm_scan: one call at {list(SSM_PREFILL[:5])} chunk "
+          f"{SSM_PREFILL[5]} bf16, plain timed eagerly, launches of one RWKV "
+          "prefill (its decode launches none)")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -89,11 +89,15 @@ def _unflatten(flat: dict) -> dict:
 def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
     """A numpy decoder-LM param tree (the reference's ``DecoderLM.init``
     layout) -> the port's param dict on ``device`` (the card unless
-    ``"cpu"``). Every leaf's name, shape and dtype (``cfg.dtype``; a
+    ``"cpu"``). Every leaf's name, shape and dtype must match
+    ``DecoderLM.param_shapes(cfg)`` and ``DecoderLM.param_dtypes(cfg)``
+    (``cfg.dtype`` but for RWKV-6's float32 ``w0`` and ``bonus_u``; a
     bfloat16 leaf is ml_dtypes' ``bfloat16``, as ``np.asarray`` gives it
-    for a JAX array) must match ``DecoderLM.param_shapes(cfg)``."""
+    for a JAX array)."""
     device = resolve_device(device)
     want = dict(_leaves(DecoderLM.param_shapes(cfg)))
+    dtypes = {path: str(dt).replace("torch.", "")
+              for path, dt in _leaves(DecoderLM.param_dtypes(cfg))}
     got = dict(_leaves(tree))
     if set(got) != set(want):
         raise ValueError(f"param leaves differ: missing "
@@ -105,12 +109,12 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
         if not isinstance(x, np.ndarray):
             raise TypeError(f"{path}: expected a numpy array, got "
                             f"{type(x).__name__}")
-        if x.dtype.name != cfg.dtype:
+        if x.dtype.name != dtypes[path]:
             raise TypeError(f"{path}: dtype {x.dtype.name}, expected "
-                            f"{cfg.dtype}")
+                            f"{dtypes[path]}")
         if x.shape != shape:
             raise ValueError(f"{path}: shape {x.shape}, expected {shape}")
-        if cfg.dtype == "bfloat16":
+        if dtypes[path] == "bfloat16":
             t = torch.from_numpy(np.array(x).view(np.uint16))
             t = t.view(torch.bfloat16)
         else:
@@ -122,11 +126,13 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
 def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
     """Random float32 decoder-LM params drawn with numpy from ``seed``,
     leaf by leaf in the order of ``DecoderLM.param_shapes(cfg)``: weights
-    Xavier-uniform per [in, out] matrix, biases and the embedding
-    N(0, 0.02), norm scales 1 + N(0, 0.1). Both frameworks can rebuild
-    them from the seed alone (``tools/make_torch_lm_golden.py``,
-    ``chip_smoke.py``); biases and scales are nonzero and not one, so
-    a test sees them."""
+    Xavier-uniform per [in, out] matrix, norm scales 1 + N(0, 0.1),
+    RWKV-6's decay base ``w0`` uniform in [-6, 0] (decays per step from
+    ~0.9975 to ~0.37, so the state carries across chunks), every other
+    leaf (biases, embedding, RWKV mixes, LoRAs, bonus) N(0, 0.02). Both
+    frameworks can rebuild them from the seed alone
+    (``tools/make_torch_lm_golden.py``, ``chip_smoke.py``); biases and
+    scales are nonzero and not one, so a test sees them."""
     rng = np.random.default_rng(seed)
     flat = {}
     for path, shape in _leaves(DecoderLM.param_shapes(cfg)):
@@ -136,6 +142,8 @@ def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
             x = rng.uniform(-limit, limit, size=shape)
         elif leaf == "scale":
             x = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf == "w0":
+            x = rng.uniform(-6.0, 0.0, size=shape)
         else:
             x = 0.02 * rng.standard_normal(shape)
         flat[path] = x.astype(np.float32)

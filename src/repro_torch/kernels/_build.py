@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("gcn_agg", "edge_score", "flash_attention", "decode_attention")
+KERNELS = ("gcn_agg", "edge_score", "flash_attention", "decode_attention",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

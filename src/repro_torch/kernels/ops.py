@@ -1,12 +1,14 @@
 """Dispatch for the hand-written kernels, forward only.
 
 Counterpart of ``repro/kernels/ops.py::gcn_agg`` / ``::edge_score`` /
-``::flash_attention`` / ``::decode_attention``. The tensor's device picks
+``::flash_attention`` / ``::decode_attention``, and of the chunked
+recurrence of ``repro/models/ssm.py::chunked_linear_attn``
+(``ssm_scan``). The tensor's device picks
 the backend: CUDA tensors go to the hand-written kernels, CPU tensors to
 their plain versions. There is no switch and no fallback. The
 hand-written backwards of the actor kernels (``repro/kernels/ops.py:85-105,
 141-171``) come with the training slice as ``torch.autograd.Function``s;
-the TPU attention kernels have no backward. Until then an input that
+the TPU attention and scan kernels have no backward. Until then an input that
 requires grad raises, so a missing gradient cannot go unnoticed.
 """
 from __future__ import annotations
@@ -15,9 +17,11 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import edge_score as _edge
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn
+from repro_torch.kernels import ssm_scan as _ssm
 
 _MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
-            "flash_attention": _flash, "decode_attention": _decode}
+            "flash_attention": _flash, "decode_attention": _decode,
+            "ssm_scan": _ssm}
 
 
 def _forward_only(op: str, *tensors) -> None:
@@ -59,6 +63,18 @@ def decode_attention(q, k, v, lengths):
     k/v [B,S,KVH,d], keys j < lengths[b] -> [B,H,d]."""
     _forward_only("decode_attention", q, k, v)
     return _decode.decode_attention(q, k, v, lengths)
+
+
+def ssm_scan(q, k, v, log_w, bonus_u=None, *, chunk: int,
+             initial_state=None):
+    """The gated linear recurrence in chunks of ``chunk`` rows: q, k,
+    log_w [B,T,H,dk], v [B,T,H,dv] -> (y [B,T,H,dv], final state
+    [B,H,dk,dv] float32); ``bonus_u`` [H,dk] selects RWKV semantics, None
+    Mamba/SSD; ``initial_state`` None starts from zeros."""
+    extra = [x for x in (bonus_u, initial_state) if x is not None]
+    _forward_only("ssm_scan", q, k, v, log_w, *extra)
+    return _ssm.ssm_scan(q, k, v, log_w, bonus_u, chunk=chunk,
+                         initial_state=initial_state)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
-``::flash_attention_ref`` and ``::decode_attention_ref``. They are what a
+``::flash_attention_ref``, ``::decode_attention_ref`` and ``::ssm_scan_ref``. They are what a
 CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
 on the card.
 """
@@ -74,3 +74,41 @@ def decode_attention_ref(q, k, v, lengths):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def ssm_step_ref(q, k, v, decay, state, *, bonus_u=None):
+    """One step of the gated linear recurrence: q, k [B,H,dk], v [B,H,dv],
+    decay = exp(log_w) [B,H,dk], state [B,H,dk,dv] float32 -> (y [B,H,dv],
+    new state), both float32. ``S = diag(decay) S + k^T v``; ``bonus_u``
+    None reads ``y = q S`` after the update (Mamba/SSD), ``bonus_u``
+    [H, dk] reads ``y = q S + (q * u * k) . v`` before it (RWKV-6)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    upd = kf[..., :, None] * vf[..., None, :]
+    if bonus_u is None:
+        state = state * decay[..., None] + upd
+        return torch.einsum("bhd,bhde->bhe", qf, state), state
+    y = torch.einsum("bhd,bhde->bhe", qf, state) + torch.sum(
+        qf * bonus_u.float() * kf, dim=-1, keepdim=True) * vf
+    return y, state * decay[..., None] + upd
+
+
+def ssm_scan_ref(q, k, v, log_w, *, bonus_u=None, initial_state=None):
+    """The gated linear recurrence, ``ssm_step_ref`` one step at a time,
+    batched over B and H: q, k, log_w [B,T,H,dk], v [B,T,H,dv] ->
+    (y [B,T,H,dv] in q's dtype, final state [B,H,dk,dv] float32), from
+    ``initial_state`` (zeros if None). Float32 throughout. Deliberately
+    not the chunked algorithm of the kernel, so that it checks the kernel
+    independently."""
+    b, t, h, dk = q.shape
+    s = (torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
+                     device=q.device)
+         if initial_state is None else initial_state.float())
+    qf, kf, vf = q.float(), k.float(), v.float()
+    w = torch.exp(log_w.float())
+    u = None if bonus_u is None else bonus_u.float()
+    ys = []
+    for i in range(t):
+        y, s = ssm_step_ref(qf[:, i], kf[:, i], vf[:, i], w[:, i], s,
+                            bonus_u=u)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(q.dtype), s

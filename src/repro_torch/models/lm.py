@@ -1,9 +1,11 @@
 """Decoder LM assembly with early exits.
 
 Counterpart of ``repro/models/lm.py::DecoderLM`` for the dense GQA
-families. Layers are stacked on a leading axis (``params["blocks"]`` as
-``DecoderLM.init`` builds it in the reference), so a JAX param tree maps
-over 1:1; a Python loop over the layers takes the place of ``lax.scan``.
+families and RWKV-6. Layers are stacked on a leading axis
+(``params["blocks"]`` as ``DecoderLM.init`` builds it in the reference),
+so a JAX param tree maps over 1:1; a Python loop over the layers takes
+the place of ``lax.scan``. A layer's cache is its block's NamedTuple (a
+``GQACache`` or an ``RWKVState``), stacked field by field.
 ``serve_step(..., exit_layer=e)`` runs the first ``e`` layers and reads
 logits through exit ``e``'s norm and the shared LM head — the paper's
 early-exit dial that GRLE's scheduler turns. The encoder-decoder
@@ -17,7 +19,6 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import GQACache
 from repro_torch.models.blocks import BLOCK_BY_KIND, block_kind
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import Embedding, Linear, RMSNorm
@@ -60,17 +61,29 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+# leaves drawn N(0, 0.02), as the reference's normal_init does
+_NORMAL_LEAVES = frozenset({"table", "mix", "lora_a", "lora_b", "bonus_u",
+                            "cm_mix"})
+
+
 def _init_leaf(generator, name: str, shape, *, device, dtype):
-    if name == "table":
+    if name in _NORMAL_LEAVES:
         return normal_init(generator, shape, device=device, dtype=dtype)
     if name == "scale":
         return ones_init(generator, shape, device=device, dtype=dtype)
-    if name == "b":
+    if name in ("b", "w0"):
         return zeros_init(generator, shape, device=device, dtype=dtype)
+    if name != "w":
+        raise ValueError(f"no initializer for param leaf {name!r}")
     # "w": Xavier-uniform per [in, out] matrix, also inside a layer stack
     mats = [xavier_uniform(generator, shape[-2:], device=device, dtype=dtype)
             for _ in range(math.prod(shape[:-2]))]
     return torch.stack(mats).reshape(shape)
+
+
+def _stack(items):
+    """Stack a list of per-layer cache NamedTuples field by field."""
+    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
 
 
 # ---------------------------------------------------------------- decoder LM
@@ -97,20 +110,34 @@ class DecoderLM:
         }
 
     @staticmethod
+    def param_dtypes(cfg: ArchConfig) -> dict:
+        """The param tree's leaf dtypes: ``cfg.torch_dtype``, except the
+        block's ``FLOAT32_LEAVES`` (RWKV-6's ``w0`` and ``bonus_u``),
+        which are float32 in any model, as in the reference."""
+        f32 = BLOCK_BY_KIND[block_kind(cfg)].FLOAT32_LEAVES
+
+        def walk(tree, name=""):
+            if isinstance(tree, dict):
+                return {k: walk(v, k) for k, v in tree.items()}
+            return torch.float32 if name in f32 else cfg.torch_dtype
+
+        return walk(DecoderLM.param_shapes(cfg))
+
+    @staticmethod
     def init(generator: torch.Generator, cfg: ArchConfig, *, device=None):
-        """Random params in ``cfg.torch_dtype`` from ``generator`` (the
-        reference's distributions: Xavier-uniform weights, zero biases,
-        N(0, 0.02) embedding, unit norm scales), on the card unless
-        ``device="cpu"``."""
+        """Random params from ``generator`` in ``param_dtypes(cfg)`` (the
+        reference's distributions: Xavier-uniform weights, zero biases and
+        ``w0``, N(0, 0.02) embedding and RWKV mixes, LoRAs and bonus, unit
+        norm scales), on the card unless ``device="cpu"``."""
         device = resolve_device(device)
 
-        def build(tree, name=""):
+        def build(tree, dtypes, name=""):
             if isinstance(tree, dict):
-                return {k: build(v, k) for k, v in tree.items()}
+                return {k: build(v, dtypes[k], k) for k, v in tree.items()}
             return _init_leaf(generator, name, tree, device=device,
-                              dtype=cfg.torch_dtype)
+                              dtype=dtypes)
 
-        return build(DecoderLM.param_shapes(cfg))
+        return build(DecoderLM.param_shapes(cfg), DecoderLM.param_dtypes(cfg))
 
     @staticmethod
     def _exit_head(params, cfg: ArchConfig, x, exit_pos: int):
@@ -126,25 +153,29 @@ class DecoderLM:
     @staticmethod
     def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device=None,
                    dtype=None):
-        """Zeroed per-layer caches, stacked: ``{"layers": GQACache(k, v)}``
-        with k, v [n_layers, B, seq_len, KVH, hd]."""
+        """Zeroed per-layer caches, stacked: ``{"layers": cache}`` with each
+        field of the block's cache NamedTuple on a leading ``n_layers``
+        axis — ``GQACache`` k, v [n_layers, B, seq_len, KVH, hd], or
+        ``RWKVState`` wkv [n_layers, B, H, dk, dv] and shifts
+        [n_layers, B, d] (no ``seq_len`` axis)."""
         device = resolve_device(device)
         block = BLOCK_BY_KIND[block_kind(cfg)]
         one = block.init_cache(cfg, batch, seq_len, device=device,
                                dtype=dtype)
-        return {"layers": GQACache(
+        return {"layers": type(one)(
             *(a.unsqueeze(0).repeat(cfg.n_layers, *([1] * a.dim()))
               for a in one))}
 
     # --------------------------------------------------------------- prefill
     @staticmethod
     def prefill(params, cfg: ArchConfig, tokens):
-        """tokens [B, S] -> (final-normed hidden [B,S,D], cache) with the
-        cache's k, v [n_layers, B, S, KVH, hd] (the K/V of each layer's ln1
-        output; see ``models/blocks.py``)."""
+        """tokens [B, S] -> (final-normed hidden [B,S,D], cache): the
+        layers' caches stacked as ``init_cache`` lays them out — the K/V of
+        each layer's ln1 output over the S tokens (see
+        ``models/blocks.py``), or each layer's ``RWKVState`` after them."""
         block = BLOCK_BY_KIND[block_kind(cfg)]
         x = Embedding.apply(params["embed"], tokens)
-        ks, vs = [], []
+        caches = []
         for ev in build_plan(cfg):
             if ev[0] == "shared":
                 raise NotImplementedError("shared attention blocks are not "
@@ -154,10 +185,9 @@ class DecoderLM:
             for i in range(ev[1], ev[2]):
                 x, c = block.apply_dense(_layer(params["blocks"], i), cfg, x,
                                          want_cache=True)
-                ks.append(c.k)
-                vs.append(c.v)
+                caches.append(c)
         h = RMSNorm.apply(params["final_norm"], x, eps=cfg.norm_eps)
-        return h, {"layers": GQACache(torch.stack(ks), torch.stack(vs))}
+        return h, {"layers": _stack(caches)}
 
     # ---------------------------------------------------------------- decode
     @staticmethod
@@ -167,8 +197,9 @@ class DecoderLM:
 
         ``exit_layer`` runs the first ``exit_layer`` layers only (the
         early-exit serving path); the deeper layers' caches are left
-        untouched. The layers that run update ``cache`` in place, and the
-        returned cache is the same tensors.
+        untouched. The layers that run update ``cache`` in place (a block
+        that returns new state tensors has them copied into its layer's
+        slice), and the returned cache is the same tensors.
         """
         exit_layer = exit_layer or cfg.n_layers
         block = BLOCK_BY_KIND[block_kind(cfg)]
@@ -182,8 +213,12 @@ class DecoderLM:
                     break
                 continue                    # intermediate exits pass through
             for i in range(ev[1], ev[2]):
-                x, _ = block.apply_decode(_layer(params["blocks"], i), cfg, x,
-                                          _layer(cache["layers"], i), pos)
+                layer_cache = _layer(cache["layers"], i)
+                x, new = block.apply_decode(_layer(params["blocks"], i), cfg,
+                                            x, layer_cache, pos)
+                for old, upd in zip(layer_cache, new):
+                    if upd is not old:
+                        old.copy_(upd)
         if exit_layer == cfg.n_layers:
             h = RMSNorm.apply(params["final_norm"], x, eps=cfg.norm_eps)
         else:

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import DecoderLM, model_for
+from repro_torch.models.lm import model_for
 
 
 def make_serve_step(cfg: ArchConfig, *, exit_layer: Optional[int] = None):
@@ -31,13 +31,14 @@ def make_serve_step(cfg: ArchConfig, *, exit_layer: Optional[int] = None):
 
 def make_prefill_step(cfg: ArchConfig):
     """``prefill_step(params, {"tokens": [B, S]}) -> (logits [B, V] at the
-    last position, cache)``."""
-    model_for(cfg)
+    last position, cache)``; the cache is the layers' K/V (GQA) or
+    ``RWKVState`` (RWKV-6), as ``serve_step`` takes it."""
+    model = model_for(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        h, cache = DecoderLM.prefill(params, cfg, batch["tokens"])
-        logits = DecoderLM.logits(params, h[:, -1:])
+        h, cache = model.prefill(params, cfg, batch["tokens"])
+        logits = model.logits(params, h[:, -1:])
         return logits[:, 0], cache
 
     return prefill_step

@@ -16,6 +16,7 @@ from repro_torch.kernels import edge_score as edge_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import gcn_agg as gcn_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssm_scan as ssm_mod
 from repro_torch.mec import MECEnv, make_scenario
 from repro_torch.models import DecoderLM
 from repro_torch.rollout import RolloutDriver
@@ -104,7 +105,7 @@ def test_driver_launches_each_kernel_per_slot(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gcn_agg": 12, "edge_score": 3,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "ssm_scan": 0}
     assert trace.decisions.shape == (3, 8, env.M)
     assert bool(torch.isfinite(trace.reward).all())
 
@@ -237,5 +238,132 @@ def test_lm_launch_counts(cuda):
         torch.cuda.synchronize()
         assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0,
                                        "flash_attention": 0,
-                                       "decode_attention": e}
+                                       "decode_attention": e, "ssm_scan": 0}
         assert not c["layers"].k[e:].any()
+
+
+# --------------------------------------------------------------- ssm_scan
+# tests/test_kernels.py's ssm tolerances and grid (B, T, H, dk, dv, chunk),
+# a chunk below 16 rows, and RWKV-6-7B's head width at one sequence
+SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSM_SHAPES = [(2, 64, 2, 8, 16, 16), (1, 128, 4, 16, 16, 32),
+              (2, 32, 1, 64, 32, 32), (1, 24, 2, 32, 8, 8),
+              (1, 512, 4, 64, 64, 128)]
+
+
+def ssm_args(device, dtype, b, t, h, dk, dv, *, rwkv, slow, seed=0):
+    """q, k, v unit normal in ``dtype``; log_w = -exp(0.5 N - 5 if slow
+    else 0.5 N); bonus u and (if slow) a nonzero initial state, float32."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        x = scale * rng.standard_normal(shape) + shift
+        return torch.tensor(x.astype(np.float32), device=device)
+
+    q = f32(b, t, h, dk).to(dtype)
+    k = f32(b, t, h, dk).to(dtype)
+    v = f32(b, t, h, dv).to(dtype)
+    log_w = -torch.exp(f32(b, t, h, dk, scale=0.5, shift=-5.0 if slow else 0))
+    u = f32(h, dk, scale=0.2) if rwkv else None
+    s0 = f32(b, h, dk, dv) if slow else None
+    return q, k, v, log_w, u, s0
+
+
+def assert_scan_close(got, want, tol, *, state=False):
+    """|got - want| within ``tol`` times 1 + the largest |want| of the same
+    (sequence, head), for y [B,T,H,dv] or a state [B,H,dk,dv]: the float32
+    rounding of a recurrence's output scales with the sums it adds, and
+    over hundreds of slow-decay steps |y| reaches the hundreds."""
+    got, want = got.float(), want.float()
+    scale = 1 + want.abs().amax(dim=(2, 3) if state else (1, 3),
+                                keepdim=True)
+    err = float(((got - want).abs() / scale).max())
+    assert err <= tol, f"error {err} of 1 + max |value| above {tol}"
+
+
+@pytest.mark.parametrize("slow", [False, True])
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk", SSM_SHAPES)
+def test_ssm_scan_kernel_matches_plain(cuda, b, t, h, dk, dv, chunk, dtype,
+                                       rwkv, slow):
+    q, k, v, w, u, s0 = ssm_args(cuda, dtype, b, t, h, dk, dv, rwkv=rwkv,
+                                 slow=slow)
+    before = ssm_mod.launches
+    y, s = ssm_mod.ssm_scan(q, k, v, w, u, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ssm_mod.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    want_y, want_s = ref.ssm_scan_ref(q, k, v, w, bonus_u=u, initial_state=s0)
+    assert_scan_close(y, want_y, SSM_TOL[dtype])
+    assert_scan_close(s, want_s, SSM_TOL[torch.float32], state=True)
+
+
+def test_ssm_scan_reads_strided_inputs(cuda):
+    """q/k/v/log_w as slices of wider rows (non-unit head and time
+    strides), as a fused projection would hand them over."""
+    b, t, h, d = 2, 64, 4, 32
+    q, k, v, w, u, s0 = ssm_args(cuda, torch.bfloat16, b, t, h, 2 * d,
+                                 2 * d, rwkv=True, slow=True)
+    args = [x[..., :d] for x in (q, k, v, w)]
+    assert not args[0].is_contiguous()
+    s0 = s0[:, :, :d, :d].contiguous()
+    y, s = ssm_mod.ssm_scan(*args, u[:, :d].contiguous(), chunk=32,
+                            initial_state=s0)
+    want_y, want_s = ref.ssm_scan_ref(*args, bonus_u=u[:, :d],
+                                      initial_state=s0)
+    assert_scan_close(y, want_y, SSM_TOL[torch.bfloat16])
+    assert_scan_close(s, want_s, SSM_TOL[torch.float32], state=True)
+
+
+def test_ssm_scan_refuses_what_the_kernel_cannot_take(cuda):
+    q, k, v, w, u, _ = ssm_args(cuda, torch.float32, 1, 256, 2, 64, 64,
+                                rwkv=True, slow=False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ssm_scan(q.double(), k.double(), v.double(), w, u, chunk=128)
+    with pytest.raises(TypeError, match="share a dtype"):
+        ops.ssm_scan(q, k.bfloat16(), v, w, u, chunk=128)
+    with pytest.raises(TypeError, match="log_w"):
+        ops.ssm_scan(q, k, v, w.bfloat16(), u, chunk=128)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.ssm_scan(q, k, v, w.cpu(), u, chunk=128)
+    q48, w48 = q[..., :48], w[..., :48]
+    with pytest.raises(ValueError, match="dk 48"):
+        ops.ssm_scan(q48, q48, v, w48, u[:, :48].contiguous(), chunk=128)
+    # a 256-row chunk at dk = dv = 64 needs more shared memory than a block
+    # has: the kernel refuses the launch, and the next launch is unaffected
+    before = ssm_mod.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.ssm_scan(q, k, v, w, u, chunk=256)
+    assert ssm_mod.launches == before
+    y, s = ops.ssm_scan(q, k, v, w, u, chunk=128)
+    torch.cuda.synchronize()
+    want_y, want_s = ref.ssm_scan_ref(q, k, v, w, bonus_u=u)
+    assert_scan_close(y, want_y, SSM_TOL[torch.float32])
+
+
+def test_rwkv_launch_counts(cuda):
+    """A prefill of a 4-layer RWKV-6 launches ssm_scan 4 times and no
+    attention kernel; a serve_step launches no kernel at any exit and
+    leaves the state past the exit untouched."""
+    cfg = get_arch("rwkv6_7b").reduced(n_layers=4, dtype="bfloat16")
+    params = DecoderLM.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    ops.reset_launch_counts()
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0, "ssm_scan": 4}
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    for e in cfg.exit_layers:
+        ops.reset_launch_counts()
+        c = DecoderLM.init_cache(cfg, 2, 64, device=cuda)
+        lg, _ = make_serve_step(cfg, exit_layer=e)(
+            params, c, toks[:, 0], torch.zeros(2, dtype=torch.int64,
+                                               device=cuda))
+        torch.cuda.synchronize()
+        assert sum(ops.launch_counts().values()) == 0
+        assert bool(torch.isfinite(lg).all())
+        assert c["layers"].wkv[:e].any() and not c["layers"].wkv[e:].any()

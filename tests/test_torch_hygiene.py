@@ -36,7 +36,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "    sys.modules[name] = None\n"
             "import repro_torch.rollout, repro_torch.core.bridge\n"
             "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
-            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models, repro_torch.models.ssm\n"
+            "import repro_torch.configs, repro_torch.kernels.ssm_scan\n"
             "import repro_torch.train.steps\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

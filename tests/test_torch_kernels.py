@@ -97,7 +97,7 @@ def test_ops_on_cpu_runs_plain_version_and_launches_nothing():
     assert torch.equal(ops.edge_score(*e_args), ref.edge_score_ref(*e_args))
     assert ops.launch_counts() == {"gcn_agg": 0, "edge_score": 0,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "ssm_scan": 0}
 
 
 def test_ops_strided_adjacency_on_cpu():

@@ -47,8 +47,8 @@ MODULE_TOL = dict(rtol=1e-5, atol=1e-5)   # f32, one module
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)    # f32, logits through the model
 PORTED = ("llama3_2_1b", "qwen1_5_0_5b", "stablelm_3b", "internlm2_20b",
           "chameleon_34b")
-NOT_PORTED = ("whisper_medium", "rwkv6_7b", "zamba2_2_7b",
-              "deepseek_moe_16b", "deepseek_v2_236b")
+NOT_PORTED = ("whisper_medium", "zamba2_2_7b", "deepseek_moe_16b",
+              "deepseek_v2_236b")
 B, P, T = 2, 8, 16
 
 
@@ -314,6 +314,41 @@ def test_lm_golden_is_current():
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(gold[k], v, err_msg=k)
+
+
+def test_rwkv_golden_is_current():
+    """As test_lm_golden_is_current, for the reduced RWKV-6 run."""
+    gold = golden_tool.load(golden_tool.RWKV_PATH)
+    fresh = golden_tool.build_rwkv()
+    assert sorted(gold) == sorted(fresh)
+    for k, v in fresh.items():
+        if np.issubdtype(v.dtype, np.floating):
+            np.testing.assert_allclose(gold[k], v, rtol=1e-6, atol=1e-6,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(gold[k], v, err_msg=k)
+
+
+def test_port_replays_the_rwkv_golden_file():
+    """What chip_smoke.py does on the card, here with the plain versions."""
+    gold = golden_tool.load(golden_tool.RWKV_PATH)
+    cfg = get_arch(str(gold["arch"])).reduced(
+        **{k.split("/")[1]: int(gold[k]) for k in gold
+           if k.startswith("reduced/")})
+    p = lm_params_from_numpy(lm_params_numpy(cfg, int(gold["seed"])), cfg,
+                             "cpu")
+    toks = torch.tensor(gold["tokens"])
+    logits, cache = make_prefill_step(cfg)(p, {"tokens": toks})
+    close(logits, gold["prefill/logits"], MODEL_TOL)
+    for f in golden_tool.STATE_FIELDS:
+        close(getattr(cache["layers"], f), gold[f"prefill/{f}"], MODEL_TOL)
+    n = int(gold["serve_len"])
+    for e in gold["exits"]:
+        step = make_serve_step(cfg, exit_layer=int(e))
+        c = DecoderLM.init_cache(cfg, toks.shape[0], n, device="cpu")
+        for t in range(n):
+            lg, c = step(p, c, toks[:, t], torch.full((toks.shape[0],), t))
+            close(lg, gold[f"serve/logits_{int(e)}"][t], MODEL_TOL)
 
 
 def test_port_replays_the_lm_golden_file():
