@@ -10,7 +10,10 @@ order, each fatal on failure:
 1. the card's name and power limit (nvidia-smi); TF32 off for matmuls
    and convolutions, so the plain versions run in full float32;
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
-   source, all started together) and print the build time;
+   source, all started together) and print the build time and each
+   kernel instance's registers, spills and static shared memory; fail if
+   ptxas warns that it serialized a kernel's wgmma (C7514, C7518), which
+   costs speed and no correctness;
 3. hold each actor kernel against its plain PyTorch version on the card,
    at the main path's shapes and inputs for B in {1, 64}: max abs error
    <= 1e-5; time both (CUDA-graph replay, so host launch overhead is
@@ -28,11 +31,20 @@ order, each fatal on failure:
    at [B in {1, 64}, 32, 8, 64, S=4096] with lengths from numpy seed 0 in
    [1, S] and all equal to S, at the serve shape [8, 32, 8, 64, 256], and
    on tests/test_kernels.py's grid; every shape in f32 and bf16, with the
-   tolerances there (f32 2e-5, bf16 2e-2; the kernels compute in f32 in
-   both, so the f32 checks hold the arithmetic tightly at the main path's
-   shapes too); at the main path's shapes in bf16, kernel, plain and
-   library times (scaled_dot_product_attention, the yardstick only) and
-   the bound;
+   tolerances there (f32 2e-5, bf16 2e-2; the f32 checks hold the
+   arithmetic tightly at the main path's shapes too; in bf16 the flash
+   kernel's tensor cores round P to bf16, which the tests show stays
+   within the bf16 gate); every bf16 flash shape also against
+   ref.flash_attention_bf16_emulation, the kernel's own rounding in plain
+   PyTorch: what its bf16 output store (half an ulp) leaves of the error,
+   over 1 + the largest |value| of its row, within FLASH_EMU_TOL, which at
+   the prefill shape must reject three faulty versions of the emulation
+   (a key tile lost for long rows, one warpgroup's last rescale skipped,
+   O rounded to bf16 after every tile); at the main path's shapes in bf16, kernel,
+   plain and library times (scaled_dot_product_attention, the yardstick
+   only) and the bound, and decode's split count per shape; then decode at B=1
+   against 4096 rows with every split count forced (1..8), f32 and bf16,
+   a random length and the full one, checked and (bf16) timed;
 7. LM golden replay: ``tests/data/torch_lm_golden.npz`` (reduced Llama,
    f32, JAX outputs) through the port's prefill and serve steps on the
    card: prefill logits, prefill cache and every exit's serve logits
@@ -90,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -111,6 +124,14 @@ N_FLEETS, N_SLOTS, SEED = 64, 200, 0
 # attention: tests/test_kernels.py's tolerances; LM golden; consistency
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_GOLDEN_TOL = 1e-4
+# bf16 flash_attention against its emulation, beyond the output's bf16
+# rounding (flash_emu_err): what remains are P's bf16 roundings that the
+# kernel's ex2.approx and summation order tip the other way, each moving a
+# short row by up to 2^-8 of a key's weight; ~2x the largest reading on the
+# card, well under the faults of FLASH_FAULTS
+FLASH_EMU_TOL = 1e-3
+# ptxas' warnings that it serialized a kernel's wgmma instructions
+WGMMA_SERIALIZED = ("C7514", "C7518")
 CONSIST_TOL = 2e-2
 # RWKV-6 in bf16 drifts far more than that over its 32 layers, in the JAX
 # reference too (tools/rwkv_drift.py); its full-depth consistency is held in
@@ -143,6 +164,38 @@ TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
 
 def phase(n, title):
     print(f"\n== phase {n}: {title}", flush=True)
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill stores/loads, static smem bytes) of each
+    entry function in nvcc's -Xptxas -v output, names demangled by
+    c++filt where the machine has it."""
+    rows, fn, spills = [], None, "?"
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn, spills = line.split("Function properties for")[1].strip(), "?"
+        elif "spill stores" in line:
+            parts = line.replace(",", "").split()
+            spills = f"{parts[parts.index('spill') - 2]}/" \
+                f"{parts[parts.index('loads') - 3]}"
+        elif "Used" in line and "registers" in line and fn:
+            words = line.replace(",", "").split()
+            regs = words[words.index("registers") - 1]
+            smem = (words[words.index("smem") - 2]
+                    if "smem" in words else "0")
+            rows.append([fn, regs, spills, smem])
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r[0] for r in rows), capture_output=True, text=True,
+            timeout=60, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = n.replace("(anonymous namespace)::", "")
+                r[0] = n.split("(")[0].removeprefix("void ")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 def card_line() -> str:
@@ -245,6 +298,65 @@ def decode_cost(q, k, lengths):
     return nbytes, 4 * h * d * rows
 
 
+def flash_emu_err(got, emu):
+    """The bf16 flash kernel's error against its emulation beyond the
+    bf16 rounding of its output (half an ulp, <= 2^-8 |emu|), over 1 + the
+    largest |emu| of its row (query, head): f32 summation order and
+    ex2.approx are all that should remain."""
+    g, e = got.float(), emu.float()
+    excess = ((g - e).abs() - 2.0 ** -8 * e.abs()).clamp(min=0)
+    return float((excess.amax(-1) / (1 + e.abs().amax(-1))).max())
+
+
+FLASH_FAULTS = ("a key tile lost for long rows",
+                "the second warpgroup's last rescale skipped",
+                "O rounded to bf16 after every tile")
+
+
+def flash_fault(q, k, v, fault, tile=64):
+    """ref.flash_attention_bf16_emulation (causal, no window) with one
+    fault of FLASH_FAULTS planted, as the kernel could have it: query rows
+    in the second half of S drop the key tile just before their 128-row
+    block; or the second half's rows of each block's second 64 (the second
+    warpgroup) skip the rescale of O on their last tile; or O is kept in
+    bf16 between tiles. Float32 out, as the emulation's."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qf = q.float().reshape(b, s, kvh, h // kvh, d)
+    kf, vf = k.float(), v.float()
+    scale = 1.4426950408889634 / math.sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    block = pos // 128 * 128
+    late = pos >= s // 2
+    m = torch.full((b, kvh, h // kvh, s), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (d,), device=q.device)
+    for k0 in range(0, s, tile):
+        kp = pos[k0:k0 + tile]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                          kf[:, k0:k0 + tile]) * scale
+        ok = kp[None, :] <= pos[:, None]
+        if fault == FLASH_FAULTS[0]:
+            ok &= ~(late & (block - tile == k0))[:, None]
+        sc = torch.where(ok, sc, -math.inf)
+        mx = torch.maximum(m, sc.amax(-1))
+        mu = torch.where(mx == -math.inf, 0.0, mx)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(sc - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        rescale = alpha
+        if fault == FLASH_FAULTS[1]:
+            skip = late & (pos % 128 >= 64) & (pos // tile * tile == k0)
+            rescale = torch.where(skip, 1.0, alpha)
+        acc = acc * rescale[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.bfloat16().float(), vf[:, k0:k0 + tile])
+        if fault == FLASH_FAULTS[2]:
+            acc = acc.bfloat16().float()
+        m = mx
+    out = acc / l.clamp(min=1e-38)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
 def peak_for(dtype):
     return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
 
@@ -283,6 +395,32 @@ def attention_phase(dev):
                              f"abs error {err}")
         return err
 
+    def check_emulation(label, got, emu):
+        err = flash_emu_err(got, emu)
+        print(f"  {'flash_attention':16s} {label:44s} {'bfloat16':8s} vs "
+              f"emulation {err:.3e} beyond the output's rounding", flush=True)
+        if err > FLASH_EMU_TOL:
+            raise SystemExit(f"flash_attention {label} bf16: kernel differs "
+                             f"from its emulation by {err} beyond the "
+                             f"output's rounding (limit {FLASH_EMU_TOL})")
+        return err
+
+    def flash_controls(q, k, v, emu, plain):
+        """The emulation check must reject each planted fault; whether the
+        2e-2 gate against plain would is printed beside it."""
+        tol = ATTN_TOL[torch.bfloat16]
+        for fault in FLASH_FAULTS:
+            bad = flash_fault(q, k, v, fault).bfloat16()
+            err = flash_emu_err(bad, emu)
+            gate = bool(((bad.float() - plain.float()).abs()
+                         <= tol + tol * plain.float().abs()).all())
+            print(f"  control: {fault}: {err:.3e} beyond the output's "
+                  f"rounding (limit {FLASH_EMU_TOL}); the 2e-2 gate "
+                  f"{'accepts' if gate else 'rejects'} it", flush=True)
+            if err <= FLASH_EMU_TOL:
+                raise SystemExit(f"flash_attention: the emulation check "
+                                 f"accepts a planted fault ({fault})")
+
     def library_ms(library, inner, reps):
         """The yardstick's time; None (and why) if it cannot run here."""
         try:
@@ -314,18 +452,27 @@ def attention_phase(dev):
         for b, s, h, kvh, d, win in ((1, 128, 2, 2, 32, None),
                                      (2, 128, 4, 2, 64, None),
                                      (1, 256, 8, 2, 32, 64),
-                                     (2, 64, 4, 1, 128, None))]
-    errs = []
+                                     (2, 64, 4, 1, 128, None),
+                                     (1, 200, 8, 2, 64, 64),
+                                     (1, 200, 4, 2, 128, None))]
+    errs, emu_errs = [], []
     for i, (b, s, h, kvh, d, win, dt) in enumerate(grid):
         q, k, v = normal(dt, b, s, h, d), normal(dt, b, s, kvh, d), \
             normal(dt, b, s, kvh, d)
         label = f"[{b}, {s}, {h}, {kvh}, {d}] window {win}"
         got = flash_mod.flash_attention(q, k, v, window=win)
         torch.cuda.synchronize()
-        err = check("flash_attention", label, dt, got,
-                    ref.flash_attention_ref(q, k, v, window=win))
+        plain = ref.flash_attention_ref(q, k, v, window=win)
+        err = check("flash_attention", label, dt, got, plain)
         if i < 2:
             errs.append(err)
+        if dt == torch.bfloat16:
+            emu = ref.flash_attention_bf16_emulation(q, k, v, window=win)
+            emu_errs.append(check_emulation(label, got, emu))
+            if i == 0:
+                flash_controls(q, k, v, emu, plain)
+            del emu
+        del plain
         if i == 0:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             out["flash_attention"] = timed(
@@ -336,6 +483,9 @@ def attention_phase(dev):
                     qt, kt, vt, is_causal=True, enable_gqa=True),
                 flash_cost(q, k, None), dt, inner=5, reps=4)
     out["flash_attention"]["max_abs_err"] = max(errs)
+    print(f"  flash_attention bf16 vs its emulation, largest error beyond "
+          f"the output's rounding: {max(emu_errs):.3e} (limit "
+          f"{FLASH_EMU_TOL})")
 
     # decode_attention: the main path's shapes in bf16 (timed) and f32,
     # then the test grid; one draw of lengths serves both dtypes
@@ -350,11 +500,17 @@ def attention_phase(dev):
               for dt in (torch.float32, torch.bfloat16)
               for b, h, kvh, d, s in ((2, 4, 2, 32, 256), (3, 8, 2, 64, 512),
                                       (1, 2, 2, 128, 128))]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, h, kvh, d, s, dts, kind, main_shape in cases:
         lens = (np.full(b, s) if kind == "full"
                 else lens_rng.integers(1, s + 1, size=b))
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         label = f"[{b}, {h}, {kvh}, {d}, S={s}] lengths {kind}"
+        if main_shape:
+            n = decode_mod.n_splits(b, kvh, s, sms)
+            print(f"  decode_attention {label}: n_splits {n}, "
+                  f"{decode_mod.n_warps(b * kvh * n, sms)} warps per block, "
+                  f"{sms} SMs, lengths sum {int(lens.sum())}")
         for dt in dts:
             q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
                 normal(dt, b, s, kvh, d)
@@ -379,6 +535,26 @@ def attention_phase(dev):
                 decode_cost(q, k, lengths), dt, inner=20, reps=10)
             if b == LONG_B and kind == "full":
                 out["decode_attention"] = stats
+
+    # decode_attention at B=1 against 4096 rows, every split count forced
+    lens = (int(lens_rng.integers(1, LONG_S + 1)), LONG_S)
+    for dt in main_dts:
+        q, k, v = normal(dt, 1, 32, 64), normal(dt, 1, LONG_S, 8, 64), \
+            normal(dt, 1, LONG_S, 8, 64)
+        for n in range(1, decode_mod.MAX_SPLITS + 1):
+            for ln in lens:
+                lengths = torch.tensor([ln], dtype=torch.int32, device=dev)
+                got = decode_mod.decode_attention(q, k, v, lengths, splits=n)
+                torch.cuda.synchronize()
+                errs.append(check(
+                    "decode_attention", f"[1, 32, 8, 64, S={LONG_S}] length "
+                    f"{ln}, splits {n}", dt, got,
+                    ref.decode_attention_ref(q, k, v, lengths)))
+            if dt == torch.bfloat16:
+                ms = graph_ms(lambda: decode_mod.decode_attention(
+                    q, k, v, lengths, splits=n), inner=20, reps=10)
+                print(f"  decode_attention B=1 S={LONG_S} full, splits {n}: "
+                      f"kernel {ms * 1e3:9.2f} us", flush=True)
     out["decode_attention"]["max_abs_err"] = max(errs)
     return out
 
@@ -995,10 +1171,17 @@ def main() -> int:
     report = _build.build_all()
     print(f"built {sorted(report)} in {time.perf_counter() - t0:.2f} s "
           f"(already present: {sorted(set(_build.KERNELS) - set(report))})")
-    for name, log in report.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+    for name in _build.KERNELS:
+        log = _build.build_log(name)
+        for fn, regs, spills, smem in ptxas_report(log):
+            print(f"  {name}: {fn}: {regs} registers, spill stores/loads "
+                  f"{spills}, {smem} bytes smem")
+        serialized = sorted({w for w in WGMMA_SERIALIZED if w in log})
+        if serialized:
+            raise SystemExit(f"{name}: ptxas serialized its wgmma (warnings "
+                             f"{serialized}); keep every wgmma and its wait "
+                             f"out of branches")
+    print(f"no wgmma serialized (ptxas warnings {WGMMA_SERIALIZED})")
 
     phase(3, "kernels vs plain versions on the card")
     env = MECEnv(make_scenario("fig5_baseline"), device=dev)

@@ -1,6 +1,6 @@
 // Shared helpers of the two attention kernels (flash_attention.cu,
-// decode_attention.cu): float32 <-> storage-type conversion and 16-byte
-// vector loads that widen to float32.
+// decode_attention.cu): float32 <-> storage-type conversion, 16-byte
+// vectors widened to float32, and the shared-memory opt-in.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -14,16 +14,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x;
-  out[1] = x.y;
-  out[2] = x.z;
-  out[3] = x.w;
+// one 16-byte register vector of T widened to float32
+__device__ __forceinline__ void unpack(const uint4& x, const float*,
+                                       float* out) {
+  out[0] = __uint_as_float(x.x);
+  out[1] = __uint_as_float(x.y);
+  out[2] = __uint_as_float(x.z);
+  out[3] = __uint_as_float(x.w);
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack(const uint4& x, const __nv_bfloat16*,
+                                       float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -31,6 +32,11 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  unpack(*reinterpret_cast<const uint4*>(p), p, out);
 }
 
 template <typename T>

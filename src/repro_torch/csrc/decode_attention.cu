@@ -1,197 +1,335 @@
 // Single-token GQA decode attention over a KV cache for Hopper (sm_90a),
-// bfloat16 or float32 in, float32 softmax state, output in the input type.
+// bfloat16 or float32 in, float32 arithmetic, output in the input type.
 //
-// Replaces the TPU kernel repro/kernels/decode_attention.py::decode_attention
-// (Pallas body `_kernel`). For q [B,H,d] (one token per sequence), k/v
-// [B,S,KVH,d] and lengths [B], kv head h // (H / KVH), scale 1/sqrt(d):
+// Replaces the TPU kernel src/repro/kernels/decode_attention.py:56
+// (decode_attention, Pallas body `_kernel`). For q [B,H,d] (one token per
+// sequence), k/v [B,S,KVH,d] and lengths [B], kv head h // (H / KVH),
+// scale 1/sqrt(d):
 //   out[b,h] = sum_{j < lengths[b]} softmax_j(q . k_j * scale) * v_j
 //
 // What bounds it on the H100: bytes. Every cached K/V row is used for a
 // handful of FMAs (g = H/KVH query heads), ~2 FLOP per byte in bf16 for
 // Llama-3.2-1B's g = 4, so reading the cache at 3.35 TB/s is the floor.
 //
-// Design: one block of 128 threads per (kv head, sequence), covering the
-// group's g query heads, so each cached row is read from device memory
-// once per group and never once per query head. A loop inside the block
-// walks 64-row tiles of K and V over positions < lengths[b] only (the
-// rows past the length are never read; this replaces the TPU's
-// sequential kv grid axis and its mask). Each tile is loaded with 16-byte
-// vector loads through the cache's (batch, position, head) strides and
-// staged in shared memory as float32, rows padded by one float so the
-// score loop, one (head, position) pair per thread, is free of bank
-// conflicts. The online softmax (running max and sum in float32, base-2
-// exponent) runs one warp per head; acc [g, d] lives in shared memory,
-// one element per thread. Known limit: the grid is B x KVH blocks, 8 at
-// B=1 for Llama-3.2-1B on 132 SMs, so a single sequence cannot reach the
-// bandwidth floor; splitting the cache across blocks (flash-decoding) is
-// the later step.
+// Design (split-KV, streamed from device memory):
+// * The rows below lengths[b] of one (kv head, sequence) are cut into
+//   gridDim.x splits of ceil(length / splits) rows; each split is one
+//   block, so a single sequence still spreads over the card (the wrapper
+//   picks the count from B * KVH, S and the SM count). The splits of one
+//   (kv head, sequence) form a thread-block cluster (at most 8, the
+//   portable size): each block leaves its partial (m, l, acc) in its own
+//   shared memory, and after cluster.sync() every block combines a share
+//   of the outputs from all the partials through distributed shared
+//   memory. One launch per call, no scratch, no atomics; one split is a
+//   plain launch.
+// * Inside a block each warp streams its rows straight from device memory
+//   into registers, 16 bytes a lane through the cache's strides (D / 8 or
+//   D / 4 lanes per row), a chunk of 2 rows per lane in flight while the
+//   previous chunk is scored. Rows at or past lengths[b] are never read.
+// * Each loaded K row is scored against all g query heads of the group
+//   (q held in registers, pre-scaled by scale * log2(e)); the partial dots
+//   are summed across the row's lanes with __shfl_xor. The online softmax
+//   (running max and sum per head, exp2f) and P V accumulate in registers,
+//   per chunk, not per row.
+// * At the end the row groups of a warp combine by __shfl_xor, the warps
+//   through shared memory, the splits through the cluster. A split with no
+//   row contributes m = -inf, l = 0; lengths[b] == 0 writes zeros.
+// g up to 8 (every config of the repo); a larger group is refused.
+#include <cooperative_groups.h>
+
 #include "attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kT = 64;  // cache rows per tile
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxSplits = 8;  // the portable cluster size
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
-size_t smem_bytes(int g) {
-  return sizeof(float) * (2 * kT * (D + 1) + 2 * g * D + g * kT + 3 * g);
+template <typename T, int D, int G>
+struct Layout {
+  static constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
+  static constexpr int LPR = D / V;         // lanes per cache row
+  static constexpr int RPW = 32 / LPR;      // rows per warp-wide load
+  static constexpr int NR = 2;              // rows per lane per chunk
+  static constexpr int CHUNK = RPW * NR;    // rows per warp per chunk
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* o;
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
+  int S, g;
+  float scale_log2;
+};
+
+// (m, l) of two partials merged; returns the factors of each side
+__device__ __forceinline__ void merge(float m0, float m1, float* m,
+                                      float* a0, float* a1) {
+  const float mx = fmaxf(m0, m1);
+  const float mu = mx == -INFINITY ? 0.f : mx;  // both empty: factors 0
+  *m = mx;
+  *a0 = exp2f(m0 - mu);
+  *a1 = exp2f(m1 - mu);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ lengths,
-                            T* __restrict__ o, long long q_sb, long long q_sh,
-                            long long k_sb, long long k_ss, long long k_sh,
-                            long long v_sb, long long v_ss, long long v_sh,
-                            long long o_sb, long long o_sh, int S, int g,
-                            float scale_log2) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* s_k = smem;               // [T][LD]
-  float* s_v = s_k + kT * LD;      // [T][LD]
-  float* s_q = s_v + kT * LD;      // [g][D], pre-scaled by scale*log2(e)
-  float* s_acc = s_q + g * D;      // [g][D]
-  float* s_p = s_acc + g * D;      // [g][T]: scores, then probabilities
-  float* s_m = s_p + g * kT;       // [g] running max (base-2 units)
-  float* s_l = s_m + g;            // [g] running sum
-  float* s_alpha = s_l + g;        // [g] this tile's rescale factor
+// at g <= 4 the registers are capped at 128, so that four 4-warp blocks
+// (Llama's B=64 grid of 512 blocks in one wave) share an SM
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
+    decode_attention_kernel(Args a) {
+  using L = Layout<T, D, G>;
+  constexpr int V = L::V, LPR = L::LPR, RPW = L::RPW, NR = L::NR;
+  constexpr const T* kTag = nullptr;  // picks attn::unpack's overload
+  __shared__ float s_m[kMaxWarps][G], s_l[kMaxWarps][G];
+  __shared__ __align__(16) float s_acc[kMaxWarps][G][D];
+  __shared__ float s_pm[G], s_pl[G];            // this split's partial
+  __shared__ __align__(16) float s_pacc[G][D];
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(lengths[b], S);
-  const int h0 = kvh * g;
+  const int n_warps = blockDim.x >> 5;
+  const int sub = lane % LPR, grp = lane / LPR;  // d chunk, row in a load
+  const int len = max(0, min(a.lengths[b], a.S));
+  const int per = (len + n_split - 1) / n_split;
+  const int r0 = min(len, split * per), r1 = min(len, r0 + per);
+  const int g = a.g, h0 = kvh * g;
 
-  for (int hh = 0; hh < g; ++hh)
-    attn::load_rows<T, D>(s_q + hh * D, D, q + b * q_sb + (h0 + hh) * q_sh,
-                          0, 1, 1, scale_log2, tid, kThreads);
-  for (int i = tid; i < g * D; i += kThreads) s_acc[i] = 0.f;
-  for (int i = tid; i < g; i += kThreads) {
-    s_m[i] = -INFINITY;
-    s_l[i] = 0.f;
+  float qr[G][V], m[G], l[G], acc[G][V];
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + sub * V;
+#pragma unroll
+  for (int hh = 0; hh < G; ++hh) {
+    if (hh < g) {
+      attn::load_vec(qp + hh * a.q_sh, qr[hh]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) qr[hh][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      qr[hh][e] *= a.scale_log2;
+      acc[hh][e] = 0.f;
+    }
+    m[hh] = -INFINITY;
+    l[hh] = 0.f;
   }
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
 
-  for (int p0 = 0; p0 < len; p0 += kT) {
-    const int n = min(kT, len - p0);
-    __syncthreads();  // the previous tile's readers are done
-    attn::load_rows<T, D>(s_k, LD, kb + p0 * k_ss, k_ss, n, n, 1.f, tid,
-                          kThreads);
-    attn::load_rows<T, D>(s_v, LD, vb + p0 * v_ss, v_ss, n, n, 1.f, tid,
-                          kThreads);
-    __syncthreads();
-
-    for (int i = tid; i < g * kT; i += kThreads) {
-      const int hh = i / kT, r = i - hh * kT;
-      float s = -INFINITY;
-      if (r < n) {
-        const float* qr = s_q + hh * D;
-        const float* kr = s_k + r * LD;
-        float a = 0.f;
-#pragma unroll 16
-        for (int c = 0; c < D; ++c) a = fmaf(qr[c], kr[c], a);
-        s = a;
-      }
-      s_p[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per head, two positions per lane
-    for (int hh = warp; hh < g; hh += kWarps) {
-      float* row = s_p + hh * kT;
-      const float m_prev = s_m[hh];
-      float mx = fmaxf(row[lane], row[lane + 32]);
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh + sub * V;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh + sub * V;
+  // this lane's rows of the chunk at c0: c0 + grp + j * RPW, j < NR
+  auto fetch = [&](int c0, uint4* kd, uint4* vd) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_prev, mx);  // finite: n >= 1
-      const float p0v = exp2f(row[lane] - m_new);
-      const float p1v = exp2f(row[lane + 32] - m_new);
-      row[lane] = p0v;
-      row[lane + 32] = p1v;
-      float sum = p0v + p1v;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = exp2f(m_prev - m_new);  // 0 on the first tile
-        s_alpha[hh] = alpha;
-        s_l[hh] = s_l[hh] * alpha + sum;
-        s_m[hh] = m_new;
+    for (int j = 0; j < NR; ++j) {
+      const int row = c0 + grp + j * RPW;
+      if (row < r1) {
+        kd[j] = __ldg(reinterpret_cast<const uint4*>(kp + row * a.k_ss));
+        vd[j] = __ldg(reinterpret_cast<const uint4*>(vp + row * a.v_ss));
+      } else {
+        kd[j] = vd[j] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    __syncthreads();
+  };
 
-    for (int i = tid; i < g * D; i += kThreads) {
-      const int hh = i / D, c = i - hh * D;
-      const float* pr = s_p + hh * kT;
-      float a = s_acc[i] * s_alpha[hh];
-      for (int r = 0; r < n; ++r) a = fmaf(pr[r], s_v[r * LD + c], a);
-      s_acc[i] = a;
+  const int step = n_warps * L::CHUNK;
+  int c0 = r0 + warp * L::CHUNK;  // warp-uniform
+  uint4 kc[NR], vc[NR];
+  fetch(c0, kc, vc);
+  for (; c0 < r1; c0 += step) {
+    uint4 kn[NR], vn[NR];
+    fetch(c0 + step, kn, vn);  // the next chunk flies while this one is used
+
+    float s[NR][G];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      float kf[V];
+      attn::unpack(kc[j], kTag, kf);
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) d = fmaf(qr[hh][e], kf[e], d);
+        s[j][hh] = d;
+      }
+    }
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int hh = 0; hh < G; ++hh)
+          s[j][hh] += __shfl_xor_sync(kFull, s[j][hh], off);
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+      if (c0 + grp + j * RPW >= r1)
+#pragma unroll
+        for (int hh = 0; hh < G; ++hh) s[j][hh] = -INFINITY;
+
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < NR; ++j) mx = fmaxf(mx, s[j][hh]);
+      const float mu = mx == -INFINITY ? 0.f : mx;  // no row yet
+      const float alpha = exp2f(m[hh] - mu);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        s[j][hh] = exp2f(s[j][hh] - mu);
+        sum += s[j][hh];
+      }
+      l[hh] = l[hh] * alpha + sum;
+      m[hh] = mx;
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[hh][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      float vf[V];
+      attn::unpack(vc[j], kTag, vf);
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[hh][e] = fmaf(s[j][hh], vf[e], acc[hh][e]);
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      kc[j] = kn[j];
+      vc[j] = vn[j];
+    }
+  }
+
+  // the warp's row groups, by __shfl_xor over the lanes of one d chunk
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      const float mo = __shfl_xor_sync(kFull, m[hh], off);
+      const float lo = __shfl_xor_sync(kFull, l[hh], off);
+      float a0, a1;
+      merge(m[hh], mo, &m[hh], &a0, &a1);
+      l[hh] = l[hh] * a0 + lo * a1;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float ao = __shfl_xor_sync(kFull, acc[hh][e], off);
+        acc[hh][e] = acc[hh][e] * a0 + ao * a1;
+      }
+    }
+  if (grp == 0) {
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) s_acc[warp][hh][sub * V + e] = acc[hh][e];
+      if (sub == 0) {
+        s_m[warp][hh] = m[hh];
+        s_l[warp][hh] = l[hh];
+      }
     }
   }
   __syncthreads();
 
-  for (int i = tid; i < g * D; i += kThreads) {
+  // the warps, through shared memory: this split's partial, or the output
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h0 * a.o_sh;
+  for (int i = tid; i < G * D; i += blockDim.x) {
     const int hh = i / D, c = i - hh * D;
-    const float l = s_l[hh];
-    // lengths[b] == 0 reads nothing and writes zeros
-    o[b * o_sb + (h0 + hh) * o_sh + c] =
-        attn::from_f32<T>(l > 0.f ? s_acc[i] / l : 0.f);
+    float mx = -INFINITY;
+    for (int w = 0; w < n_warps; ++w) mx = fmaxf(mx, s_m[w][hh]);
+    const float mu = mx == -INFINITY ? 0.f : mx;
+    float sl = 0.f, sa = 0.f;
+    for (int w = 0; w < n_warps; ++w) {
+      const float f = exp2f(s_m[w][hh] - mu);
+      sl += s_l[w][hh] * f;
+      sa += s_acc[w][hh][c] * f;
+    }
+    if (n_split == 1) {
+      // lengths[b] == 0 reads nothing and writes zeros
+      if (hh < g) op[hh * a.o_sh + c] = attn::from_f32<T>(sl > 0.f ? sa / sl : 0.f);
+    } else {
+      s_pacc[hh][c] = sa;
+      if (c == 0) {
+        s_pm[hh] = mx;
+        s_pl[hh] = sl;
+      }
+    }
   }
+  if (n_split == 1) return;
+
+  // the splits, through the cluster's distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  for (int i = rank * blockDim.x + tid; i < G * D; i += n_split * blockDim.x) {
+    const int hh = i / D, c = i - hh * D;
+    if (hh >= g) continue;
+    float mx = -INFINITY;
+    for (int r = 0; r < n_split; ++r)
+      mx = fmaxf(mx, cluster.map_shared_rank(&s_pm[0], r)[hh]);
+    const float mu = mx == -INFINITY ? 0.f : mx;
+    float sl = 0.f, sa = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float f = exp2f(cluster.map_shared_rank(&s_pm[0], r)[hh] - mu);
+      sl += cluster.map_shared_rank(&s_pl[0], r)[hh] * f;
+      sa += cluster.map_shared_rank(&s_pacc[0][0], r)[hh * D + c] * f;
+    }
+    op[hh * a.o_sh + c] = attn::from_f32<T>(sl > 0.f ? sa / sl : 0.f);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, long long q_sb, long long q_sh, long long k_sb,
-           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, long long o_sb, long long o_sh, long long B,
-           long long S, long long H, long long KVH, cudaStream_t stream) {
-  static unsigned long long configured = 0;
-  const int g = (int)(H / KVH);
-  const size_t smem = smem_bytes<D>(g);
-  // the largest group launched so far sets the limit; a larger one raises
-  // it on every device again. A group the card cannot hold is refused
-  // here (cudaErrorInvalidValue) and leaves the limit as it was.
-  static size_t limit = 0;
-  if (smem > limit) configured = 0;
-  const size_t want = smem > limit ? smem : limit;
-  cudaError_t err =
-      attn::allow_smem(decode_attention_kernel<T, D>, want, &configured);
+template <typename T, int D, int G>
+int launch(const Args& a, long long B, long long KVH, int n_split,
+           int n_warps, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<T, D, G>;
+  const dim3 grid((unsigned)n_split, (unsigned)KVH, (unsigned)B);
+  const dim3 block((unsigned)(32 * n_warps));
+  if (n_split == 1) {
+    kernel<<<grid, block, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return (int)err;
   }
-  limit = want;
-  const float scale_log2 = attn::kLog2e / sqrtf((float)D);
-  const dim3 grid((unsigned)KVH, (unsigned)B);
-  decode_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), q_sb, q_sh, k_sb,
-      k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, (int)S, g, scale_log2);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_g(const Args& a, long long B, long long KVH, int n_split,
+               int n_warps, cudaStream_t st) {
+  if (a.g <= 1) return launch<T, D, 1>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 2) return launch<T, D, 2>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 4) return launch<T, D, 4>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 8) return launch<T, D, 8>(a, B, KVH, n_split, n_warps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int dispatch_d(long long D, const void* q, const void* k, const void* v,
-               const int* lengths, void* o, long long q_sb, long long q_sh,
-               long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-               long long v_ss, long long v_sh, long long o_sb, long long o_sh,
-               long long B, long long S, long long H, long long KVH,
-               cudaStream_t st) {
+int dispatch_d(long long D, const Args& a, long long B, long long KVH,
+               int n_split, int n_warps, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, lengths, o, q_sb, q_sh, k_sb, k_ss, k_sh,
-                           v_sb, v_ss, v_sh, o_sb, o_sh, B, S, H, KVH, st);
+      return dispatch_g<T, 32>(a, B, KVH, n_split, n_warps, st);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, q_sb, q_sh, k_sb, k_ss, k_sh,
-                           v_sb, v_ss, v_sh, o_sb, o_sh, B, S, H, KVH, st);
+      return dispatch_g<T, 64>(a, B, KVH, n_split, n_warps, st);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, q_sb, q_sh, k_sb, k_ss, k_sh,
-                            v_sb, v_ss, v_sh, o_sb, o_sh, B, S, H, KVH, st);
+      return dispatch_g<T, 128>(a, B, KVH, n_split, n_warps, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -202,24 +340,40 @@ int dispatch_d(long long D, const void* q, const void* k, const void* v,
 // q [B,H,D] and o [B,H,D] through their (batch, head) strides, k/v
 // [B,S,KVH,D] through their (batch, position, head) strides, in elements,
 // the D axis contiguous and 16-byte aligned; lengths [B] int32 on the
-// device (values above S read S rows). dtype: 0 float32, 1 bfloat16.
-// Returns cudaGetLastError() after the launch.
+// device (values above S read S rows, values <= 0 none). n_split in
+// [1, 8] blocks per (kv head, sequence), a cluster when above 1; n_warps
+// in [1, 8] per block. dtype: 0 float32, 1 bfloat16. Returns the launch's
+// error, else cudaGetLastError() after it.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths, void* o,
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, long long B, long long S, long long H,
-    long long KVH, long long D, long long dtype, void* stream) {
+    long long KVH, long long D, long long n_split, long long n_warps,
+    long long dtype, void* stream) {
   if (H <= 0 || KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > kMaxSplits || n_warps < 1 ||
+      n_warps > kMaxWarps)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  const int* lens = static_cast<const int*>(lengths);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lengths = static_cast<const int*>(lengths);
+  a.o = o;
+  a.q_sb = q_sb, a.q_sh = q_sh;
+  a.k_sb = k_sb, a.k_ss = k_ss, a.k_sh = k_sh;
+  a.v_sb = v_sb, a.v_ss = v_ss, a.v_sh = v_sh;
+  a.o_sb = o_sb, a.o_sh = o_sh;
+  a.S = (int)S;
+  a.g = (int)(H / KVH);
+  a.scale_log2 = attn::kLog2e / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, lens, o, q_sb, q_sh, k_sb, k_ss, k_sh,
-                             v_sb, v_ss, v_sh, o_sb, o_sh, B, S, H, KVH, st);
+    return dispatch_d<float>(D, a, B, KVH, (int)n_split, (int)n_warps, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, lens, o, q_sb, q_sh, k_sb,
-                                     k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
-                                     B, S, H, KVH, st);
+    return dispatch_d<__nv_bfloat16>(D, a, B, KVH, (int)n_split,
+                                     (int)n_warps, st);
   return (int)cudaErrorInvalidValue;
 }

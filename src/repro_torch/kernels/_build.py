@@ -3,7 +3,8 @@
 Each source becomes its own shared library with a plain C interface,
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout. The
 hash covers the source, the shared headers (``csrc/*.cuh``) and the
-flags, so a library is rebuilt only when one of them changes.
+flags, so a library is rebuilt only when one of them changes; the
+compiler's output is kept beside it (``build_log``).
 ``build_all`` starts one ``nvcc`` per source, all together. No PyTorch
 header is compiled: a build takes seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes and needs ``ninja``.
@@ -76,11 +77,19 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[name] = log
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas' -v report and warnings) from the build
+    of kernel ``name``'s current library; "" if it was built without."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

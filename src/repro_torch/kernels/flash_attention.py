@@ -7,6 +7,8 @@ version ``ref.flash_attention_ref``. ``launches`` counts kernel launches
 and nothing else. The kernel reads q/k/v through their strides, so
 unlike the JAX wrapper there is no head-major copy, and any sequence
 length is taken (the TPU kernel needs S to be a multiple of its blocks).
+bfloat16 runs both products on the tensor cores (P rounded to bf16
+before P V, the row sums in float32); float32 runs them as float32 FMAs.
 """
 from __future__ import annotations
 

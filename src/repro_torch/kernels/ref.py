@@ -3,7 +3,11 @@
 Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
 ``::flash_attention_ref``, ``::decode_attention_ref`` and ``::ssm_scan_ref``. They are what a
 CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
-on the card.
+on the card. ``flash_attention_bf16_emulation`` and
+``decode_attention_split_ref`` have no JAX counterpart: they compute
+attention with the CUDA kernels' own rounding and order (the bf16 flash
+kernel's tensor-core arithmetic, decode split by split), so that the
+card's results can be held to the precision that arithmetic allows.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import math
 import torch
 
 _NEG = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def gcn_agg_ref(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
@@ -61,6 +66,47 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def flash_attention_bf16_emulation(q, k, v, *, causal: bool = True,
+                                   window=None, tile: int = 64):
+    """The arithmetic of the bf16 CUDA flash kernel in plain PyTorch: S =
+    Q K^T summed in float32 and scaled by log2(e)/sqrt(d), an online
+    softmax over ``tile``-key tiles from key 0 on (running max and sum in
+    float32, exp2; the sum taken before rounding), the probabilities
+    rounded to bf16 before P V (float32 accumulators), the output divided
+    by the sum. q/k/v [B,S,H,d] / [B,S,KVH,d] as ``flash_attention_ref``;
+    returns float32, not rounded, so that a check sees the kernel's own
+    output rounding."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qf = q.float().reshape(b, s, kvh, h // kvh, d)
+    kf, vf = k.float(), v.float()
+    scale = _LOG2E / math.sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    m = torch.full((b, kvh, h // kvh, s), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (d,), device=q.device)
+    for k0 in range(0, s, tile):
+        kp = pos[k0:k0 + tile]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                          kf[:, k0:k0 + tile]) * scale
+        ok = torch.ones((s, kp.numel()), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kp[None, :] <= pos[:, None]
+        if window is not None:
+            ok &= pos[:, None] - kp[None, :] < window
+        sc = torch.where(ok, sc, -math.inf)
+        mx = torch.maximum(m, sc.amax(-1))
+        mu = torch.where(mx == -math.inf, 0.0, mx)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(sc - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.bfloat16().float(), vf[:, k0:k0 + tile])
+        m = mx
+    out = acc / l.clamp(min=1e-38)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
 def decode_attention_ref(q, k, v, lengths):
     """q [B,H,d] one token; k/v [B,S,KVH,d]; lengths [B] = number of valid
     cache rows -> [B,H,d], in float32, cast to q's dtype."""
@@ -73,6 +119,43 @@ def decode_attention_ref(q, k, v, lengths):
     logits = torch.where(valid[:, None, None, :], logits, _NEG)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, lengths, n_splits: int):
+    """``decode_attention_ref`` computed as the CUDA kernel splits it: the
+    rows below L = clamp(lengths[b], 0, S) are cut into ``n_splits``
+    splits of ceil(L / n_splits) rows; each split keeps its own running
+    max m (base 2), sum l and unnormalised output acc in float32 (m = -inf,
+    l = 0 for a split with no row); the splits combine by rescaling to
+    the largest m. A sequence with no row writes zeros, where
+    ``decode_attention_ref`` (like the JAX reference) averages every row.
+    Cast to q's dtype."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, kvh, h // kvh, d) * (_LOG2E / math.sqrt(d))
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    n = lengths.long().clamp(0, s)
+    per = (n + n_splits - 1) // n_splits
+    pos = torch.arange(s, device=q.device)
+    split_of = pos[None, :] // per.clamp(min=1)[:, None]        # [B, S]
+    rows = pos[None, :] < n[:, None]
+    ms, ls, accs = [], [], []
+    for j in range(n_splits):
+        keep = (rows & (split_of == j))[:, None, None, :]
+        sj = torch.where(keep, logits, -math.inf)
+        m = sj.amax(-1)                                         # [B,KVH,g]
+        p = torch.exp2(sj - torch.where(m == -math.inf, 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v.float()))
+    m_all = torch.stack(ms)
+    top = m_all.amax(0)
+    f = torch.exp2(m_all - torch.where(top == -math.inf, 0.0, top))
+    l_sum = (f * torch.stack(ls)).sum(0)
+    acc = (f[..., None] * torch.stack(accs)).sum(0)
+    out = torch.where(l_sum[..., None] > 0,
+                      acc / l_sum.clamp(min=1e-38)[..., None], 0.0)
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -115,13 +115,30 @@ def test_driver_launches_each_kernel_per_slot(cuda):
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # (B, S, H, KVH, d, window): tests/test_kernels.py's grid, a ragged S, and
-# Llama-3.2-1B's prefill shape at B=1
+# Llama-3.2-1B's prefill shape at B=1; S = 200 (a 64-row tile cut at 8
+# rows) at every head dim, and windows at d = 64 and 128
 FLASH_SHAPES = [(1, 128, 2, 2, 32, None), (2, 128, 4, 2, 64, None),
                 (1, 256, 8, 2, 32, 64), (2, 64, 4, 1, 128, None),
-                (2, 100, 4, 2, 64, 48), (1, 2048, 32, 8, 64, None)]
+                (2, 100, 4, 2, 64, 48), (1, 2048, 32, 8, 64, None),
+                (2, 200, 4, 2, 32, None), (1, 200, 8, 2, 64, 64),
+                (1, 200, 4, 1, 128, None), (1, 384, 4, 2, 128, 64)]
 # (B, H, KVH, d, S): tests/test_kernels.py's grid and Llama-3.2-1B's decode
 DECODE_SHAPES = [(2, 4, 2, 32, 256), (3, 8, 2, 64, 512), (1, 2, 2, 128, 128),
                  (8, 32, 8, 64, 256), (64, 32, 8, 64, 4096)]
+
+
+# bf16 flash_attention against ref.flash_attention_bf16_emulation, beyond
+# the output's bf16 rounding (flash_emu_err), as chip_smoke.py holds it (see
+# there for the limit)
+FLASH_EMU_TOL = 1e-3
+
+
+def flash_emu_err(got, emu):
+    """The error beyond the bf16 rounding of the output (half an ulp,
+    <= 2^-8 |emu|), over 1 + the largest |emu| of its row (query, head)."""
+    g, e = got.float(), emu.float()
+    excess = ((g - e).abs() - 2.0 ** -8 * e.abs()).clamp(min=0)
+    return float((excess.amax(-1) / (1 + e.abs().amax(-1))).max())
 
 
 def normal(device, dtype, *shape, seed=0):
@@ -144,6 +161,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d,
     want = ref.flash_attention_ref(q, k, v, window=win)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:     # and at the precision of its arithmetic
+        emu = ref.flash_attention_bf16_emulation(q, k, v, window=win)
+        assert flash_emu_err(got, emu) <= FLASH_EMU_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -165,13 +185,68 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, d, s):
                                    **ATTN_TOL[dtype])
 
 
-def test_decode_attention_reads_a_strided_cache_layer(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_views_of_a_fused_projection(cuda,
+                                                                  dtype):
+    """q, k, v as head slices of one [B, S, H + 2 KVH, d] projection (row
+    stride (H + 2 KVH) d), S not a multiple of the 64-row tile."""
+    b, s, h, kvh, d = 2, 200, 8, 2, 64
+    qkv = normal(cuda, dtype, b, s, h + 2 * kvh, d, seed=7)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    assert not q.is_contiguous()
+    for win in (None, 48):
+        got = flash_mod.flash_attention(q, k, v, window=win)
+        want = ref.flash_attention_ref(q, k, v, window=win)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **ATTN_TOL[dtype])
+        if dtype == torch.bfloat16:
+            emu = ref.flash_attention_bf16_emulation(q, k, v, window=win)
+            assert flash_emu_err(got, emu) <= FLASH_EMU_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", range(1, decode_mod.MAX_SPLITS + 1))
+def test_decode_attention_kernel_at_every_split_count(cuda, dtype, splits):
+    """Llama-3.2-1B's B=1 decode against 4096 rows with the split count
+    forced, lengths random and full; then lengths 0, 1, > S and short ones
+    that leave splits empty, held against the split-KV plain version
+    (which, as the kernel, writes zeros for a sequence with no row)."""
+    q = normal(cuda, dtype, 1, 32, 64, seed=1)
+    k = normal(cuda, dtype, 1, 4096, 8, 64, seed=2)
+    v = normal(cuda, dtype, 1, 4096, 8, 64, seed=3)
+    for n in (1234, 4096):
+        lengths = torch.tensor([n], dtype=torch.int32, device=cuda)
+        before = decode_mod.launches
+        got = decode_mod.decode_attention(q, k, v, lengths, splits=splits)
+        torch.cuda.synchronize()
+        assert decode_mod.launches == before + 1
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **ATTN_TOL[dtype])
+    q = normal(cuda, dtype, 5, 8, 32, seed=4)
+    k = normal(cuda, dtype, 5, 300, 2, 32, seed=5)
+    v = normal(cuda, dtype, 5, 300, 2, 32, seed=6)
+    lengths = torch.tensor([0, 1, 305, 3, 299], dtype=torch.int32,
+                           device=cuda)
+    got = decode_mod.decode_attention(q, k, v, lengths, splits=splits)
+    want = ref.decode_attention_split_ref(q, k, v, lengths, splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3, 8])
+def test_decode_attention_reads_a_strided_cache_layer(cuda, splits):
     """A layer's slice of the stacked [L, B, S, KVH, d] cache, and a query
-    with a non-unit batch stride, as the model passes them."""
+    with a non-unit batch stride, as the model passes them; with the
+    split count chosen by the wrapper and forced to one, a few and many."""
     cache = normal(cuda, torch.bfloat16, 3, 2, 128, 2, 64, seed=5)
     q = normal(cuda, torch.bfloat16, 2, 1, 4, 64, seed=6)[:, 0]
     lengths = torch.tensor([5, 128], dtype=torch.int32, device=cuda)
-    got = decode_mod.decode_attention(q, cache[1], cache[2], lengths)
+    got = decode_mod.decode_attention(q, cache[1], cache[2], lengths,
+                                      splits=splits)
     want = ref.decode_attention_ref(q, cache[1], cache[2], lengths)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
@@ -203,12 +278,19 @@ def test_attention_wrappers_refuse_what_the_kernel_cannot_take(cuda, op):
     if decode:
         with pytest.raises(TypeError, match="int32"):
             fn(q, k, k, extra[0].long())
-        # 512 query heads on one kv head need more shared memory than a
-        # block has: the kernel refuses the launch, and the next launch of
-        # a group that fits is not affected
+        # 512 (or 16) query heads on one kv head are more than the kernel's
+        # group of at most 8: it refuses the launch at any split count, and
+        # the next launch of a group that fits is not affected
         q512 = normal(cuda, torch.float32, 1, 512, 64)
         with pytest.raises(RuntimeError, match="launch failed"):
             fn(q512, k[:, :, :1], k[:, :, :1], *extra)
+        q16 = normal(cuda, torch.float32, 1, 16, 64)
+        for splits in (1, 4):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                decode_mod.decode_attention(q16, k[:, :, :1], k[:, :, :1],
+                                            *extra, splits=splits)
+        with pytest.raises(ValueError, match="splits"):
+            decode_mod.decode_attention(q, k, k, *extra, splits=9)
         got = fn(q, k, k, *extra)
         torch.cuda.synchronize()
         np.testing.assert_allclose(

@@ -12,6 +12,7 @@ from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.edge_score import edge_score as jax_edge_score
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.gcn_agg import gcn_agg as jax_gcn_agg
+from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import edge_score as edge_mod
 from repro_torch.kernels import gcn_agg as gcn_mod
 from repro_torch.kernels import ops, ref
@@ -32,6 +33,14 @@ ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 FLASH_GRID = [(1, 128, 2, 2, 32, None), (2, 128, 4, 2, 64, None),
               (1, 256, 8, 2, 32, 64), (2, 64, 4, 1, 128, None)]
 DECODE_GRID = [(2, 4, 2, 32, 256), (3, 8, 2, 64, 512), (1, 2, 2, 128, 128)]
+# (B, H, KVH, d, S, splits, lengths) for the split-KV plain version: empty
+# splits (lengths 1 and 5 under 8 splits), lengths 0, 1 and > S, and split
+# boundaries inside a length (130 rows in 3 splits of 44)
+SPLIT_CASES = [(4, 4, 2, 32, 256, 3, (0, 1, 300, 130)),
+               (3, 8, 2, 64, 512, 8, (5, 512, 1)),
+               (2, 2, 2, 128, 128, 1, (128, 0)),
+               (1, 4, 1, 64, 256, 5, (257,)),
+               (2, 8, 2, 32, 128, 7, (100, 13))]
 
 
 def gcn_args(seed, b, m, o, fs=7, fn=4, h=16):
@@ -224,3 +233,109 @@ def test_wrappers_refuse_other_devices(op):
     mixed = to_torch(args)[:-1] + to_torch(args[-1:], "meta")
     with pytest.raises(ValueError, match="several devices"):
         fn(*mixed)
+
+
+# ------------------------------------------------------------- split-KV decode
+def split_args(seed, b, h, kvh, d, s, lens):
+    (jq, jk, jv, _), (q, k, v, _) = attn_args(seed, b, s, h, kvh, d,
+                                              decode=True)
+    lens = np.asarray(lens, np.int32)
+    return (jq, jk, jv, jnp.asarray(lens)), (q, k, v, torch.tensor(lens))
+
+
+@pytest.mark.parametrize("b,h,kvh,d,s,splits,lens", SPLIT_CASES)
+def test_decode_split_ref_matches_pallas_and_jax_ref(b, h, kvh, d, s, splits,
+                                                     lens):
+    """The kernel's split-KV arithmetic in plain PyTorch against the TPU
+    kernel (interpret) and both refs, f32 2e-5, wherever a sequence has a
+    row. A sequence with none gets zeros from the split version (as from
+    the CUDA kernel); the refs and the TPU kernel average all its rows."""
+    jx, tx = split_args(s + h + d + splits, b, h, kvh, d, s, lens)
+    got = ref.decode_attention_split_ref(*tx, splits)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    has = np.asarray(lens) > 0
+    for want in (jax_decode(*jx, block_k=128),
+                 jax_ref.decode_attention_ref(*jx),
+                 ref.decode_attention_ref(*tx)):
+        want = as_f32(want)
+        np.testing.assert_allclose(as_f32(got)[has], want[has],
+                                   **ATTN_TOL["float32"])
+        if not has.all():
+            v_mean = as_f32(tx[2]).mean(1)                 # [B, KVH, d]
+            g = h // kvh
+            np.testing.assert_allclose(
+                want[~has], np.repeat(v_mean, g, axis=1)[~has],
+                **ATTN_TOL["float32"])
+    assert not as_f32(got)[~has].any()
+
+
+@pytest.mark.parametrize("splits", range(1, decode_mod.MAX_SPLITS + 1))
+def test_decode_split_ref_agrees_at_every_split_count(splits):
+    _, tx = split_args(11, 3, 8, 2, 64, 512, (512, 37, 300))
+    np.testing.assert_allclose(
+        ref.decode_attention_split_ref(*tx, splits).numpy(),
+        ref.decode_attention_ref(*tx).numpy(), **ATTN_TOL["float32"])
+
+
+def test_decode_split_ref_rounds_like_the_dtype():
+    _, tx = split_args(12, 2, 4, 2, 32, 256, (200, 256))
+    tx = [x.bfloat16() if x.is_floating_point() else x for x in tx]
+    got = ref.decode_attention_split_ref(*tx, 4)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(as_f32(got),
+                               as_f32(ref.decode_attention_ref(*tx)),
+                               **ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132, 144])
+def test_decode_split_count(sms):
+    """One split once B * KVH blocks give every SM two; otherwise at most
+    the portable cluster size, and every split of a full cache holds a
+    row; 8 at Llama-3.2-1B's B=1 against 4096 rows on 132 SMs."""
+    for b in (1, 2, 8, 16, 33, 64, 300):
+        for kvh in (1, 2, 8):
+            for s in (1, 64, 255, 256, 300, 1000, 2048, 4096, 100000):
+                n = decode_mod.n_splits(b, kvh, s, sms)
+                assert 1 <= n <= decode_mod.MAX_SPLITS
+                if b * kvh >= 2 * sms:
+                    assert n == 1
+                per = -(-s // n)
+                assert (n - 1) * per < s, (b, kvh, s, n)   # no empty split
+                assert n == 1 or per >= decode_mod.MIN_SPLIT_ROWS
+                assert decode_mod.n_warps(b * kvh * n, sms) in (4, 8)
+    assert decode_mod.n_splits(1, 8, 4096, 132) == 8
+    assert decode_mod.n_splits(64, 8, 4096, 132) == 1
+    assert decode_mod.n_splits(8, 8, 256, 132) == 1
+
+
+def test_decode_wrapper_forced_splits_on_cpu():
+    """A forced split count is range-checked; a CPU tensor runs the plain
+    version whatever the count."""
+    _, tx = split_args(13, 2, 4, 2, 32, 256, (0, 200))
+    for splits in (None, 1, 3, decode_mod.MAX_SPLITS):
+        assert torch.equal(decode_mod.decode_attention(*tx, splits=splits),
+                           ref.decode_attention_ref(*tx))
+    for bad in (0, decode_mod.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            decode_mod.decode_attention(*tx, splits=bad)
+
+
+# ------------------------------------------------- bf16 flash kernel's rounding
+@pytest.mark.parametrize("b,s,h,kvh,d,win", FLASH_GRID + [
+    (1, 200, 4, 2, 64, None), (1, 200, 8, 2, 128, 64)])
+def test_flash_bf16_kernel_rounding_within_the_bf16_gate(b, s, h, kvh, d,
+                                                         win):
+    """P rounded to bf16 before P V (the tensor-core kernel's one extra
+    rounding), and the output rounded to bf16 as the kernel stores it,
+    keep the output within the bf16 gate of JAX's kernel (interpret) and
+    of the plain version."""
+    (jq, jk, jv), (q, k, v) = attn_args(s + h + d + 1, b, s, h, kvh, d,
+                                        "bfloat16")
+    got = ref.flash_attention_bf16_emulation(q, k, v, window=win).bfloat16()
+    wants = [ref.flash_attention_ref(q, k, v, window=win)]
+    if s % 64 == 0:     # the TPU kernel takes whole blocks only
+        wants.append(jax_flash(jq, jk, jv, window=win, block_q=64,
+                               block_k=64))
+    for want in wants:
+        np.testing.assert_allclose(as_f32(got), as_f32(want),
+                                   **ATTN_TOL["bfloat16"])
