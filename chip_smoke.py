@@ -44,7 +44,9 @@ order, each fatal on failure:
    plain and library times (scaled_dot_product_attention, the yardstick
    only) and the bound, and decode's split count per shape; then decode at B=1
    against 4096 rows with every split count forced (1..8), f32 and bf16,
-   a random length and the full one, checked and (bf16) timed;
+   a random length and the full one, checked and (bf16) timed (a
+   sequence of length 0 gets the mean of its V rows, as from the
+   reference; tests/test_torch_cuda.py holds that at every split count);
 7. LM golden replay: ``tests/data/torch_lm_golden.npz`` (reduced Llama,
    f32, JAX outputs) through the port's prefill and serve steps on the
    card: prefill logits, prefill cache and every exit's serve logits
@@ -70,10 +72,20 @@ order, each fatal on failure:
    (float32 rounding scales with the sums a recurrence adds, and |y|
    reaches ~400 at slow decays); at the prefill shape in f32 the same
    tolerance must reject the plain version with the initial state
-   dropped, the decays one token late or the bonus dropped; in bf16
-   kernel time (CUDA-graph replay), plain time (CUDA events around one
-   eager call: the plain version is a 2048-step loop) and the bound (the
-   recurrence's 5 dk dv operations per token and head);
+   dropped, the decays one token late or the bonus dropped; every bf16
+   shape also against ref.ssm_scan_bf16_emulation, the tensor-core
+   kernel's own rounding in plain PyTorch (ref.ssm_emu_err: y beyond its
+   bf16 output rounding within ref.SSM_EMU_TOL, the state within
+   ref.SSM_EMU_STATE_TOL, of 1 + the largest |value| of the sequence and
+   head), which at the prefill shape must reject three faults planted in
+   the emulation (the last off-diagonal sub-block dropped for the last
+   sub-block's rows, the carried-state read skipped in the last chunk,
+   k_out's lo half dropped); the bf16 and f32 kernels' shared memory and
+   blocks per SM at the prefill shape (bf16 must fit two); in bf16
+   kernel time (CUDA-graph replay) beside the first design's, plain time
+   (CUDA events around one eager call: the plain version is a 2048-step
+   loop) and the bound (the recurrence's 5 dk dv operations per token and
+   head);
 12. RWKV golden replay: ``tests/data/torch_rwkv_golden.npz`` (reduced
    RWKV-6, f32, JAX outputs) through the port on the card: prefill logits
    and state and every exit's serve logits within 1e-4;
@@ -153,6 +165,9 @@ SSM_GRID = ((2, 64, 2, 8, 16, 16), (1, 128, 4, 16, 16, 32),
             (2, 32, 1, 64, 32, 32))
 SSM_PREFILL = (PREFILL_B, PREFILL_S, 64, 64, 64, 128)
 SSM_LONG_B, SSM_LONG_P = 64, 256
+# the bf16 scan's time at SSM_PREFILL in its first design (f32 products on
+# the CUDA cores, one block per SM; PERF.md §6 row 5), beside the current
+SSM_FIRST_DESIGN_US = 2338.39
 STATE_FIELDS = ("wkv", "shift_tm", "shift_cm")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor-core float32
 # FLOP/s and dense bf16 FLOP/s; a bound takes the rate of its inputs' type
@@ -851,12 +866,59 @@ def ssm_scan_phase(dev):
                              f"largest |value|, above {tol}")
         return err
 
+    def check_emulation(label, y, st, emu_y, emu_s):
+        """The bf16 kernel against its emulation, y beyond its output
+        rounding and the state; returns both readings."""
+        excess = ref.ssm_emu_excess(y, emu_y)
+        err_y = float(excess.max())
+        err_s = ref.ssm_emu_err(st, emu_s, state=True)
+        # how sparse the y error is: rounding flips touch a few rows
+        sparse = ", ".join(f"{int((excess > th).sum())} above {th}"
+                           for th in (1e-4, 1e-3))
+        print(f"  ssm_scan {label:46s} bfloat16 vs emulation: y {err_y:.3e} "
+              f"beyond its rounding (limit {ref.SSM_EMU_TOL}; of "
+              f"{excess.numel()} elements {sparse}), state {err_s:.3e} "
+              f"(limit {ref.SSM_EMU_STATE_TOL})", flush=True)
+        if err_y > ref.SSM_EMU_TOL or err_s > ref.SSM_EMU_STATE_TOL:
+            raise SystemExit(f"ssm_scan {label} bf16: kernel differs from its "
+                             f"emulation by y {err_y}, state {err_s}")
+        return err_y, err_s
+
+    def emulation_controls(q, k, v, log_w, u, s0, c, emu_y, emu_s, want_y):
+        """The emulation check must reject each planted fault; whether the
+        3e-2 gate against plain would is printed beside it."""
+        for fault in ref.SSM_EMU_FAULTS:
+            bad_y, bad_s = ref.ssm_scan_bf16_emulation(
+                q, k, v, log_w, bonus_u=u, chunk=c, initial_state=s0,
+                fault=fault)
+            err_y = ref.ssm_emu_err(bad_y.bfloat16(), emu_y)
+            err_s = ref.ssm_emu_err(bad_s, emu_s, state=True)
+            gate = scan_err(bad_y, want_y) <= SSM_TOL[torch.bfloat16]
+            print(f"  control: {fault}: y {err_y:.3e}, state {err_s:.3e} "
+                  f"(limits {ref.SSM_EMU_TOL}, {ref.SSM_EMU_STATE_TOL}); the "
+                  f"3e-2 gate {'accepts' if gate else 'rejects'} it",
+                  flush=True)
+            if err_y <= ref.SSM_EMU_TOL and err_s <= ref.SSM_EMU_STATE_TOL:
+                raise SystemExit(f"ssm_scan: the emulation check accepts a "
+                                 f"planted fault ({fault})")
+
+    _, _, _, dk, dv, c = SSM_PREFILL
+    info = {dt: ssm_mod.kernel_info(dk, dv, c, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    for dt, kinfo in info.items():
+        print(f"  ssm_scan dk={dk} dv={dv} chunk {c} {str(dt)[6:]:8s} shared "
+              f"memory {kinfo['smem_bytes']} bytes a block, "
+              f"{kinfo['blocks_per_sm']} blocks per SM")
+    if info[torch.bfloat16]["blocks_per_sm"] < 2:
+        raise SystemExit("ssm_scan: the bf16 kernel no longer fits two "
+                         "blocks per SM at the prefill shape")
+
     cases = [(shape, dt, rwkv, slow) for dt in (torch.float32, torch.bfloat16)
              for shape in SSM_GRID for rwkv in (False, True)
              for slow in (False, True)]
     cases += [(SSM_PREFILL, dt, True, slow)
               for dt in (torch.bfloat16, torch.float32) for slow in (False, True)]
-    out, errs = None, []
+    out, errs, emu_errs = None, [], []
     for (b, t, h, dk, dv, c), dt, rwkv, slow in cases:
         main_shape = (b, t, h, dk, dv, c) == SSM_PREFILL
         q = normal(b, t, h, dk).to(dt)
@@ -882,6 +944,14 @@ def ssm_scan_phase(dev):
               flush=True)
         if main_shape:
             errs.append(float((y.float() - want_y.float()).abs().max()))
+        if dt == torch.bfloat16:
+            emu_y, emu_s = ref.ssm_scan_bf16_emulation(
+                q, k, v, log_w, bonus_u=u, chunk=c, initial_state=s0)
+            emu_errs.append(check_emulation(label, y, st, emu_y, emu_s))
+            if main_shape and slow:
+                emulation_controls(q, k, v, log_w, u, s0, c, emu_y, emu_s,
+                                   want_y)
+            del emu_y, emu_s
         if main_shape and dt == torch.float32 and slow:
             # the tolerance must still reject a kernel that drops the
             # initial state, applies each decay one token late or drops
@@ -907,13 +977,21 @@ def ssm_scan_phase(dev):
                                                          bonus_u=u))
             cost = ssm_cost(q, v, log_w, u, None)
             b_ms, b_by = bound(*cost, peak_for(dt))
-            print(f"  ssm_scan {label:46s} kernel {ms * 1e3:9.2f} us  plain "
+            print(f"  ssm_scan {label:46s} kernel {ms * 1e3:9.2f} us "
+                  f"(first design {SSM_FIRST_DESIGN_US} us)  plain "
                   f"{plain_ms * 1e3:9.2f} us (eager)  library n/a  bound "
                   f"{b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
-                  f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
+                  f"{cost[1] / 1e9:.2f} GFLOP); "
+                  f"{info[dt]['smem_bytes']} bytes of shared memory a "
+                  f"block, {info[dt]['blocks_per_sm']} blocks per SM",
+                  flush=True)
             out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=b_ms, bound_by=b_by)
         del q, k, v, log_w, y, st, want_y, want_s
+    print(f"  ssm_scan bf16 vs its emulation, largest readings: y "
+          f"{max(e[0] for e in emu_errs):.3e} beyond its rounding (limit "
+          f"{ref.SSM_EMU_TOL}), state {max(e[1] for e in emu_errs):.3e} "
+          f"(limit {ref.SSM_EMU_STATE_TOL})")
     out["max_abs_err"] = max(errs)
     return out
 

@@ -33,7 +33,11 @@
 //   per chunk, not per row.
 // * At the end the row groups of a warp combine by __shfl_xor, the warps
 //   through shared memory, the splits through the cluster. A split with no
-//   row contributes m = -inf, l = 0; lengths[b] == 0 writes zeros.
+//   row contributes m = -inf, l = 0.
+// * A sequence with lengths[b] <= 0 attends uniformly over all S rows, as
+//   the Pallas kernel does (every logit masked alike, so p = 1 on every
+//   row): it is read as length S with q scaled by 0, so every logit is 0
+//   and the online softmax and the split combine give sum_s v[b, s] / S.
 // g up to 8 (every config of the repo); a larger group is refused.
 #include <cooperative_groups.h>
 
@@ -95,7 +99,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
   const int sub = lane % LPR, grp = lane / LPR;  // d chunk, row in a load
-  const int len = max(0, min(a.lengths[b], a.S));
+  const bool empty = a.lengths[b] <= 0;  // uniform over all S rows
+  const int len = empty ? a.S : min(a.lengths[b], a.S);
+  const float q_scale = empty ? 0.f : a.scale_log2;
   const int per = (len + n_split - 1) / n_split;
   const int r0 = min(len, split * per), r1 = min(len, r0 + per);
   const int g = a.g, h0 = kvh * g;
@@ -112,7 +118,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
     }
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      qr[hh][e] *= a.scale_log2;
+      qr[hh][e] *= q_scale;
       acc[hh][e] = 0.f;
     }
     m[hh] = -INFINITY;
@@ -246,7 +252,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
       sa += s_acc[w][hh][c] * f;
     }
     if (n_split == 1) {
-      // lengths[b] == 0 reads nothing and writes zeros
       if (hh < g) op[hh * a.o_sh + c] = attn::from_f32<T>(sl > 0.f ? sa / sl : 0.f);
     } else {
       s_pacc[hh][c] = sa;
@@ -340,7 +345,8 @@ int dispatch_d(long long D, const Args& a, long long B, long long KVH,
 // q [B,H,D] and o [B,H,D] through their (batch, head) strides, k/v
 // [B,S,KVH,D] through their (batch, position, head) strides, in elements,
 // the D axis contiguous and 16-byte aligned; lengths [B] int32 on the
-// device (values above S read S rows, values <= 0 none). n_split in
+// device (values above S read S rows, values <= 0 average all S rows, as
+// the Pallas kernel does). n_split in
 // [1, 8] blocks per (kv head, sequence), a cluster when above 1; n_warps
 // in [1, 8] per block. dtype: 0 float32, 1 bfloat16. Returns the launch's
 // error, else cudaGetLastError() after it.

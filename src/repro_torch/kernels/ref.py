@@ -3,11 +3,12 @@
 Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
 ``::flash_attention_ref``, ``::decode_attention_ref`` and ``::ssm_scan_ref``. They are what a
 CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
-on the card. ``flash_attention_bf16_emulation`` and
-``decode_attention_split_ref`` have no JAX counterpart: they compute
-attention with the CUDA kernels' own rounding and order (the bf16 flash
-kernel's tensor-core arithmetic, decode split by split), so that the
-card's results can be held to the precision that arithmetic allows.
+on the card. ``flash_attention_bf16_emulation``,
+``decode_attention_split_ref`` and ``ssm_scan_bf16_emulation`` have no
+JAX counterpart: they compute with the CUDA kernels' own rounding and
+order (the bf16 flash and scan kernels' tensor-core arithmetic, decode
+split by split), so that the card's results can be held to the precision
+that arithmetic allows (``ssm_emu_err``).
 """
 from __future__ import annotations
 
@@ -128,14 +129,17 @@ def decode_attention_split_ref(q, k, v, lengths, n_splits: int):
     splits of ceil(L / n_splits) rows; each split keeps its own running
     max m (base 2), sum l and unnormalised output acc in float32 (m = -inf,
     l = 0 for a split with no row); the splits combine by rescaling to
-    the largest m. A sequence with no row writes zeros, where
-    ``decode_attention_ref`` (like the JAX reference) averages every row.
-    Cast to q's dtype."""
+    the largest m. A sequence with lengths[b] <= 0 attends uniformly over
+    all S rows, as ``decode_attention_ref`` and the JAX reference do: as
+    the kernel does it, it is read as length S with q scaled by 0, so that
+    every logit is 0. Cast to q's dtype."""
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, kvh, h // kvh, d) * (_LOG2E / math.sqrt(d))
+    empty = lengths.long() <= 0
+    scale = torch.where(empty, 0.0, _LOG2E / math.sqrt(d))
+    qf = q.float().reshape(b, kvh, h // kvh, d) * scale[:, None, None, None]
     logits = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
-    n = lengths.long().clamp(0, s)
+    n = torch.where(empty, s, lengths.long().clamp(max=s))
     per = (n + n_splits - 1) // n_splits
     pos = torch.arange(s, device=q.device)
     split_of = pos[None, :] // per.clamp(min=1)[:, None]        # [B, S]
@@ -195,3 +199,127 @@ def ssm_scan_ref(q, k, v, log_w, *, bonus_u=None, initial_state=None):
                             bonus_u=u)
         ys.append(y)
     return torch.stack(ys, dim=1).to(q.dtype), s
+
+
+# The bf16 scan kernel against its emulation (ssm_emu_err), y beyond its
+# bf16 output rounding and the final state, over 1 + the largest |value|
+# of the (sequence, head); ~2x the largest readings on the card (PERF.md).
+# What remains in y are bf16 roundings of a score that the kernel's
+# ex2.approx and mma summation order tip the other way: one such flip moves
+# a whole y row by up to an ulp of the score times |v| (a few hundred of
+# 33.5M elements above 1e-4 at RWKV-6-7B's prefill shape, 1.478e-3 at
+# most). In the state, k_out's hi + lo split represents each term to
+# ~2^-18 whatever its rounding, so the kernel and the emulation differ
+# there by ~1e-5 of the largest |S|.
+SSM_EMU_TOL = 3e-3
+SSM_EMU_STATE_TOL = 2e-5
+# faults that the limits must reject, planted in the emulation only
+SSM_EMU_FAULTS = ("the last off-diagonal sub-block dropped for the last "
+                  "sub-block's rows",
+                  "the carried-state read skipped in the last chunk",
+                  "k_out's lo half dropped")
+
+
+def ssm_scan_bf16_emulation(q, k, v, log_w, *, bonus_u=None, chunk=128,
+                            initial_state=None, rounding=True, fault=None):
+    """The arithmetic of the bf16 CUDA scan kernel in plain PyTorch: the
+    chunked algorithm in float32 by its 16-row sub-blocks (cumsums within a
+    sub-block, each sub-block's total, the sums of the earlier and later
+    totals), with bf16 roundings where the kernel rounds: the diagonal
+    block A_tt (exact in log space) and each off-diagonal A_ts = q^ k^T
+    before they multiply V; q^ = q exp(qe + sub-blocks s+1..t-1) and k^ =
+    k exp(tot_s - cum) (anchored at the end of s); q exp(qe + earlier
+    sub-blocks) and the carried state S for the state read; k_out = k
+    exp(tot - cum) as bf16 hi + lo for the state update. ``rounding=False``
+    leaves out every rounding (and lo): the exact chunked algorithm.
+    ``fault`` plants one of SSM_EMU_FAULTS. q, k, log_w [B,T,H,dk], v
+    [B,T,H,dv] as ``ssm_scan_ref``; returns (y [B,T,H,dv] float32, not
+    rounded, so that a check sees the kernel's own output rounding; the
+    final state [B,H,dk,dv] float32)."""
+    if fault is not None and fault not in SSM_EMU_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    c = min(int(chunk), t)
+    sub = min(c, 16)
+    n = c // sub
+    rwkv = bonus_u is not None
+
+    def rnd(x):
+        return x.bfloat16().float() if rounding else x
+
+    qf, kf, vf, wf = (x.float().transpose(1, 2) for x in (q, k, v, log_w))
+    s = (torch.zeros((b, h, dk, dv), device=q.device)
+         if initial_state is None else initial_state.float().clone())
+    pos = torch.arange(sub, device=q.device)
+    keep = (pos[None, :] < pos[:, None]) if rwkv \
+        else (pos[None, :] <= pos[:, None])                    # [i, j]
+    ys = []
+    for c0 in range(0, t, c):
+        last = c0 + c == t
+
+        def cut(x):
+            return x[:, :, c0:c0 + c].reshape(b, h, n, sub, x.shape[-1])
+
+        qc, kc, vc, wc = cut(qf), cut(kf), cut(vf), cut(wf)
+        loc = wc.cumsum(3)                        # within each sub-block
+        tot = loc[:, :, :, -1]                    # [B,H,n,dk]
+        run = tot.cumsum(2)
+        pre = torch.cat([torch.zeros_like(tot[:, :, :1]), run[:, :, :-1]], 2)
+        suf = tot.flip(2).cumsum(2).flip(2) - tot  # later sub-blocks
+        qe = torch.cat([torch.zeros_like(loc[:, :, :, :1]), loc[:, :, :, :-1]],
+                       3) if rwkv else loc
+        # diagonal blocks, exact in log space
+        gap = qe[:, :, :, :, None, :] - loc[:, :, :, None, :, :]
+        pair = torch.where(keep[..., None], torch.exp(gap.clamp(max=0.0)), 0.0)
+        a = torch.einsum("bhnid,bhnijd,bhnjd->bhnij", qc, pair, kc)
+        if rwkv:
+            bonus = (qc * bonus_u.float()[None, :, None, None, :] * kc).sum(-1)
+            a = a + torch.diag_embed(bonus)
+        y = torch.einsum("bhnij,bhnje->bhnie", rnd(a), vc)
+        # earlier sub-blocks, anchored at the end of each
+        k_hat = rnd(kc * torch.exp(tot[:, :, :, None, :] - loc))
+        for ti in range(1, n):
+            gaps = suf[:, :, :ti] - suf[:, :, ti - 1:ti]      # [B,H,ti,dk]
+            q_hat = rnd(qc[:, :, ti, None] * torch.exp(
+                qe[:, :, ti, None] + gaps[:, :, :, None, :]))
+            a = rnd(torch.einsum("bhsid,bhsjd->bhsij", q_hat, k_hat[:, :, :ti]))
+            if fault == SSM_EMU_FAULTS[0] and ti == n - 1:
+                a[:, :, ti - 1] = 0.0
+            y[:, :, ti] += torch.einsum("bhsij,bhsje->bhie", a, vc[:, :, :ti])
+        # the carried-state read
+        if not (fault == SSM_EMU_FAULTS[1] and last):
+            q_s = rnd(qc * torch.exp(qe + pre[:, :, :, None, :]))
+            y = y + torch.einsum("bhnid,bhde->bhnie", q_s, rnd(s))
+        ys.append(y.reshape(b, h, c, dv))
+        # the state update, k_out as bf16 hi + lo
+        k_out = kc * torch.exp(tot[:, :, :, None, :] - loc
+                               + suf[:, :, :, None, :])
+        hi = rnd(k_out)
+        parts = [hi]
+        if rounding and fault != SSM_EMU_FAULTS[2]:
+            parts.append(rnd(k_out - hi))
+        s = s * torch.exp(run[:, :, -1])[..., None]
+        for part in parts:
+            s = s + torch.einsum("bhnjd,bhnje->bhde", part, vc)
+    return torch.cat(ys, 2).transpose(1, 2), s
+
+
+def ssm_emu_excess(got, emu, *, state=False):
+    """Per element, the bf16 scan kernel's error against
+    ``ssm_scan_bf16_emulation`` over 1 + the largest |emu| of the same
+    (sequence, head): for y [B,T,H,dv], beyond the bf16 rounding of the
+    kernel's output (half an ulp, <= 2^-8 |emu|); for the float32 state
+    [B,H,dk,dv], all of it."""
+    g, e = got.float(), emu.float()
+    diff = (g - e).abs()
+    if not state:
+        diff = (diff - 2.0 ** -8 * e.abs()).clamp(min=0)
+    scale = 1 + e.abs().amax(dim=(2, 3) if state else (1, 3), keepdim=True)
+    return diff / scale
+
+
+def ssm_emu_err(got, emu, *, state=False):
+    """The largest of ``ssm_emu_excess``: what SSM_EMU_TOL and
+    SSM_EMU_STATE_TOL hold."""
+    return float(ssm_emu_excess(got, emu, state=state).max())

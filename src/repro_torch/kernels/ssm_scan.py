@@ -8,9 +8,13 @@ hand-written kernel or raises; a CPU tensor runs the plain version
 ``ref.ssm_scan_ref`` (the sequential recurrence). ``launches`` counts
 kernel launches and nothing else. The kernel reads q/k/v/log_w through
 their [B,T,H,d] strides, so unlike the JAX wrapper there is no
-head-major copy.
+head-major copy. A bfloat16 input runs the tensor-core kernel (rows
+16-byte aligned), a float32 input the CUDA-core one; ``kernel_info``
+gives either's shared memory and blocks per SM.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +33,25 @@ def _kernel():
     if _fn is None:
         _fn = _build.bind("ssm_scan", "ssm_scan_fwd", n_ptr=8, n_int=22)
     return _fn
+
+
+def kernel_info(dk: int, dv: int, chunk: int, dtype) -> dict:
+    """The CUDA kernel that takes (dk, dv, chunk, dtype): its dynamic
+    shared memory per block in bytes and how many of its blocks one SM of
+    the current card runs at once. Needs the card."""
+    lib = _build.load("ssm_scan")
+    args = [ctypes.c_longlong(x) for x in
+            (dk, dv, chunk, int(dtype == torch.bfloat16))]
+    out = {}
+    for key, symbol in (("smem_bytes", "ssm_scan_smem_bytes"),
+                        ("blocks_per_sm", "ssm_scan_blocks_per_sm")):
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_longlong
+        out[key] = int(fn(*args))
+        if out[key] < 0:
+            raise RuntimeError(f"ssm_scan: {symbol} failed: CUDA error "
+                               f"{-out[key]}")
+    return out
 
 
 def check_shapes(q, k, v, log_w, bonus_u, initial_state, chunk) -> int:
@@ -96,6 +119,8 @@ def _launch(device, q, k, v, log_w, bonus_u, initial_state, c):
         if x.stride(-1) != 1:
             raise ValueError(f"ssm_scan: {name}'s last axis must be "
                              f"contiguous (strides {x.stride()})")
+    if q.dtype == torch.bfloat16:   # the tensor-core kernel's 16-byte loads
+        _build.check_rows("q k v log_w", q, k, v, log_w)
     y = torch.empty((b, t, h, dv), dtype=q.dtype, device=device)
     final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=device)
     if y.numel() == 0:

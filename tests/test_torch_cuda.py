@@ -210,8 +210,9 @@ def test_flash_attention_reads_strided_views_of_a_fused_projection(cuda,
 def test_decode_attention_kernel_at_every_split_count(cuda, dtype, splits):
     """Llama-3.2-1B's B=1 decode against 4096 rows with the split count
     forced, lengths random and full; then lengths 0, 1, > S and short ones
-    that leave splits empty, held against the split-KV plain version
-    (which, as the kernel, writes zeros for a sequence with no row)."""
+    that leave splits empty, held against the split-KV plain version; a
+    sequence of length 0 gets the mean of its V rows, as from the
+    reference."""
     q = normal(cuda, dtype, 1, 32, 64, seed=1)
     k = normal(cuda, dtype, 1, 4096, 8, 64, seed=2)
     v = normal(cuda, dtype, 1, 4096, 8, 64, seed=3)
@@ -234,7 +235,10 @@ def test_decode_attention_kernel_at_every_split_count(cuda, dtype, splits):
     want = ref.decode_attention_split_ref(q, k, v, lengths, splits)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **ATTN_TOL[dtype])
-    assert not got[0].any()
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               v[0].float().mean(0).repeat_interleave(
+                                   4, dim=0).cpu().numpy(),
+                               **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("splits", [None, 1, 3, 8])
@@ -379,6 +383,29 @@ def test_ssm_scan_kernel_matches_plain(cuda, b, t, h, dk, dv, chunk, dtype,
     want_y, want_s = ref.ssm_scan_ref(q, k, v, w, bonus_u=u, initial_state=s0)
     assert_scan_close(y, want_y, SSM_TOL[dtype])
     assert_scan_close(s, want_s, SSM_TOL[torch.float32], state=True)
+    if dtype == torch.bfloat16:
+        assert_emulated(y, s, q, k, v, w, u, s0, chunk)
+
+
+def assert_emulated(y, s, q, k, v, w, u, s0, chunk):
+    """The bf16 kernel against its own arithmetic in plain PyTorch, within
+    the limits of ref.SSM_EMU_TOL (y, beyond its output rounding) and
+    ref.SSM_EMU_STATE_TOL (the state)."""
+    emu_y, emu_s = ref.ssm_scan_bf16_emulation(q, k, v, w, bonus_u=u,
+                                               chunk=chunk, initial_state=s0)
+    err_y = ref.ssm_emu_err(y, emu_y)
+    err_s = ref.ssm_emu_err(s, emu_s, state=True)
+    assert err_y <= ref.SSM_EMU_TOL, f"y {err_y} beyond its emulation"
+    assert err_s <= ref.SSM_EMU_STATE_TOL, f"state {err_s} beyond emulation"
+
+
+def test_ssm_scan_bf16_fits_two_blocks_per_sm(cuda):
+    """RWKV-6-7B's head (dk = dv = 64) at chunk 128: the bf16 kernel's
+    shared memory lets two blocks share an SM, the f32 kernel's one."""
+    bf = ssm_mod.kernel_info(64, 64, 128, torch.bfloat16)
+    f32 = ssm_mod.kernel_info(64, 64, 128, torch.float32)
+    assert bf["smem_bytes"] <= 113 * 1024 and bf["blocks_per_sm"] == 2
+    assert f32["smem_bytes"] > bf["smem_bytes"] and f32["blocks_per_sm"] == 1
 
 
 def test_ssm_scan_reads_strided_inputs(cuda):
@@ -396,6 +423,11 @@ def test_ssm_scan_reads_strided_inputs(cuda):
                                       initial_state=s0)
     assert_scan_close(y, want_y, SSM_TOL[torch.bfloat16])
     assert_scan_close(s, want_s, SSM_TOL[torch.float32], state=True)
+    assert_emulated(y, s, *args, u[:, :d].contiguous(), s0, 32)
+    # rows that do not start on 16 bytes are refused, not misread
+    with pytest.raises(ValueError, match="16-byte"):
+        ssm_mod.ssm_scan(*(x[..., 1:d + 1] for x in (q, k, v, w)),
+                         u[:, :d].contiguous(), chunk=32)
 
 
 def test_ssm_scan_refuses_what_the_kernel_cannot_take(cuda):

@@ -117,6 +117,80 @@ def test_ssm_scan_final_state_matches_chunked_linear_attn(b, t, h, dk, dv,
         assert float((y - y0).abs().max()) > 1e-2
 
 
+# ------------------------------------------------- the bf16 kernel's emulation
+def scan_err(got, want, state=False):
+    """Max |got - want| over 1 + the largest |want| of the same (sequence,
+    head): the bf16 gate's measure (tests/test_torch_cuda.py)."""
+    got, want = got.float(), want.float()
+    scale = 1 + want.abs().amax(dim=(2, 3) if state else (1, 3), keepdim=True)
+    return float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk", SSM_GRID)
+def test_ssm_bf16_emulation_unrounded_matches_pallas_and_jax_ref(
+        b, t, h, dk, dv, chunk, rwkv, decay):
+    """With its roundings left out, the bf16 kernel's emulation is the
+    exact chunked algorithm: the Pallas kernel (interpret) and the JAX
+    sequential ref within the f32 1e-4."""
+    (jq, jk, jv, jw, ju, _), (q, k, v, w, u, _) = ssm_inputs(
+        t + dk + 2, b, t, h, dk, dv, rwkv=rwkv, decay=decay)
+    y, s = ref.ssm_scan_bf16_emulation(q, k, v, w, bonus_u=u, chunk=chunk,
+                                       rounding=False)
+    assert y.dtype == torch.float32 and y.shape == (b, t, h, dv)
+    close(y, jax_ssm_scan(jq, jk, jv, jw, ju, chunk=chunk), SSM_TOL)
+    want_y, want_s = jax_ref.ssm_scan_ref(jq, jk, jv, jw, bonus_u=ju)
+    close(y, want_y, SSM_TOL)
+    close(s, want_s, SSM_TOL)
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("rwkv", [False, True])
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk", SSM_GRID)
+def test_ssm_bf16_emulation_within_the_bf16_gate(b, t, h, dk, dv, chunk,
+                                                 rwkv, decay):
+    """With the kernel's bf16 roundings, on bf16 inputs from an initial
+    state: y within the bf16 gate (3e-2 of 1 + the largest |y| of the
+    sequence and head) of the float32 recurrence, and the state, which the
+    kernel keeps at float32 precision (k_out as hi + lo), within 1e-4."""
+    _, (q, k, v, w, u, s0) = ssm_inputs(t + dk + 3, b, t, h, dk, dv,
+                                        rwkv=rwkv, decay=decay, init=True,
+                                        dtype="bfloat16")
+    y, s = ref.ssm_scan_bf16_emulation(q, k, v, w, bonus_u=u, chunk=chunk,
+                                       initial_state=s0)
+    want_y, want_s = ref.ssm_scan_ref(q.float(), k.float(), v.float(), w,
+                                      bonus_u=u, initial_state=s0)
+    assert scan_err(y, want_y) <= BF16_TOL["rtol"]
+    assert scan_err(s, want_s, state=True) <= SSM_TOL["rtol"]
+    y0, s0_ = ref.ssm_scan_bf16_emulation(q, k, v, w, bonus_u=u, chunk=chunk,
+                                          initial_state=s0, rounding=False)
+    assert scan_err(y0, want_y) <= SSM_TOL["rtol"]   # the roundings move it
+    assert scan_err(y, y0) > 1e-4
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+def test_ssm_bf16_emulation_limits_reject_planted_faults(decay):
+    """At RWKV-6-7B's head width and chunk (8 sub-blocks a chunk, 4
+    chunks), each fault of SSM_EMU_FAULTS planted in the emulation reads
+    above the limits that the kernel is held to against the emulation
+    (ssm_emu_err, y or state)."""
+    b, t, h, dk, dv, chunk = 1, 512, 2, 64, 64, 128
+    _, (q, k, v, w, u, s0) = ssm_inputs(17, b, t, h, dk, dv, rwkv=True,
+                                        decay=decay, init=decay == "slow",
+                                        dtype="bfloat16")
+    kw = dict(bonus_u=u, chunk=chunk, initial_state=s0)
+    y, s = ref.ssm_scan_bf16_emulation(q, k, v, w, **kw)
+    assert ref.ssm_emu_err(y.bfloat16(), y) == 0.0
+    for fault in ref.SSM_EMU_FAULTS:
+        fy, fs = ref.ssm_scan_bf16_emulation(q, k, v, w, fault=fault, **kw)
+        err_y = ref.ssm_emu_err(fy.bfloat16(), y)
+        err_s = ref.ssm_emu_err(fs, s, state=True)
+        assert err_y > ref.SSM_EMU_TOL or err_s > ref.SSM_EMU_STATE_TOL, fault
+    with pytest.raises(ValueError, match="unknown fault"):
+        ref.ssm_scan_bf16_emulation(q, k, v, w, fault="none of them", **kw)
+
+
 def test_slow_decay_carries_state_across_chunks():
     """With the slow decay, the second chunk's output depends on the first
     chunk's tokens (the carried state), by far more than the tolerance."""

@@ -43,8 +43,10 @@ from repro_torch.models import DecoderLM  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 from torch_profiling import card, device_summary, profiled  # noqa: E402
 
+# name fragments: "ssm_scan_" matches the bf16 (ssm_scan_bf16_kernel) and
+# the float32 (ssm_scan_kernel) scan
 OUR_KERNELS = ("flash_attention_kernel", "decode_attention_kernel",
-               "ssm_scan_kernel")
+               "ssm_scan_")
 ARCHS = ("llama3_2_1b", "rwkv6_7b")
 
 
