@@ -15,9 +15,14 @@ order, each fatal on failure:
    ptxas warns that it serialized a kernel's wgmma (C7514, C7518), which
    costs speed and no correctness;
 3. hold each actor kernel against its plain PyTorch version on the card,
-   at the main path's shapes and inputs for B in {1, 64}: max abs error
-   <= 1e-5; time both (CUDA-graph replay, so host launch overhead is
-   excluded);
+   at the main path's shapes and inputs for B in {1, 64, 1024} fleets: max
+   abs error <= 1e-5; per launch (layer and side) print the tile from
+   kernels/gcn_agg.py::plan (G graphs and C columns a block, K split,
+   weight stages), blocks per SM and shared memory from the kernel's own
+   layout, kernel time (CUDA-graph replay, so host launch overhead is
+   excluded) beside the first design's (FIRST_DESIGN_US), plain time and
+   the bound; per slot the sums; first the launch floor, the graph-replay
+   time of a one-element in-place add;
 4. golden replay: ``tests/data/torch_port_golden.npz`` (a JAX run with
    its draws) through the port's driver on the card — every decision
    matches, or differs only at a recorded near-tie (margin <= 1e-5);
@@ -169,6 +174,21 @@ SSM_LONG_B, SSM_LONG_P = 64, 256
 # the CUDA cores, one block per SM; PERF.md §6 row 5), beside the current
 SSM_FIRST_DESIGN_US = 2338.39
 STATE_FIELDS = ("wkv", "shift_tm", "shift_cm")
+# the actor kernels at B fleets: a live scheduler, the smoke's fleets, a
+# sweep or population evaluation
+ACTOR_BATCHES = (1, N_FLEETS, 1024)
+# device us per launch of the first design (one block per graph, weights
+# read through L1/L2), by launch and B: tools/torch_actor_kernels.py on
+# that tree, NVIDIA H100 80GB HBM3 at 700 W, the mean of two runs in one
+# call (PERF.md §6)
+FIRST_DESIGN_US = {
+    "gcn_agg": {
+        "layer1/device": {1: 7.10, 64: 7.33, 1024: 17.50},
+        "layer1/option": {1: 6.20, 64: 6.40, 1024: 13.77},
+        "layer2/device": {1: 44.42, 64: 49.00, 1024: 103.53},
+        "layer2/option": {1: 24.10, 64: 25.67, 1024: 65.92}},
+    "edge_score": {"edge": {1: 11.47, 64: 12.01, 1024: 40.48}},
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor-core float32
 # FLOP/s and dense bf16 FLOP/s; a bound takes the rate of its inputs' type
 # (peak_for), whatever units the kernel itself computes on
@@ -1219,6 +1239,71 @@ def _dicts(tree):
         if isinstance(v, dict):
             yield from _dicts(v)
 
+# ------------------------------------------------------------ actor kernels
+def actor_cases(env, params, gen, b):
+    """The five actor launches of one slot at B = b fleets, on inputs of
+    the main path (a fresh slot's graph; layer 2 on layer 1's plain
+    output): (kernel, launch, args, wrapper, plain version, (bytes, flops))."""
+    from repro_torch.core import gcn
+    from repro_torch.core.graph import build_graph
+    from repro_torch.kernels import edge_score as edge_mod
+    from repro_torch.kernels import gcn_agg as gcn_mod
+    from repro_torch.kernels import ref
+    tasks = env.sample_slot(gen, (b,))
+    g = build_graph(env.observe(env.reset((b,)), tasks), env.N, env.L)
+    adj, adj_t = g.adj, g.adj.transpose(-1, -2)
+    split = gcn._split
+    fs, fo = g.device_feat.shape[-1], g.option_feat.shape[-1]
+    l1d = (adj, g.device_feat, g.option_feat, *split(params["dev1"], fs))
+    l1o = (adj_t, g.option_feat, g.device_feat, *split(params["opt1"], fo))
+    h_dev, h_opt = ref.gcn_agg_ref(*l1d), ref.gcn_agg_ref(*l1o)
+    l2d = (adj, h_dev, h_opt, *split(params["dev2"], h_dev.shape[-1]))
+    l2o = (adj_t, h_opt, h_dev, *split(params["opt2"], h_opt.shape[-1]))
+    h_dev2, h_opt2 = ref.gcn_agg_ref(*l2d), ref.gcn_agg_ref(*l2o)
+    e_args = (h_dev2, h_opt2, adj, params["edge_src"]["w"],
+              params["edge_src"]["b"], params["edge_dst"]["w"],
+              params["edge_feat"]["w"][0], params["edge_out"]["w"][:, 0],
+              params["edge_out"]["b"])
+    cases = [("gcn_agg", name, args, gcn_mod.gcn_agg, ref.gcn_agg_ref,
+              gcn_agg_cost(*args))
+             for name, args in (("layer1/device", l1d),
+                                ("layer1/option", l1o),
+                                ("layer2/device", l2d),
+                                ("layer2/option", l2o))]
+    cases.append(("edge_score", "edge", e_args, edge_mod.edge_score,
+                  ref.edge_score_ref, edge_score_cost(*e_args)))
+    return cases
+
+
+def actor_info(kernel, args, dev) -> str:
+    """The launch's tile (G graphs a block, C columns, K split, weight
+    stages), blocks per SM and shared memory per block, from the kernel's
+    own layout."""
+    from repro_torch.kernels import edge_score as edge_mod
+    from repro_torch.kernels import gcn_agg as gcn_mod
+    if kernel == "gcn_agg":
+        adj, hs, hn, ws = args[:4]
+        b, m, o = adj.shape
+        i = gcn_mod.kernel_info(b, m, o, hs.shape[-1], hn.shape[-1],
+                                ws.shape[-1], dev)
+        tile = (f"G={i['graphs']} C={i['cols']:3d} ks={i['k_split']} "
+                f"stages={i['stages']}")
+    else:
+        hs, hd, ef, ws = args[:4]
+        b, m, o = ef.shape
+        i = edge_mod.kernel_info(b, m, o, *ws.shape, dev)
+        tile = f"G={i['graphs']} C={ws.shape[1]:3d} ks=1 stages=1"
+    return (f"{tile} blocks/SM {i['blocks_per_sm']} smem "
+            f"{i['smem_bytes']:6d} B")
+
+
+def launch_floor_ms(dev) -> float:
+    """Device time of the smallest launch: a one-element in-place add, by
+    CUDA-graph replay as the kernels are timed."""
+    x = torch.zeros(1, device=dev)
+    return graph_ms(lambda: x.add_(1.0))
+
+
 # ------------------------------------------------------------------ phases
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1226,11 +1311,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
 
-    from repro_torch.core import agent_def, agent_state_from_numpy, gcn
-    from repro_torch.core.graph import build_graph
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import edge_score as edge_mod
-    from repro_torch.kernels import gcn_agg as gcn_mod
+    from repro_torch.core import agent_def, agent_state_from_numpy
+    from repro_torch.kernels import _build, ops
     from repro_torch.mec import MECEnv, SlotTasks, make_scenario
     from repro_torch.rollout import RolloutDriver, SlotDraws
 
@@ -1266,31 +1348,14 @@ def main() -> int:
     adef = agent_def("grle", env, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = adef.init(gen).params
+    floor_ms = launch_floor_ms(dev)
+    print(f"launch floor: {floor_ms * 1e3:.2f} us (graph replay of a "
+          f"one-element in-place add)")
     stats = {"gcn_agg": {}, "edge_score": {}}
-    for b in (1, N_FLEETS):
-        tasks = env.sample_slot(gen, (b,))
-        g = build_graph(env.observe(env.reset((b,)), tasks), env.N, env.L)
-        adj, adj_t = g.adj, g.adj.transpose(-1, -2)
-        split = gcn._split
-        l1d = (adj, g.device_feat, g.option_feat, *split(params["dev1"], 7))
-        l1o = (adj_t, g.option_feat, g.device_feat, *split(params["opt1"], 4))
-        h_dev, h_opt = ref.gcn_agg_ref(*l1d), ref.gcn_agg_ref(*l1o)
-        l2d = (adj, h_dev, h_opt, *split(params["dev2"], 128))
-        l2o = (adj_t, h_opt, h_dev, *split(params["opt2"], 128))
-        h_dev2, h_opt2 = ref.gcn_agg_ref(*l2d), ref.gcn_agg_ref(*l2o)
-        e_args = (h_dev2, h_opt2, adj, params["edge_src"]["w"],
-                  params["edge_src"]["b"], params["edge_dst"]["w"],
-                  params["edge_feat"]["w"][0], params["edge_out"]["w"][:, 0],
-                  params["edge_out"]["b"])
-        cases = [("gcn_agg", name, args, gcn_mod.gcn_agg, ref.gcn_agg_ref,
-                  gcn_agg_cost(*args))
-                 for name, args in (("layer1/device", l1d),
-                                    ("layer1/option", l1o),
-                                    ("layer2/device", l2d),
-                                    ("layer2/option", l2o))]
-        cases.append(("edge_score", "edge", e_args, edge_mod.edge_score,
-                      ref.edge_score_ref, edge_score_cost(*e_args)))
-        for kernel, name, args, fn, plain, cost in cases:
+    for b in ACTOR_BATCHES:
+        first = {"gcn_agg": 0.0, "edge_score": 0.0}
+        for kernel, name, args, fn, plain, cost in actor_cases(
+                env, params, gen, b):
             got = fn(*args)
             torch.cuda.synchronize()
             want = plain(*args)
@@ -1300,12 +1365,14 @@ def main() -> int:
             plain_ms = graph_ms(lambda: plain(*args))
             call_ms = eager_ms(lambda: fn(*args))
             b_ms, b_by = bound(*cost)
-            print(f"  {kernel:10s} {name:14s} B={b:3d} shape "
-                  f"{tuple(args[0].shape)}x{tuple(args[1].shape[-1:])}"
-                  f"->{tuple(got.shape)}  max_abs_err {err:.3e}  kernel "
-                  f"{ms * 1e3:8.2f} us  plain {plain_ms * 1e3:8.2f} us  "
-                  f"eager call {call_ms * 1e3:8.2f} us  bound "
-                  f"{b_ms * 1e3:6.3f} us ({b_by})", flush=True)
+            info = actor_info(kernel, args, dev)
+            first_us = FIRST_DESIGN_US[kernel][name][b]
+            first[kernel] += first_us
+            print(f"  {kernel:10s} {name:14s} B={b:4d} {info}  max_abs_err "
+                  f"{err:.3e}  kernel {ms * 1e3:8.2f} us (first design "
+                  f"{first_us:.2f})  plain {plain_ms * 1e3:8.2f} us  eager "
+                  f"call {call_ms * 1e3:8.2f} us  bound {b_ms * 1e3:6.3f} us "
+                  f"({b_by})", flush=True)
             if not err <= TOL:
                 raise SystemExit(f"{kernel} {name} B={b}: max abs error "
                                  f"{err} above {TOL}")
@@ -1316,6 +1383,12 @@ def main() -> int:
             s["plain"] += plain_ms
             s["bytes"] += cost[0]
             s["flops"] += cost[1]
+        for kernel, s in stats.items():
+            print(f"  {kernel:10s} per slot B={b:4d}: kernel "
+                  f"{s[b]['ms'] * 1e3:8.2f} us (first design "
+                  f"{first[kernel]:.2f}), plain {s[b]['plain'] * 1e3:8.2f} us, "
+                  f"bound {bound(s[b]['bytes'], s[b]['flops'])[0] * 1e3:.3f} us",
+                  flush=True)
 
     phase(4, "golden replay of a JAX run")
     with np.load(GOLDEN) as z:

@@ -150,6 +150,32 @@ def check_rows(names: str, *tensors: torch.Tensor):
                 f"(strides {t.stride()}, shape {tuple(t.shape)})")
 
 
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA ``device`` (cached)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def query(name: str, symbol: str, *args: int) -> int:
+    """``symbol`` of library ``name``, a C function of ints that returns a
+    long long, called on ``args``; raises on a negative result (minus a
+    CUDA error code)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_longlong] * len(args)
+    fn.restype = ctypes.c_longlong
+    out = int(fn(*args))
+    if out < 0:
+        raise RuntimeError(f"{name}: {symbol} failed: CUDA error {-out}")
+    return out
+
+
 def launch(fn, kernel: str, device: torch.device, *args) -> None:
     """Call a bound kernel on PyTorch's current stream of ``device`` and
     raise if the launch was refused."""

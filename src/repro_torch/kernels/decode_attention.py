@@ -24,7 +24,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_SPLITS = 8      # the portable thread-block cluster size
 MIN_SPLIT_ROWS = 256
 _fn = None
-_sm_counts: dict = {}
 
 
 def _kernel():
@@ -51,15 +50,6 @@ def n_warps(blocks: int, sm_count: int) -> int:
     """Warps per block: 8 when the grid leaves SMs without a block, so
     that the few busy ones keep more rows in flight; else 4."""
     return 8 if blocks < sm_count else 4
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
 
 
 def check_shapes(q, k, v, lengths) -> None:
@@ -112,7 +102,7 @@ def _launch(device, q, k, v, lengths, splits):
     out = torch.empty((b, h, d), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
-    sms = _sm_count(device)
+    sms = _build.sm_count(device)
     n = int(splits) if splits is not None else n_splits(b, kvh, s, sms)
     _build.launch(_kernel(), "decode_attention", device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(),

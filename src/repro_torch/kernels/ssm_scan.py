@@ -14,8 +14,6 @@ gives either's shared memory and blocks per SM.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -39,19 +37,10 @@ def kernel_info(dk: int, dv: int, chunk: int, dtype) -> dict:
     """The CUDA kernel that takes (dk, dv, chunk, dtype): its dynamic
     shared memory per block in bytes and how many of its blocks one SM of
     the current card runs at once. Needs the card."""
-    lib = _build.load("ssm_scan")
-    args = [ctypes.c_longlong(x) for x in
-            (dk, dv, chunk, int(dtype == torch.bfloat16))]
-    out = {}
-    for key, symbol in (("smem_bytes", "ssm_scan_smem_bytes"),
-                        ("blocks_per_sm", "ssm_scan_blocks_per_sm")):
-        fn = getattr(lib, symbol)
-        fn.restype = ctypes.c_longlong
-        out[key] = int(fn(*args))
-        if out[key] < 0:
-            raise RuntimeError(f"ssm_scan: {symbol} failed: CUDA error "
-                               f"{-out[key]}")
-    return out
+    args = (dk, dv, chunk, int(dtype == torch.bfloat16))
+    return {key: _build.query("ssm_scan", symbol, *args)
+            for key, symbol in (("smem_bytes", "ssm_scan_smem_bytes"),
+                                ("blocks_per_sm", "ssm_scan_blocks_per_sm"))}
 
 
 def check_shapes(q, k, v, log_w, bonus_u, initial_state, chunk) -> int:

@@ -55,13 +55,20 @@ def on(device, *xs):
     return tuple(torch.tensor(x, device=device) for x in xs)
 
 
-@pytest.mark.parametrize("b", [1, 64])
-@pytest.mark.parametrize("m,o,fs,fn,h", SLICE_GCN)
-def test_gcn_agg_kernel_matches_plain(cuda, b, m, o, fs, fn, h):
-    adj, *rest = on(cuda, *arrays(b + h, (b, m, o), (b, m, fs), (b, o, fn),
-                                  (fs, h), (fn, h), (h,), uniform=(0,)))
+# B: a live scheduler, the smoke's fleets, a sweep, and a B that is not a
+# multiple of the graphs packed per block (a ragged last block)
+ACTOR_BATCHES = [1, 64, 1000, 1024]
+
+
+def gcn_inputs(device, b, m, o, fs, fn, h, seed):
+    adj, *rest = on(device, *arrays(seed, (b, m, o), (b, m, fs), (b, o, fn),
+                                    (fs, h), (fn, h), (h,), uniform=(0,)))
     if m < o:   # the option side reads a transposed view, as core/gcn.py does
         adj = adj.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return adj, *rest
+
+
+def check_gcn_agg(adj, *rest):
     before = gcn_mod.launches
     got = gcn_mod.gcn_agg(adj, *rest)
     torch.cuda.synchronize()
@@ -70,7 +77,33 @@ def test_gcn_agg_kernel_matches_plain(cuda, b, m, o, fs, fn, h):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
-@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("b", ACTOR_BATCHES)
+@pytest.mark.parametrize("m,o,fs,fn,h", SLICE_GCN)
+def test_gcn_agg_kernel_matches_plain(cuda, b, m, o, fs, fn, h):
+    check_gcn_agg(*gcn_inputs(cuda, b, m, o, fs, fn, h, b + h))
+
+
+@pytest.mark.parametrize("b", [1, 1023])
+@pytest.mark.parametrize("m,o,fs,fn,h", SLICE_GCN)
+def test_gcn_agg_kernel_zero_adjacency_rows(cuda, b, m, o, fs, fn, h):
+    """Rows with no link (inactive devices, dropped links) aggregate to 0:
+    the first row of the first graph and every row of the last graph, which
+    sits at the tail of the last block."""
+    adj, *rest = gcn_inputs(cuda, b, m, o, fs, fn, h, 7)
+    adj[0, 0] = 0.0
+    adj[-1] = 0.0
+    check_gcn_agg(adj, *rest)
+
+
+@pytest.mark.parametrize("b", [3, 200])
+def test_gcn_agg_kernel_at_a_runtime_width(cuda, b):
+    """Fs = 9, Fn = 5, H = 48: the kernel's runtime-K instance, 4-byte
+    copies of the 36-byte rows, one graph (B = 3) or several (B = 200) a
+    block."""
+    check_gcn_agg(*gcn_inputs(cuda, b, 5, 6, 9, 5, 48, b))
+
+
+@pytest.mark.parametrize("b", ACTOR_BATCHES)
 def test_edge_score_kernel_matches_plain(cuda, b):
     m, o, h, e = 14, 10, 64, 64
     args = on(cuda, *arrays(b, (b, m, h), (b, o, h), (b, m, o), (h, e), (e,),
@@ -83,6 +116,32 @@ def test_edge_score_kernel_matches_plain(cuda, b):
                                ref.edge_score_ref(*args).cpu().numpy(), **TOL)
 
 
+def test_edge_score_kernel_at_a_runtime_width(cuda):
+    """H = 9, E = 11: the runtime instance, with padded rows."""
+    b, m, o, h, e = 150, 5, 6, 9, 11
+    args = on(cuda, *arrays(3, (b, m, h), (b, o, h), (b, m, o), (h, e), (e,),
+                            (h, e), (e,), (e,), (1,), uniform=(2,)))
+    np.testing.assert_allclose(edge_mod.edge_score(*args).cpu().numpy(),
+                               ref.edge_score_ref(*args).cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("b", [64, 1024])
+def test_actor_kernel_info_matches_the_wrappers_layout(cuda, b):
+    """The shared memory the kernels lay out is what the wrappers check
+    against the limit, and at B = 1024 two blocks of layer 2 and of
+    edge_score share an SM."""
+    for m, o, fs, fn, h in SLICE_GCN:
+        info = gcn_mod.kernel_info(b, m, o, fs, fn, h, cuda)
+        assert info["smem_bytes"] == gcn_mod.smem_bytes(
+            m, o, fs, fn, info["rows"], info["cols"], info["k_split"],
+            info["stages"])
+        assert info["blocks_per_sm"] >= (2 if b == 1024 else 1)
+    info = edge_mod.kernel_info(b, 14, 10, 64, 64, cuda)
+    assert info["smem_bytes"] == edge_mod.smem_bytes(14, 10, 64, 64,
+                                                     info["graphs"])
+    assert info["blocks_per_sm"] >= (2 if b == 1024 else 1)
+
+
 def test_wrappers_refuse_what_the_kernel_cannot_take(cuda):
     args = on(cuda, *arrays(0, (2, 4, 3), (2, 4, 5), (2, 3, 6), (5, 8),
                             (6, 8), (8,)))
@@ -91,10 +150,17 @@ def test_wrappers_refuse_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         gcn_mod.gcn_agg(args[0], args[1].transpose(0, 1).contiguous()
                         .transpose(0, 1), *args[2:])
-    big = on(cuda, *arrays(0, (1, 64, 64), (1, 64, 256), (1, 64, 256),
-                           (256, 8), (256, 8), (8,)))
+    # a 64-row tile of K = 8192 takes 2 MB of shared memory in A alone
+    big = on(cuda, *arrays(0, (1, 64, 1), (1, 64, 4096), (1, 1, 4096),
+                           (4096, 8), (4096, 8), (8,)))
     with pytest.raises(ValueError, match="shared memory"):
         gcn_mod.gcn_agg(*big)
+    # W_src and W_dst are staged whole: 2 x 512 x 516 floats
+    e_big = on(cuda, *arrays(0, (1, 2, 512), (1, 2, 512), (1, 2, 2),
+                             (512, 512), (512,), (512, 512), (512,), (512,),
+                             (1,)))
+    with pytest.raises(ValueError, match="shared memory"):
+        edge_mod.edge_score(*e_big)
 
 
 def test_driver_launches_each_kernel_per_slot(cuda):

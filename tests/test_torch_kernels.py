@@ -308,6 +308,134 @@ def test_decode_split_count(sms):
     assert decode_mod.n_splits(8, 8, 256, 132) == 1
 
 
+# ------------------------------------------------- actor kernels' tiling
+# (M, H) of the four gcn_agg launches of one actor forward
+ACTOR_TILES = sorted({(m, h) for m, _, _, _, h in SLICE_GCN})
+GRID_X, GRID_Y = 2 ** 31 - 1, 65535     # CUDA's grid limits
+
+
+def covered_once(n, step, blocks):
+    """Blocks of ``step`` items from 0 on cover 0..n-1, each exactly once,
+    with no empty block."""
+    counts = np.zeros(n, dtype=np.int64)
+    for i in range(blocks):
+        counts[i * step:min((i + 1) * step, n)] += 1
+    return bool((counts == 1).all()) and (blocks - 1) * step < n
+
+
+@pytest.mark.parametrize("m,h", ACTOR_TILES)
+@pytest.mark.parametrize("sms", [16, 132, 144])
+def test_gcn_tiling_covers_every_graph_and_column_once(m, h, sms):
+    """For B in 1..1100: the tiles cover every row of [B*M, H] once and
+    every column once (so every (graph, column) once), a tile holds whole
+    graphs and whole rows of H, G = 1 while B <= the SM count, and the grid
+    stays in CUDA's limits."""
+    for b in range(1, 1101):
+        t = gcn_mod.tiling(b, m, h, sms)
+        assert t.rows == t.graphs * m and t.rows <= gcn_mod.MAX_ROWS
+        assert t.cols % gcn_mod.TN == 0 and t.cols == min(h, gcn_mod.MAX_COLS)
+        assert covered_once(b * m, t.rows, t.grid[0]), (b, t)
+        assert covered_once(h, t.cols, t.grid[1]), (b, t)
+        assert t.grid[0] <= GRID_X and t.grid[1] <= GRID_Y
+        if b <= sms:
+            assert t.graphs == 1
+        else:
+            # packed graphs keep about two blocks per SM, and no more
+            assert t.grid[0] <= 2 * sms or t.graphs == gcn_mod.MAX_ROWS // m
+
+
+def test_gcn_tiling_at_the_main_path():
+    """On an H100's 132 SMs: B = 1 and 64 take one graph a block, whole
+    rows; B = 1024 packs four graphs a block, 256 blocks."""
+    assert gcn_mod.tiling(64, 14, 128, 132)[:3] == (1, 14, 128)
+    assert gcn_mod.tiling(64, 14, 64, 132)[:3] == (1, 14, 64)
+    assert gcn_mod.tiling(1, 10, 64, 132)[:3] == (1, 10, 64)
+    t = gcn_mod.tiling(1024, 14, 64, 132)
+    assert t[:3] == (4, 56, 64) and t.grid == (256, 1)
+    assert gcn_mod.tiling(1000, 10, 128, 132).grid == (250, 1)
+    assert gcn_mod.tiling(7, 5, 300, 132).grid == (7, 3)   # H > MAX_COLS
+
+
+@pytest.mark.parametrize("b", [1, 64, 1000, 1024])
+@pytest.mark.parametrize("m,o,fs,fn,h", SLICE_GCN)
+def test_gcn_plan_fits_the_card_at_the_main_path(b, m, o, fs, fn, h):
+    """The actor's launches take their tiling unchanged, within the
+    block's threads and shared memory; K is split only at layer 2 (K =
+    256), and only where a tile has few micro-tiles."""
+    t, ks, st = gcn_mod.plan(b, m, o, fs, fn, h, 132)
+    assert t == gcn_mod.tiling(b, m, h, 132)
+    n = gcn_mod.threads(t.rows, t.cols, ks)
+    assert 1 <= n <= gcn_mod.MAX_THREADS
+    assert gcn_mod.smem_bytes(m, o, fs, fn, t.rows, t.cols, ks, st) \
+        <= gcn_mod.SMEM_TWO_PER_SM       # two blocks fit an SM
+    assert ks == 1 if fs + fn < 2 * gcn_mod.KT or b > 132 else ks > 1
+    # every K-tile in flight at once where there is room: layer 1 is one
+    # tile; layer 2's eight at one graph a block, three or four at four
+    if fs + fn < gcn_mod.KT:
+        assert st == 1
+    else:
+        assert st == 8 if b <= 132 else 3 <= st < 8
+
+
+def test_gcn_plan_takes_every_shape_the_first_design_took():
+    """The first design (one block per graph) took every shape whose
+    M*O + M*Fs + O*Fn + M*Fn + M floats fit 48 KB; the tiled kernel fits
+    each such shape within a block's threads and shared memory, at any B,
+    graphs larger than a tile included."""
+    rng = np.random.default_rng(0)
+    tried = 0
+    while tried < 3000:
+        m, o, fs, fn = (int(x) for x in rng.integers(1, 200, size=4))
+        fs, fn = int(rng.choice([fs, fs * 30])), int(rng.choice([fn, fn * 30]))
+        if m * o + m * fs + o * fn + m * fn + m > 12288:
+            continue
+        tried += 1
+        h = int(rng.integers(1, 600))
+        b = int(rng.choice([1, 7, 64, 200, 1024, 5000]))
+        t, ks, st = gcn_mod.plan(b, m, o, fs, fn, h, 132)
+        assert gcn_mod.smem_bytes(m, o, fs, fn, t.rows, t.cols, ks, st) \
+            <= gcn_mod.SMEM_LIMIT, (b, m, o, fs, fn, h, t, ks, st)
+        assert 1 <= st <= gcn_mod.MAX_STAGES
+        assert 1 <= gcn_mod.threads(t.rows, t.cols, ks) <= gcn_mod.MAX_THREADS
+        assert covered_once(b * m, t.rows, t.grid[0])
+        assert covered_once(h, t.cols, t.grid[1])
+
+
+@pytest.mark.parametrize("k", [1, 11, 14, 63, 64, 256, 1000])
+def test_gcn_k_split(k):
+    """1 below two K-tiles; else a power of two up to MAX_SPLIT that keeps
+    the block within SPLIT_THREADS threads (or 1 if one slice exceeds it)."""
+    for rows in (1, 5, 10, 14, 28, 56, 64):
+        for cols in (4, 16, 32, 64, 128):
+            ks = gcn_mod.k_split(rows, cols, k)
+            n = gcn_mod.threads(rows, cols, ks)
+            assert ks in (1, 2, 4, 8)
+            if k < 2 * gcn_mod.KT:
+                assert ks == 1
+            elif ks > 1:
+                assert n <= gcn_mod.SPLIT_THREADS
+            if ks < gcn_mod.MAX_SPLIT and k >= 2 * gcn_mod.KT:
+                assert 2 * n > gcn_mod.SPLIT_THREADS
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+def test_edge_score_graphs_per_block(sms):
+    """One graph a block while B <= the SM count; else packed so that the
+    blocks are about two per SM, at most MAX_ROWS rows of either side, in
+    shared memory that lets two blocks share an SM at the actor's
+    widths."""
+    for b in range(1, 1101):
+        g = edge_mod.graphs(b, 14, 10, 64, 64, sms)
+        if b <= sms:
+            assert g == 1
+        assert 1 <= g and g * 14 <= gcn_mod.MAX_ROWS
+        assert -(-b // g) <= 2 * sms or g == gcn_mod.MAX_ROWS // 14
+        assert edge_mod.smem_bytes(14, 10, 64, 64, g) <= gcn_mod.SMEM_TWO_PER_SM
+    assert edge_mod.graphs(1024, 14, 10, 64, 64, 132) == 4
+    # a width whose packed block would not fit is packed less
+    assert edge_mod.graphs(1024, 14, 10, 512, 256, 132) == 1
+
+
 def test_decode_wrapper_forced_splits_on_cpu():
     """A forced split count is range-checked; a CPU tensor runs the plain
     version whatever the count."""

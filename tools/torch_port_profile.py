@@ -32,6 +32,8 @@ from repro_torch.rollout import RolloutDriver  # noqa: E402
 from torch_profiling import card, device_summary, profiled  # noqa: E402
 
 PHASES = ("sample", "actor", "env_step")
+# name fragments of the hand-written kernels: every template instance
+# (gcn_agg_kernel<K, KS>, edge_score_kernel<H, E>) contains one
 OUR_KERNELS = ("gcn_agg_kernel", "edge_score_kernel")
 
 
