@@ -1,5 +1,5 @@
-"""Drive repro_torch's GRLE decision path and its LM serving paths (dense
-GQA and RWKV-6) on one NVIDIA GPU and check them.
+"""Drive repro_torch's GRLE decision and training paths and its LM serving
+paths (dense GQA and RWKV-6) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -110,8 +110,27 @@ order, each fatal on failure:
    decays and once with w0 uniform in [-6, 0] (slow decays, so the state
    carried across prefill's two chunks matters); in bf16 the drift grows
    with depth to ~0.1-0.2, in the JAX reference too (tools/rwkv_drift.py);
-16. one ``{"kernels": [...]}`` line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+16. training, the actor kernels' gradients: at the training minibatch
+   (64 graphs of a fresh slot, full width, the option side's transposed
+   adjacency view), every input's gradient of each of the five actor
+   launches (the kernel's forward, the hand-written backward) against
+   PyTorch's autograd of the plain version, for a random cotangent,
+   within rtol 2e-4 / atol 1e-4 (tests/test_kernels.py's);
+17. training golden replay: ``tests/data/torch_port_train_golden.npz`` (a
+   JAX ``train=True`` run, B=4, T=64, 5 train steps, with its draws and
+   each step's replay rows) through the port's driver: decisions equal,
+   or a flip only at a recorded near-tie (<= 1e-5), after which the
+   comparison stops (fatal before the first train step); each loss
+   within 1e-5 relative; the final params and Adam moments within
+   TRAIN_PARAM_TOL (nu: TRAIN_NU_TOL);
+18. the training path at full width on the port's own generator: B=64,
+   T=200, ring 128, minibatch 64, a step every 10 slots: 20 finite
+   losses, exactly 880 gcn_agg and 220 edge_score launches, slot ms
+   beside the decision path's (episodes in the order decision, training,
+   training, decision), and one train step split into forward, backward
+   and Adam: ms by CUDA events and CUDA launches of each;
+19. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
@@ -133,11 +152,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_port_train_golden.npz")
 LM_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_golden.npz")
 RWKV_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rwkv_golden.npz")
 TOL = 1e-5            # max abs error, kernel vs plain, float32
 NEAR_TIE = 1e-5       # golden: a flipped decision must sit at such a margin
 N_FLEETS, N_SLOTS, SEED = 64, 200, 0
+# training: tests/test_kernels.py's tolerance for the actor kernels'
+# gradients; each golden train step's loss, relative; the golden run's
+# final params and Adam moments (rtol, atol): tests/test_policy.py's rtol,
+# atol ~5x the largest abs errors the card read (params 3.725e-8, mu
+# 2.235e-8, nu 2.619e-10; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = (1e-4, 2e-7)
+TRAIN_NU_TOL = (1e-4, 2e-9)
 # attention: tests/test_kernels.py's tolerances; LM golden; consistency
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_GOLDEN_TOL = 1e-4
@@ -1304,6 +1334,275 @@ def launch_floor_ms(dev) -> float:
     return graph_ms(lambda: x.add_(1.0))
 
 
+# --------------------------------------------------------------- training
+def tree_of(data: dict, prefix: str) -> dict:
+    """The ``{layer: {leaf: array}}`` tree a golden file stores under
+    ``prefix/``."""
+    tree = {}
+    for k in data:
+        if k.startswith(prefix + "/"):
+            layer, leaf = k[len(prefix) + 1:].split("/")
+            tree.setdefault(layer, {})[leaf] = data[k]
+    return tree
+
+
+def close_excess(got, want, rtol, atol) -> float:
+    """max(|got - want| - (atol + rtol |want|)): <= 0 when within."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def grad_phase(dev, env, params, gen):
+    """(a) Every input's gradient of each actor kernel, at the training
+    minibatch (64 graphs of a fresh slot, full width), against autograd of
+    its plain version: the kernel's forward with the hand-written
+    backward against PyTorch's own differentiation of ref.*_ref, for one
+    random cotangent. Returns the largest error."""
+    from repro_torch.kernels import ops
+    worst = 0.0
+    for kernel, name, args, _, plain, _ in actor_cases(env, params, gen,
+                                                       N_FLEETS):
+        op = getattr(ops, kernel)
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        ys = [a.detach().clone().requires_grad_() for a in args]
+        if kernel == "gcn_agg" and not args[0].is_contiguous():
+            # the option side's transposed adjacency view, as in the path
+            xs[0] = args[0].detach().transpose(-1, -2).clone() \
+                .requires_grad_().transpose(-1, -2)
+        before = ops.launch_counts()[kernel]
+        out = op(*xs)
+        cot = torch.randn(out.shape, generator=gen, device=dev)
+        got = torch.autograd.grad((out * cot).sum(), xs)
+        want = torch.autograd.grad((plain(*ys) * cot).sum(), ys)
+        torch.cuda.synchronize()
+        if ops.launch_counts()[kernel] != before + 1:
+            raise SystemExit(f"grad {kernel} {name}: the kernel did not run")
+        errs = [(float((g - w).abs().max()),
+                 close_excess(g, w, GRAD_RTOL, GRAD_ATOL))
+                for g, w in zip(got, want)]
+        print(f"  {kernel:10s} {name:14s} B={N_FLEETS} max abs grad error "
+              f"per input {[f'{e:.2e}' for e, _ in errs]}", flush=True)
+        for i, (e, excess) in enumerate(errs):
+            if not excess <= 0:
+                raise SystemExit(f"grad {kernel} {name} input {i}: max abs "
+                                 f"error {e}, beyond rtol {GRAD_RTOL} atol "
+                                 f"{GRAD_ATOL}")
+            worst = max(worst, e)
+    return worst
+
+
+def train_golden_phase(dev):
+    """(b) tests/data/torch_port_train_golden.npz (a JAX train=True run
+    with its draws and minibatch rows) through the port's driver."""
+    from repro_torch.core import agent_def, agent_state_from_params
+    from repro_torch.mec import MECEnv, SlotTasks, make_scenario
+    from repro_torch.rollout import RolloutDriver, SlotDraws
+    with np.load(TRAIN_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    env = MECEnv(make_scenario(str(gold["scenario"])), device=dev)
+    t_gold, b_gold = gold["rand_cands"].shape[:2]
+    drv = RolloutDriver(agent_def("grle", env, device=dev), b_gold,
+                        train=True, device=dev)
+    st = agent_state_from_params(drv.adef, tree_of(gold, "init_params"),
+                                 gold["exit_mask"])
+    draws = SlotDraws(
+        SlotTasks(*(torch.tensor(gold[f"tasks/{f}"], device=dev)
+                    for f in TASK_FIELDS)),
+        torch.tensor(gold["rand_cands"].astype(np.int64), device=dev),
+        torch.tensor(gold["replay_take"], device=dev))
+    carry, trace = drv.run(SEED, t_gold, agent_state=st, draws=draws)
+    dec = trace.decisions.cpu().numpy()
+    same = (dec == gold["trace/decisions"]).all(-1)
+    first_train = int(gold["train_slots"][0]) - 1       # slot index
+    flipped = np.flatnonzero(~same.all(-1))
+    stop = int(flipped[0]) if flipped.size else t_gold
+    for t, b in np.argwhere(~same[:stop + 1]):
+        margin = min(gold["q_margin"][t, b], gold["xhat_margin"][t, b])
+        print(f"  slot {t} fleet {b}: q margin {gold['q_margin'][t, b]:.3e},"
+              f" x_hat margin {gold['xhat_margin'][t, b]:.3e}")
+        if margin > NEAR_TIE:
+            raise SystemExit(f"train golden: decision differs at slot {t} "
+                             f"fleet {b}, not at a near-tie")
+    if stop <= first_train:
+        raise SystemExit(f"train golden: a decision flipped at slot {stop}, "
+                         f"before the first train step (slot index "
+                         f"{first_train})")
+    print(f"decisions matching: {int(same[:stop].sum())}/{same[:stop].size}"
+          f" slot-fleets before slot {stop}" + (
+              "" if stop == t_gold else
+              f"; a near-tie flip at slot {stop}: the comparison stops"))
+    loss, want = trace.loss.cpu().numpy()[:stop], gold["trace/loss"][:stop]
+    if not (np.isnan(loss) == np.isnan(want)).all():
+        raise SystemExit("train golden: train steps at other slots")
+    ok = ~np.isnan(want)
+    rel = np.abs(loss[ok] / want[ok] - 1)
+    print(f"train steps compared: {int(ok.sum())}, losses "
+          f"{np.round(loss[ok], 6).tolist()}, max relative error "
+          f"{float(rel.max()):.3e}")
+    if not (rel <= TRAIN_LOSS_RTOL).all():
+        raise SystemExit(f"train golden: loss beyond {TRAIN_LOSS_RTOL}")
+    if stop < t_gold:
+        print("final params and moments not compared (the run left the "
+              "golden one at the flip)")
+        return
+    fin = carry.agent_state
+    for name, got, tol in (("params", fin.params, TRAIN_PARAM_TOL),
+                           ("mu", fin.opt_state["mu"], TRAIN_PARAM_TOL),
+                           ("nu", fin.opt_state["nu"], TRAIN_NU_TOL)):
+        want_t = tree_of(gold, f"final/{name}")
+        pairs = [(got[layer][leaf].cpu(), torch.tensor(want_t[layer][leaf]))
+                 for layer in want_t for leaf in want_t[layer]]
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+                  for g, w in pairs)
+        excess = max(close_excess(g, w, *tol) for g, w in pairs)
+        print(f"final {name}: max abs error {err:.3e}, max relative "
+              f"{rel:.3e} (tolerance rtol {tol[0]} atol {tol[1]})")
+        if not excess <= 0:
+            raise SystemExit(f"train golden: final {name} beyond rtol "
+                             f"{tol[0]} atol {tol[1]}")
+    if int(fin.opt_state["step"]) != int(gold["final/opt_step"]):
+        raise SystemExit("train golden: Adam step count differs")
+
+
+def cuda_launches(fn) -> int:
+    """CUDA kernels (and copies) one ``fn()`` runs, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events() if e.device_type == cuda)
+
+
+def train_step_parts(adef, state, gen, reps=20):
+    """(c) One train step split as AgentDef.train_step runs it: forward
+    (minibatch draw and the Eq-16 loss through the kernels), backward
+    (autograd through the hand-written rules) and Adam; ms of each by
+    CUDA events (mean of ``reps``) and CUDA launches of each."""
+    from repro_torch.core.devreplay import replay_sample
+    from repro_torch.nn.pytree import flatten_dict, unflatten_dict
+    from repro_torch.optim import apply_updates
+    box = {}
+
+    def fwd():
+        graphs, dec = replay_sample(state.replay, adef.batch_size,
+                                    generator=gen)
+        flat = flatten_dict(state.params)
+        box["paths"] = list(flat)
+        box["leaves"] = [p.detach().requires_grad_() for p in flat.values()]
+        box["loss"] = adef.loss(unflatten_dict(dict(zip(flat,
+                                                        box["leaves"]))),
+                                graphs, dec, state.exit_mask)
+
+    def bwd():
+        box["grads"] = torch.autograd.grad(box["loss"], box["leaves"])
+
+    def opt():
+        grads = unflatten_dict(dict(zip(box["paths"], box["grads"])))
+        updates, _ = adef.opt.update(grads, state.opt_state)
+        apply_updates(state.params, updates)
+
+    parts = (("forward", fwd), ("backward", bwd), ("adam", opt))
+    for _ in range(3):
+        for _, fn in parts:
+            fn()
+    torch.cuda.synchronize()
+    ms = {k: 0.0 for k, _ in parts}
+    for _ in range(reps):
+        for name, fn in parts:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] += start.elapsed_time(end) / reps
+    launches = {name: cuda_launches(fn) for name, fn in parts}
+    whole = event_ms(lambda: adef.train_step(state, generator=gen),
+                     reps=reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        adef.train_step(state, generator=gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    return ms, launches, whole, wall, cuda_launches(
+        lambda: adef.train_step(state, generator=gen))
+
+
+def episode_s(drv, seed=SEED):
+    """Wall seconds of one N_SLOTS episode, ending in a synchronize, and
+    its (carry, trace)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = drv.run(seed, N_SLOTS)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def train_path_phase(dev, adef):
+    """(c) The training path at full width on the port's own generator:
+    B=64 fleets, T=200 slots, replay 128, minibatch 64, a train step every
+    10 slots: 20 steps; slot ms beside the decision path's, episodes in
+    the order decision, training, training, decision (host time drifts
+    within a call). Returns the launch counts of the first training
+    episode."""
+    from repro_torch.kernels import ops
+    from repro_torch.rollout import RolloutDriver
+    drv = RolloutDriver(adef, N_FLEETS, train=True, device=dev)
+    plain = RolloutDriver(adef, N_FLEETS, train=False, device=dev)
+    drv.run(SEED + 1, 20)                   # warm-up: a train step too
+    walls = {"decision": [episode_s(plain)[0]]}
+    ops.reset_launch_counts()
+    wall, (carry, trace) = episode_s(drv)
+    counts = ops.launch_counts()
+    walls["training"] = [wall, episode_s(drv)[0]]
+    walls["decision"].append(episode_s(plain)[0])
+    loss = trace.loss.cpu().numpy()
+    m = drv.metrics(carry)
+    trained = np.flatnonzero(~np.isnan(loss)) + 1
+    n_train = N_SLOTS // adef.train_every
+    print(f"B={N_FLEETS} T={N_SLOTS} replay {drv.replay_capacity} "
+          f"minibatch {drv.batch_size} every {drv.train_every} slots")
+    print(f"train steps {len(trained)} at slots {trained.tolist()}")
+    print(f"losses {np.round(loss[trained - 1], 6).tolist()}")
+    print(f"ssp {m['ssp']:.6f}  avg_accuracy {m['avg_accuracy']:.6f}  "
+          f"final_loss {m['final_loss']:.6f}  train_steps "
+          f"{int(m['train_steps'])}")
+    slot_ms = {k: [w / N_SLOTS * 1e3 for w in v] for k, v in walls.items()}
+    mean = {k: sum(v) / len(v) for k, v in slot_ms.items()}
+    print(f"slot ms, episodes in the order decision, training, training, "
+          f"decision: {slot_ms['decision'][0]:.3f}, "
+          f"{slot_ms['training'][0]:.3f}, {slot_ms['training'][1]:.3f}, "
+          f"{slot_ms['decision'][1]:.3f}; with training {mean['training']:.3f}"
+          f" ms, without {mean['decision']:.3f} ms: "
+          f"{mean['training'] - mean['decision']:+.3f} ms a slot")
+    print(f"launches {counts}")
+    want = {"gcn_agg": 4 * (N_SLOTS + n_train),
+            "edge_score": N_SLOTS + n_train, "flash_attention": 0,
+            "decode_attention": 0, "ssm_scan": 0}
+    if (trained.tolist() != list(range(adef.train_every, N_SLOTS + 1,
+                                       adef.train_every))
+            or not np.isfinite(loss[trained - 1]).all()
+            or int(m["train_steps"]) != n_train
+            or not np.isfinite(m["final_loss"])):
+        raise SystemExit(f"training path: expected {n_train} finite train "
+                         f"steps, got {len(trained)}")
+    if counts != want:
+        raise SystemExit(f"training path: launch counts {counts}, "
+                         f"expected {want}")
+    ms, launches, whole, wall_ms, whole_launches = train_step_parts(
+        drv.adef, carry.agent_state, torch.Generator(device=dev)
+        .manual_seed(SEED))
+    for name in ms:
+        print(f"train step {name:8s}: {ms[name]:.3f} ms (CUDA events), "
+              f"{launches[name]} CUDA launches")
+    print(f"train step whole: {whole:.3f} ms (CUDA events), {wall_ms:.3f} ms "
+          f"host wall, {whole_launches} CUDA launches; per slot over "
+          f"{adef.train_every} slots: {whole / adef.train_every:.3f} ms")
+    return counts
+
+
 # ------------------------------------------------------------------ phases
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1311,7 +1610,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
 
-    from repro_torch.core import agent_def, agent_state_from_numpy
+    from repro_torch.core import agent_def, agent_state_from_params
     from repro_torch.kernels import _build, ops
     from repro_torch.mec import MECEnv, SlotTasks, make_scenario
     from repro_torch.rollout import RolloutDriver, SlotDraws
@@ -1393,19 +1692,16 @@ def main() -> int:
     phase(4, "golden replay of a JAX run")
     with np.load(GOLDEN) as z:
         gold = {k: z[k] for k in z.files}
-    tree = {}
-    for k in [k for k in gold if k.startswith("params/")]:
-        _, layer, leaf = k.split("/")
-        tree.setdefault(layer, {})[leaf] = gold[k]
+    tree = tree_of(gold, "params")
     g_env = MECEnv(make_scenario(str(gold["scenario"])), device=dev)
     g_def = agent_def("grle", g_env, device=dev)
-    st = agent_state_from_numpy(tree, gold["exit_mask"], dev)
+    st = agent_state_from_params(g_def, tree, gold["exit_mask"])
     t_gold, b_gold = gold["rand_cands"].shape[:2]
     draws = SlotDraws(
         SlotTasks(*(torch.tensor(gold[f"tasks/{f}"], device=dev)
                     for f in TASK_FIELDS)),
         torch.tensor(gold["rand_cands"].astype(np.int64), device=dev))
-    _, trace = RolloutDriver(g_def, b_gold, device=dev).run(
+    _, trace = RolloutDriver(g_def, b_gold, train=False, device=dev).run(
         SEED, t_gold, agent_state=st, draws=draws)
     dec = trace.decisions.cpu().numpy()
     same = (dec == gold["trace/decisions"]).all(-1)
@@ -1424,7 +1720,7 @@ def main() -> int:
         raise SystemExit("golden: q_est differs by more than 1e-5 relative")
 
     phase(5, "main path: GRLE fig5_baseline, full width")
-    drv = RolloutDriver(adef, N_FLEETS, device=dev)
+    drv = RolloutDriver(adef, N_FLEETS, train=False, device=dev)
     drv.run(SEED + 1, 5)                        # warm-up: allocator, cuBLAS
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1490,7 +1786,17 @@ def main() -> int:
     phase(15, "RWKV consistency: prefill vs teacher-forced decode")
     rwkv_consistency_phase(dev, cfg, params, lm_gen)
 
-    phase(16, "summary")
+    phase(16, "training: actor kernels' gradients vs autograd of their "
+              "plain versions")
+    grad_err = grad_phase(dev, env, adef.init(gen).params, gen)
+
+    phase(17, "training: golden replay of a JAX train=True run")
+    train_golden_phase(dev)
+
+    phase(18, "training path: GRLE fig5_baseline, full width, train=True")
+    counts = train_path_phase(dev, adef)
+
+    phase(19, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -1502,7 +1808,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(v["err"] for v in stats[name].values()),
+            "max_abs_err": max(grad_err, *(v["err"]
+                                           for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     launches = {"flash_attention": flash_launches,
@@ -1521,7 +1828,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan.py:93",
         "launches": ssm_launches, **ssm})
     print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
-          "actor forward's launches (4 and 1); flash_attention: one call at "
+          "actor forward's launches (4 and 1), launches of the training "
+          "path (phase 18: 200 slots' and 20 train steps' forwards), error "
+          "the larger of the forward's and the gradients'; "
+          "flash_attention: one call at "
           f"[{PREFILL_B}, {PREFILL_S}, 32, 8, 64] bf16, launches of one "
           f"prefill; decode_attention: one call at [{LONG_B}, 32, 8, 64, "
           f"S={LONG_S}] bf16, every row read, launches of the serve phase's "

@@ -1,11 +1,13 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and agent states across from the JAX package.
 
-The caller converts a JAX param tree to numpy first
-(``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
+The caller converts a JAX tree to numpy first
+(``jax.tree_util.tree_map(np.asarray, state)``), or reads a reference
+checkpoint with ``repro_torch.train.checkpoint``, so this module needs
 neither JAX nor anything of ``repro``. Names, shapes and dtypes are
 checked against the port's layout (``core.gcn.param_shapes`` for the GCN
-actor, ``DecoderLM.param_shapes`` for a decoder LM) and any mismatch
-raises. The msgpack checkpoint reader comes later.
+actor, ``DecoderLM.param_shapes`` for a decoder LM, the reference's
+``AgentState`` and ``DeviceReplay`` fields for an agent state) and any
+mismatch raises.
 """
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import gcn
-from repro_torch.core.policy import DEV_DIM, OPT_DIM, AgentState
+from repro_torch.core.devreplay import DeviceReplay
+from repro_torch.core.policy import DEV_DIM, OPT_DIM, AgentDef, AgentState
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import DecoderLM
+from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 
 
 def params_from_numpy(tree: dict, device, *, hidden=(128, 64),
@@ -52,38 +56,97 @@ def params_from_numpy(tree: dict, device, *, hidden=(128, 64),
     return out
 
 
-def agent_state_from_numpy(params: dict, exit_mask: np.ndarray, device, *,
-                           hidden=(128, 64), edge_hidden: int = 64
-                           ) -> AgentState:
-    """An ``AgentState`` from a numpy param tree and [N*L] exit mask."""
-    if not isinstance(exit_mask, np.ndarray) or exit_mask.dtype != np.float32 \
-            or exit_mask.ndim != 1:
-        raise ValueError("exit_mask must be a 1-D float32 numpy array")
+# the reference's AgentState fields, in order; the port keeps all but ``key``
+STATE_FIELDS = ("params", "opt_state", "replay", "key", "step", "exit_mask",
+                "last_loss", "loss_sum", "loss_count")
+REPLAY_FIELDS = ("device_feat", "option_feat", "adj", "mask", "decisions",
+                 "ptr", "size")
+
+
+def _fields(x, names, what: str) -> dict:
+    """A NamedTuple or mapping -> dict of ``names``, which must be exactly
+    its fields."""
+    d = dict(x._asdict() if hasattr(x, "_asdict") else x)
+    if set(d) != set(names):
+        raise ValueError(f"{what}: fields {sorted(d)}, expected "
+                         f"{sorted(names)}")
+    return d
+
+
+def _array(path: str, x, dtype, shape) -> np.ndarray:
+    """``x`` checked to be a numpy array of ``dtype`` and ``shape`` (None
+    in ``shape`` matches any length)."""
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"{path}: expected a numpy array, got "
+                        f"{type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"{path}: dtype {x.dtype}, expected "
+                        f"{np.dtype(dtype)}")
+    if len(x.shape) != len(shape) or any(
+            w is not None and g != w for g, w in zip(x.shape, shape)):
+        raise ValueError(f"{path}: shape {x.shape}, expected {shape}")
+    return x
+
+
+def agent_state_from_numpy(state, device, *, hidden=(128, 64),
+                           edge_hidden: int = 64) -> AgentState:
+    """The reference's full ``AgentState`` (a NamedTuple or mapping of its
+    fields, numpy leaves) -> the port's on ``device``: params, Adam
+    ``step``/``mu``/``nu``, the replay ring with ``ptr``/``size``, the slot
+    counter, exit mask and loss stats. Every name, shape and dtype is
+    checked. The reference's RNG ``key`` is dropped: the port's draws
+    come from the caller's generator."""
+    device = resolve_device(device)
+    st = _fields(state, STATE_FIELDS, "AgentState")
+    opt = _fields(st["opt_state"], ("step", "mu", "nu"), "opt_state")
+    rp = _fields(st["replay"], REPLAY_FIELDS, "replay")
+    i32, f32 = np.int32, np.float32
+    cap, m, _ = _array("replay/device_feat", rp["device_feat"], f32,
+                       (None, None, DEV_DIM)).shape
+    o = _array("replay/option_feat", rp["option_feat"], f32,
+               (cap, None, OPT_DIM)).shape[1]
+    want = {"adj": (f32, (cap, m, o)), "mask": (f32, (cap, m, o)),
+            "decisions": (i32, (cap, m)), "ptr": (i32, ()),
+            "size": (i32, ())}
+    for name, (dt, shape) in want.items():
+        _array(f"replay/{name}", rp[name], dt, shape)
+    ptr, size = int(rp["ptr"]), int(rp["size"])
+    if not (0 <= ptr < cap and 0 <= size <= cap):
+        raise ValueError(f"replay: ptr {ptr}, size {size} outside a ring of "
+                         f"{cap}")
+    for name, dt in (("step", i32), ("last_loss", f32), ("loss_sum", f32),
+                     ("loss_count", i32)):
+        _array(name, st[name], dt, ())
+    _array("opt_state/step", opt["step"], i32, ())
+    _array("key", st["key"], np.uint32, (2,))
+    _array("exit_mask", st["exit_mask"], f32, (o,))
+
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    def tree(p):
+        return params_from_numpy(p, device, hidden=hidden,
+                                 edge_hidden=edge_hidden)
+
     return AgentState(
-        params=params_from_numpy(params, device, hidden=hidden,
-                                 edge_hidden=edge_hidden),
-        exit_mask=torch.tensor(exit_mask, device=device),
-        step=torch.zeros((), dtype=torch.int32, device=device))
+        params=tree(st["params"]),
+        opt_state={"step": t(opt["step"]), "mu": tree(opt["mu"]),
+                   "nu": tree(opt["nu"])},
+        replay=DeviceReplay(*(t(rp[f]) for f in REPLAY_FIELDS),
+                            host_size=size),
+        step=t(st["step"]), exit_mask=t(st["exit_mask"]),
+        last_loss=t(st["last_loss"]), loss_sum=t(st["loss_sum"]),
+        loss_count=t(st["loss_count"]), host_step=int(st["step"]))
 
 
-def _leaves(tree: dict, prefix: str = ""):
-    """(path, leaf) pairs of a nested dict, depth first in insertion order."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
-
-
-def _unflatten(flat: dict) -> dict:
-    out: dict = {}
-    for path, x in flat.items():
-        *heads, leaf = path.split("/")
-        node = out
-        for h in heads:
-            node = node.setdefault(h, {})
-        node[leaf] = x
-    return out
+def agent_state_from_params(adef: AgentDef, params: dict,
+                            exit_mask: np.ndarray) -> AgentState:
+    """A fresh ``adef`` state (zero Adam moments, empty ring, counters at
+    0) around a numpy param tree and [N*L] exit mask, on ``adef.device``."""
+    _array("exit_mask", exit_mask, np.float32, (adef.env.N * adef.env.L,))
+    return adef.init_from(
+        params_from_numpy(params, adef.device, hidden=adef.hidden),
+        torch.tensor(exit_mask, device=adef.device))
 
 
 def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
@@ -95,10 +158,10 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
     bfloat16 leaf is ml_dtypes' ``bfloat16``, as ``np.asarray`` gives it
     for a JAX array)."""
     device = resolve_device(device)
-    want = dict(_leaves(DecoderLM.param_shapes(cfg)))
-    dtypes = {path: str(dt).replace("torch.", "")
-              for path, dt in _leaves(DecoderLM.param_dtypes(cfg))}
-    got = dict(_leaves(tree))
+    want = flatten_dict(DecoderLM.param_shapes(cfg))
+    dtypes = {path: str(dt).replace("torch.", "") for path, dt
+              in flatten_dict(DecoderLM.param_dtypes(cfg)).items()}
+    got = flatten_dict(tree)
     if set(got) != set(want):
         raise ValueError(f"param leaves differ: missing "
                          f"{sorted(set(want) - set(got))}, unexpected "
@@ -120,7 +183,7 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
         else:
             t = torch.from_numpy(np.array(x))
         out[path] = t.to(device)
-    return _unflatten(out)
+    return unflatten_dict(out)
 
 
 def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
@@ -135,7 +198,7 @@ def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
     scales are nonzero and not one, so a test sees them."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for path, shape in _leaves(DecoderLM.param_shapes(cfg)):
+    for path, shape in flatten_dict(DecoderLM.param_shapes(cfg)).items():
         leaf = path.rsplit("/", 1)[1]
         if leaf == "w":
             limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
@@ -147,4 +210,4 @@ def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
         else:
             x = 0.02 * rng.standard_normal(shape)
         flat[path] = x.astype(np.float32)
-    return _unflatten(flat)
+    return unflatten_dict(flat)

@@ -1,15 +1,22 @@
-"""Agent API, decision half: ``AgentDef`` (static spec) / ``AgentState``.
+"""Agent API: ``AgentDef`` (static spec) / ``AgentState`` (mutable state).
 
-Counterpart of ``repro/core/policy.py`` for the GCN actor's decision path
-(GRLE = gcn + early exit, GRL = gcn without). One slot's decision is the
-fused actor + critic pass of Algorithm 1: the GCN proposes a relaxed x̂
-over (device, option) edges, the order-preserving quantizer turns it
-into candidates, K random-valid exploration candidates join them, the
-Eq-15 critic scores every candidate with the FCFS simulator and the best
-one is kept.
+Counterpart of ``repro/core/policy.py`` for the GCN actor (GRLE = gcn +
+early exit, GRL = gcn without). One slot is Algorithm 1's fused
+iteration (``AgentDef.step``): the GCN proposes a relaxed x̂ over (device,
+option) edges, the order-preserving quantizer turns it into candidates, K
+random-valid exploration candidates join them, the Eq-15 critic scores
+every candidate with the FCFS simulator and the best one is kept; the
+(graph, decision) pair enters the replay ring, and every ``train_every``
+slots, once the ring holds a full minibatch, the actor takes one Eq-16
+BCE + Adam step on a replay minibatch (§VI-A). The decision path runs
+under ``torch.no_grad()``; the loss differentiates through the
+hand-written actor kernels (``kernels.ops``).
 
-Not ported yet: the MLP actor (DROO/DROOE), and the training half
-(replay, Eq-16 loss, Adam) which comes with the training slice.
+The reference's ``AgentState.key`` has no counterpart: every draw comes
+from a ``torch.Generator`` the caller passes (or from injected draws,
+``rand_cands=`` and ``take=``), since torch cannot reproduce threefry.
+
+Not ported yet: the MLP actor (DROO/DROOE).
 """
 from __future__ import annotations
 
@@ -20,10 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import gcn
+from repro_torch.core.devreplay import (DeviceReplay, replay_add,
+                                        replay_init, replay_sample)
 from repro_torch.core.graph import MECGraph, build_graph
 from repro_torch.core.quantize import max_candidates, one_hot_candidates
 from repro_torch.device import resolve_device
 from repro_torch.mec.env import MECEnv, MECState, SlotTasks
+from repro_torch.nn.pytree import flatten_dict, unflatten_dict
+from repro_torch.optim import adam, apply_updates, scale_updates
 
 # Method name -> (actor family, early-exit flag). The four rows of §VI-C.
 METHOD_SPECS = {
@@ -48,11 +59,24 @@ def make_exit_mask(n_servers: int, n_exits: int, early_exit: bool, *,
 
 
 class AgentState(NamedTuple):
-    """The mutable pieces the decision path reads. Optimizer, replay and
-    loss fields come with the training slice."""
+    """Every mutable piece of Algorithm 1: the reference's fields but its
+    RNG key, in its order. ``host_step`` mirrors ``step`` on the host, so
+    that the train gate needs no device-to-host copy."""
     params: dict               # GCN actor parameters
-    exit_mask: torch.Tensor    # [N*L] float32 — data, not structure
+    opt_state: dict            # Adam: {"step": int32, "mu": tree, "nu": tree}
+    replay: DeviceReplay       # device-resident (graph, decision) ring
     step: torch.Tensor         # scalar int32: slots absorbed so far
+    exit_mask: torch.Tensor    # [N*L] float32 — data, not structure
+    last_loss: torch.Tensor    # scalar float32, NaN before the first train
+    loss_sum: torch.Tensor     # scalar float32, sum of train losses
+    loss_count: torch.Tensor   # scalar int32, train steps taken
+    host_step: int = 0         # ``step`` on the host
+
+
+class StepAux(NamedTuple):
+    """Per-slot scalars out of ``AgentDef.step``."""
+    q_est: torch.Tensor        # critic value of the chosen decision
+    loss: torch.Tensor         # train loss this slot, NaN if not due
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +90,10 @@ class AgentDef:
     n_candidates: Optional[int] = None
     # exploration: K random-valid candidates join the critic's set
     n_random: int = 16
+    buffer_size: int = 128
+    batch_size: int = 64
+    train_every: int = 10
+    lr: float = 1e-3
     device: Optional[torch.device] = None
 
     def __post_init__(self):
@@ -90,13 +118,48 @@ class AgentDef:
         return make_exit_mask(self.env.N, self.env.L, self.early_exit,
                               device=self.device)
 
+    @property
+    def opt(self):
+        return adam(self.lr)
+
+    def graph_shapes(self) -> MECGraph:
+        """One graph's leaf shapes, as ``build_graph`` makes them."""
+        m, o = self.env.M, self.env.N * self.env.L
+        return MECGraph((m, DEV_DIM), (o, OPT_DIM), (m, o), (m, o))
+
+    def empty_replay(self) -> DeviceReplay:
+        return replay_init(self.buffer_size, self.graph_shapes(), self.env.M,
+                           device=self.device)
+
+    def _scalar(self, value, dtype=torch.float32) -> torch.Tensor:
+        return torch.full((), value, dtype=dtype, device=self.device)
+
     def init(self, generator: torch.Generator) -> AgentState:
         """Fresh agent state; params drawn from ``generator``."""
-        params = gcn.init(generator, DEV_DIM, OPT_DIM, hidden=self.hidden,
-                          device=self.device)
-        return AgentState(params=params, exit_mask=self.exit_mask(),
-                          step=torch.zeros((), dtype=torch.int32,
-                                           device=self.device))
+        return self.init_from(gcn.init(generator, DEV_DIM, OPT_DIM,
+                                       hidden=self.hidden,
+                                       device=self.device))
+
+    def init_from(self, params: dict,
+                  exit_mask: Optional[torch.Tensor] = None) -> AgentState:
+        """Fresh agent state around ``params`` (zero Adam moments, an empty
+        ring, counters at 0); ``exit_mask`` defaults to this def's."""
+        return self.episode_state(AgentState(
+            params=params, opt_state=self.opt.init(params), replay=None,
+            step=None,
+            exit_mask=self.exit_mask() if exit_mask is None else exit_mask,
+            last_loss=None, loss_sum=None, loss_count=None))
+
+    def episode_state(self, state: AgentState) -> AgentState:
+        """``state`` for a fresh episode: an empty replay ring (sized to
+        *this* def's ``buffer_size``), slot counter and loss stats reset;
+        params, optimizer state and exit mask carry over. (The reference
+        also re-keys the state; here the episode's generator is the
+        caller's.)"""
+        return state._replace(
+            replay=self.empty_replay(), step=self._scalar(0, torch.int32),
+            last_loss=self._scalar(torch.nan), loss_sum=self._scalar(0.0),
+            loss_count=self._scalar(0, torch.int32), host_step=0)
 
     # ----------------------------------------------------------- actor pass
     def scores(self, params, g: MECGraph, exit_mask: torch.Tensor):
@@ -110,6 +173,7 @@ class AgentDef:
         return x_hat, logits
 
     # ------------------------------------------------------------- decision
+    @torch.no_grad()
     def decide_with(self, params, exit_mask: torch.Tensor,
                     mec_state: MECState, tasks: SlotTasks, *,
                     generator: Optional[torch.Generator] = None,
@@ -160,6 +224,101 @@ class AgentDef:
         return self.decide_with(state.params, state.exit_mask, mec_state,
                                 tasks, generator=generator,
                                 rand_cands=rand_cands)
+
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, graphs: MECGraph, decisions: torch.Tensor,
+             exit_mask: torch.Tensor) -> torch.Tensor:
+        """Averaged masked BCE over edges (Eq 16), one batched pass over
+        the minibatch on the graphs' leading axis. With the one-hot target
+        the BCE splits into softplus over every valid edge minus the logit
+        at each device's decision edge: per_edge = softplus(l) - l *
+        target, softplus(l) = max(l, 0) + log1p(exp(-|l|))."""
+        _, logits = self.scores(params, graphs, exit_mask)      # [B, M, O]
+        valid = graphs.mask * exit_mask                         # [B, M, O]
+        # masked (-1e9) edges contribute exactly 0 and are zeroed by
+        # ``valid`` regardless
+        softplus = torch.maximum(logits, logits.new_zeros(())) \
+            + torch.log1p(torch.exp(-torch.abs(logits)))
+        pos = torch.sum(softplus * valid, dim=(-2, -1))         # [B]
+        dec = decisions[..., None].to(torch.int64)
+        l_at = torch.take_along_dim(logits, dec, dim=-1)[..., 0]
+        v_at = torch.take_along_dim(valid, dec, dim=-1)[..., 0]
+        neg = torch.sum(l_at * v_at, dim=-1)                    # [B]
+        denom = torch.clamp_min(valid.sum(dim=(-2, -1)), 1.0)
+        return torch.mean((pos - neg) / denom)
+
+    # ------------------------------------------------------------- training
+    def train_step(self, state: AgentState, lr=None, *,
+                   generator: Optional[torch.Generator] = None,
+                   take: Optional[torch.Tensor] = None):
+        """One Eq-16 minibatch update. The minibatch is the replay rows
+        ``take`` [batch_size] (injected: the reference's draws) or drawn
+        from ``generator``. Unconditional: callers gate on ``train_due``.
+        ``lr`` overrides the def's learning rate by rescaling the updates
+        by ``lr / self.lr``, which is exact: Adam's update is linear in lr
+        and its moments do not depend on it. Returns (new state, loss)."""
+        graphs, decisions = replay_sample(state.replay, self.batch_size,
+                                          generator=generator, take=take)
+        flat = flatten_dict(state.params)
+        leaves = [p.detach().requires_grad_() for p in flat.values()]
+        with torch.enable_grad():
+            loss = self.loss(unflatten_dict(dict(zip(flat, leaves))),
+                             graphs, decisions, state.exit_mask)
+            grads = torch.autograd.grad(loss, leaves)
+        updates, opt_state = self.opt.update(
+            unflatten_dict(dict(zip(flat, grads))), state.opt_state)
+        if lr is not None:
+            updates = scale_updates(updates, lr / self.lr)
+        loss = loss.detach().to(torch.float32)
+        new = state._replace(
+            params=apply_updates(state.params, updates),
+            opt_state=opt_state, last_loss=loss,
+            loss_sum=state.loss_sum + loss,
+            loss_count=state.loss_count + 1)
+        return new, loss
+
+    def train_due(self, state: AgentState, n_new: int) -> bool:
+        """Whether ``absorb`` of ``n_new`` entries into ``state`` trains:
+        every ``train_every`` slots, and only once the ring holds a full
+        minibatch (the reference's one rule). Read on the host."""
+        size = min(state.replay.host_size + n_new, self.buffer_size)
+        return ((state.host_step + 1) % self.train_every == 0
+                and size >= self.batch_size)
+
+    def absorb(self, state: AgentState, graphs: MECGraph,
+               decisions: torch.Tensor, lr=None, *,
+               generator: Optional[torch.Generator] = None,
+               take: Optional[torch.Tensor] = None):
+        """Record one slot's B (graph, decision) pairs (leaves lead with
+        [B]), then train if ``train_due``, on ``take`` or a draw from
+        ``generator``. Returns (new state, loss — NaN when no train step
+        ran)."""
+        due = self.train_due(state, decisions.shape[0])
+        state = state._replace(
+            replay=replay_add(state.replay, graphs, decisions),
+            step=state.step + 1, host_step=state.host_step + 1)
+        if due:
+            return self.train_step(state, lr, generator=generator, take=take)
+        return state, self._scalar(torch.nan)
+
+    # ----------------------------------------------------------- slot body
+    def step(self, state: AgentState, mec_state: MECState, tasks: SlotTasks,
+             *, generator: Optional[torch.Generator] = None,
+             rand_cands: Optional[torch.Tensor] = None,
+             take: Optional[torch.Tensor] = None):
+        """The fused Algorithm-1 slot body for one network (unbatched
+        ``mec_state``): decide, add to the replay ring, maybe train. The
+        draws come from ``generator`` unless injected (``rand_cands`` [K,
+        M], ``take`` [batch_size]). The environment transition stays with
+        the caller. Returns (new state, decision [M], StepAux)."""
+        decision, q_best, g = self.decide(state, mec_state, tasks,
+                                          generator=generator,
+                                          rand_cands=rand_cands)
+        g1 = MECGraph(*(x[None] for x in g))
+        state, loss = self.absorb(state, g1, decision[None],
+                                  generator=generator, take=take)
+        return state, decision, StepAux(q_est=q_best, loss=loss)
 
 
 def agent_def(method: str, env: MECEnv, *, device=None, **kw) -> AgentDef:

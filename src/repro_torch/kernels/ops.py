@@ -1,22 +1,31 @@
-"""Dispatch for the hand-written kernels, forward only.
+"""Dispatch for the hand-written kernels.
 
 Counterpart of ``repro/kernels/ops.py::gcn_agg`` / ``::edge_score`` /
 ``::flash_attention`` / ``::decode_attention``, and of the chunked
 recurrence of ``repro/models/ssm.py::chunked_linear_attn``
 (``ssm_scan``). The tensor's device picks
 the backend: CUDA tensors go to the hand-written kernels, CPU tensors to
-their plain versions. There is no switch and no fallback. The
-hand-written backwards of the actor kernels (``repro/kernels/ops.py:85-105,
-141-171``) come with the training slice as ``torch.autograd.Function``s;
-the TPU attention and scan kernels have no backward. Until then an input that
-requires grad raises, so a missing gradient cannot go unnoticed.
+their plain versions. There is no switch and no fallback.
+
+``gcn_agg`` and ``edge_score`` are differentiable, because the Eq-16 loss
+differentiates through them: with grad enabled and an input that requires
+grad they run as ``torch.autograd.Function``s whose forward is the kernel
+(or its plain version) and whose backward is the reference's hand-written
+rule in plain PyTorch (``ref.gcn_agg_bwd``, ``ref.edge_score_bwd``; the
+JAX package's VJPs are jnp too, ``repro/kernels/ops.py:85-105,
+141-171``). Otherwise they call the kernel directly and build no graph.
+The TPU attention and scan kernels have no backward: an input of theirs
+that requires grad raises, so a missing gradient cannot go unnoticed.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import edge_score as _edge
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssm_scan as _ssm
 
 _MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
@@ -27,27 +36,67 @@ _MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
 def _forward_only(op: str, *tensors) -> None:
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"ops.{op} is forward-only until the training slice adds its "
+            f"ops.{op} is forward-only: the TPU kernel it ports has no "
             f"backward; call it under torch.no_grad() or on tensors that do "
             f"not require grad")
+
+
+def _wants_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _GcnAgg(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``ref.gcn_agg_ref`` on the CPU. Saves
+    the inputs as given (the option side's transposed ``adj`` view stays a
+    view) and the output, whose sign is the relu mask."""
+
+    @staticmethod
+    def forward(ctx, adj, hs, hn, ws, wn, bias):
+        out = _gcn.gcn_agg(adj, hs, hn, ws, wn, bias)
+        ctx.save_for_backward(adj, hs, hn, ws, wn, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _ref.gcn_agg_bwd(dout, *ctx.saved_tensors,
+                                needs=ctx.needs_input_grad)
+
+
+class _EdgeScore(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``ref.edge_score_ref`` on the CPU. The
+    backward recomputes the [B, M, O, E] hidden from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, hs, hd, ef, ws, bs, wd, wf, wo, bo):
+        ctx.save_for_backward(hs, hd, ef, ws, bs, wd, wf, wo)
+        return _edge.edge_score(hs, hd, ef, ws, bs, wd, wf, wo, bo)
+
+    @staticmethod
+    def backward(ctx, dl):
+        return _ref.edge_score_bwd(dl, *ctx.saved_tensors,
+                                   needs=ctx.needs_input_grad)
 
 
 def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     """Eq-12 message passing: relu(self @ w_self + agg @ w_nbr + bias).
 
     adj [B, M, O], self_feat [B, M, Fs], nbr_feat [B, O, Fn] -> [B, M, H].
+    Differentiable in every input.
     """
     args = (adj, self_feat, nbr_feat, w_self, w_nbr, bias)
-    _forward_only("gcn_agg", *args)
+    if _wants_grad(args):
+        return _GcnAgg.apply(*args)
     return _gcn.gcn_agg(*args)
 
 
 def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
                b_out):
-    """Eq-13/14 fused edge scorer: per-edge MLP logits [B, M, O]."""
+    """Eq-13/14 fused edge scorer: per-edge MLP logits [B, M, O].
+    Differentiable in every input."""
     args = (h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
             b_out)
-    _forward_only("edge_score", *args)
+    if _wants_grad(args):
+        return _EdgeScore.apply(*args)
     return _edge.edge_score(*args)
 
 

@@ -3,7 +3,9 @@
 Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
 ``::flash_attention_ref``, ``::decode_attention_ref`` and ``::ssm_scan_ref``. They are what a
 CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
-on the card. ``flash_attention_bf16_emulation``,
+on the card. ``gcn_agg_bwd`` and ``edge_score_bwd`` are the backward rules
+of the two actor kernels (``repro/kernels/ops.py:85-105, 141-171``), which
+``ops`` runs on both devices. ``flash_attention_bf16_emulation``,
 ``decode_attention_split_ref`` and ``ssm_scan_bf16_emulation`` have no
 JAX counterpart: they compute with the CUDA kernels' own rounding and
 order (the bf16 flash and scan kernels' tensor-core arithmetic, decode
@@ -44,6 +46,74 @@ def edge_score_ref(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat,
     x = src[..., :, None, :] + dst[..., None, :, :] \
         + edge_feat[..., None] * w_feat
     return torch.sum(torch.relu(x) * w_out, dim=-1) + b_out[0]
+
+
+def _flat2(x):
+    """[B, N, F] -> [B*N, F], so that a weight's gradient is one GEMM."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def gcn_agg_bwd(dout, adj, hs, hn, ws, wn, out, needs=(True,) * 6):
+    """The backward of ``gcn_agg_ref``, as ``repro/kernels/ops.py:85-105``:
+    the relu mask from the saved output (out > 0 iff the pre-activation
+    was), ``agg`` recomputed. ``adj`` may be a strided view. Returns
+    (dadj, dhs, dhn, dws, dwn, dbias), None where ``needs`` is False."""
+    deg = adj.sum(-1, keepdim=True) + 1e-6
+    dpre = torch.where(out > 0, dout, 0.0)                  # [B, M, H]
+    want_agg = needs[0] or needs[4]
+    agg = (adj @ hn) / deg if want_agg else None
+    dagg_n = (dpre @ wn.T) / deg if needs[0] or needs[2] else None
+    dadj = dhs = dhn = dws = dwn = dbias = None
+    if needs[0]:
+        # d(agg)/d(adj[i, o]) = (hn[o] - agg[i]) / deg[i]
+        dadj = dagg_n @ hn.transpose(-1, -2) \
+            - (dagg_n * agg).sum(-1, keepdim=True)
+    if needs[1]:
+        dhs = dpre @ ws.T
+    if needs[2]:
+        dhn = adj.transpose(-1, -2) @ dagg_n
+    if needs[3]:
+        dws = _flat2(hs).T @ _flat2(dpre)
+    if needs[4]:
+        dwn = _flat2(agg).T @ _flat2(dpre)
+    if needs[5]:
+        dbias = dpre.sum((0, 1))
+    return dadj, dhs, dhn, dws, dwn, dbias
+
+
+def edge_score_bwd(dl, h_src, h_dst, ef, w_src, b_src, w_dst, w_feat, w_out,
+                   needs=(True,) * 9):
+    """The backward of ``edge_score_ref``, as
+    ``repro/kernels/ops.py:141-171``: the [B, M, O, E] hidden is recomputed
+    from src, dst and the edge feature, not saved by the forward. Returns
+    the gradients of (h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat,
+    w_out, b_out), None where ``needs`` is False."""
+    src = h_src @ w_src + b_src                             # [B, M, E]
+    dst = h_dst @ w_dst                                     # [B, O, E]
+    x = src[..., :, None, :] + dst[..., None, :, :] + ef[..., None] * w_feat
+    am = torch.where(x > 0, dl[..., None] * w_out, 0.0)     # dL/dx, masked
+    dsrc = am.sum(-2)                                       # [B, M, E]
+    ddst = am.sum(-3)                                       # [B, O, E]
+    grads = [None] * 9
+    if needs[0]:
+        grads[0] = dsrc @ w_src.T
+    if needs[1]:
+        grads[1] = ddst @ w_dst.T
+    if needs[2]:
+        grads[2] = (am * w_feat).sum(-1)
+    if needs[3]:
+        grads[3] = _flat2(h_src).T @ _flat2(dsrc)
+    if needs[4]:
+        grads[4] = dsrc.sum((0, 1))
+    if needs[5]:
+        grads[5] = _flat2(h_dst).T @ _flat2(ddst)
+    if needs[6]:
+        grads[6] = (am * ef[..., None]).sum((0, 1, 2))
+    if needs[7]:
+        grads[7] = (torch.relu(x) * dl[..., None]).sum((0, 1, 2))
+    if needs[8]:
+        grads[8] = dl.sum()[None]
+    return tuple(grads)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):

@@ -15,7 +15,7 @@ from repro.core.policy import agent_def as jax_agent_def
 from repro.core.quantize import one_hot_candidates as jax_candidates
 from repro.mec import MECEnv as JaxEnv
 from repro.mec import make_scenario as jax_scenario
-from repro_torch.core import (MECGraph, agent_def, agent_state_from_numpy,
+from repro_torch.core import (MECGraph, agent_def, agent_state_from_params,
                               build_graph, one_hot_candidates,
                               params_from_numpy)
 from repro_torch.core import gcn
@@ -103,7 +103,7 @@ def test_decide_with_injected_candidates_matches_reference(name):
     jparams = jax.tree_util.tree_map(jnp.asarray, golden["params"])
     env = MECEnv(make_scenario(name), device="cpu")
     pdef = agent_def("grle", env, device="cpu")
-    st = agent_state_from_numpy(golden["params"], mask, "cpu")
+    st = agent_state_from_params(pdef, golden["params"], mask)
     decide = jax.jit(jdef.decide_with)
     for seed in range(4):
         key = jax.random.PRNGKey(seed)
@@ -158,7 +158,9 @@ def _golden_params():
 
 def test_bridge_round_trip():
     params = _golden_params()
-    st = agent_state_from_numpy(params, load_golden()["exit_mask"], "cpu")
+    adef = agent_def("grle", MECEnv(make_scenario("fig5_baseline"),
+                                    device="cpu"), device="cpu")
+    st = agent_state_from_params(adef, params, load_golden()["exit_mask"])
     for layer, leaves in params.items():
         for name, x in leaves.items():
             np.testing.assert_array_equal(st.params[layer][name].numpy(), x)

@@ -165,7 +165,8 @@ def test_wrappers_refuse_what_the_kernel_cannot_take(cuda):
 
 def test_driver_launches_each_kernel_per_slot(cuda):
     env = MECEnv(make_scenario("fig5_baseline"), device=cuda)
-    drv = RolloutDriver(agent_def("grle", env, device=cuda), 8, device=cuda)
+    drv = RolloutDriver(agent_def("grle", env, device=cuda), 8, train=False,
+                        device=cuda)
     ops.reset_launch_counts()
     _, trace = drv.run(0, 3)
     torch.cuda.synchronize()
@@ -174,6 +175,56 @@ def test_driver_launches_each_kernel_per_slot(cuda):
                                    "decode_attention": 0, "ssm_scan": 0}
     assert trace.decisions.shape == (3, 8, env.M)
     assert bool(torch.isfinite(trace.reward).all())
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("shape", SLICE_GCN + ["edge"])
+def test_actor_grads_match_autograd_of_plain(cuda, b, shape):
+    """The kernels' forward with the hand-written backward against
+    PyTorch's autograd of the plain versions, every input, at the actor's
+    widths (the option side through a transposed adjacency view);
+    tests/test_kernels.py's gradient tolerance."""
+    if shape == "edge":
+        args = on(cuda, *arrays(7, (b, 14, 64), (b, 10, 64), (b, 14, 10),
+                                (64, 64), (64,), (64, 64), (64,), (64,),
+                                (1,), uniform=(2,)))
+        op, plain = ops.edge_score, ref.edge_score_ref
+    else:
+        args = gcn_inputs(cuda, b, *shape, seed=7)
+        op, plain = ops.gcn_agg, ref.gcn_agg_ref
+    xs = [a.detach().clone().requires_grad_() for a in args]
+    if not args[0].is_contiguous():
+        xs[0] = args[0].detach().transpose(-1, -2).clone() \
+            .requires_grad_().transpose(-1, -2)
+    ys = [a.detach().clone().requires_grad_() for a in args]
+    out = op(*xs)
+    cot = torch.randn(out.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0))
+    got = torch.autograd.grad((out * cot).sum(), xs)
+    want = torch.autograd.grad((plain(*ys) * cot).sum(), ys)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-4, atol=1e-4, err_msg=f"input {i}")
+
+
+def test_training_driver_launches(cuda):
+    """train=True: every slot's forward plus every train step's, 4 + 1
+    launches each; the losses finite; the decision path builds no graph."""
+    env = MECEnv(make_scenario("fig5_baseline"), device=cuda)
+    drv = RolloutDriver(agent_def("grle", env, device=cuda), 8, train=True,
+                        replay_capacity=16, batch_size=16, train_every=2,
+                        device=cuda)
+    ops.reset_launch_counts()
+    carry, trace = drv.run(0, 6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"gcn_agg": 36, "edge_score": 9,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0, "ssm_scan": 0}
+    loss = trace.loss.cpu().numpy()
+    assert np.isnan(loss[0::2]).all() and np.isfinite(loss[1::2]).all()
+    assert int(carry.agent_state.loss_count) == 3
+    assert not any(p.requires_grad for layer in carry.agent_state.params
+                   .values() for p in layer.values())
 
 
 # ---------------------------------------------------------------- attention

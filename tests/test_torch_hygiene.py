@@ -38,7 +38,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
             "import repro_torch.models, repro_torch.models.ssm\n"
             "import repro_torch.configs, repro_torch.kernels.ssm_scan\n"
-            "import repro_torch.train.steps\n"
+            "import repro_torch.train.steps, repro_torch.train.checkpoint\n"
+            "import repro_torch.optim, repro_torch.core.devreplay\n"
+            "import repro_torch.nn.pytree, repro_torch.train._msgpack\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -213,6 +213,10 @@ def test_attention_wrappers_refuse_bad_shapes_and_devices(op):
 @pytest.mark.parametrize("op", ["gcn_agg", "edge_score", "flash_attention",
                                 "decode_attention"])
 def test_ops_raise_on_requires_grad(op):
+    """The attention kernels have no backward and raise on an input that
+    requires grad; the actor kernels differentiate (their autograd
+    Functions; tests/test_torch_train.py holds the gradients) and build no
+    graph under no_grad."""
     if op in ("flash_attention", "decode_attention"):
         _, args = attn_args(0, 1, 64, 4, 2, 32,
                             decode=op == "decode_attention")
@@ -220,8 +224,14 @@ def test_ops_raise_on_requires_grad(op):
         args = to_torch(gcn_args(0, 1, 4, 3) if op == "gcn_agg"
                         else edge_args(0, 1, 4, 3))
     args[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        getattr(ops, op)(*args)
+    if op in ("flash_attention", "decode_attention"):
+        with pytest.raises(NotImplementedError, match="forward-only"):
+            getattr(ops, op)(*args)
+        return
+    out = getattr(ops, op)(*args)
+    assert out.requires_grad and out.grad_fn is not None
+    with torch.no_grad():
+        assert not getattr(ops, op)(*args).requires_grad
 
 
 @pytest.mark.parametrize("op", ["gcn_agg", "edge_score"])

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import agent_def, agent_state_from_numpy
+from repro_torch.core import agent_def, agent_state_from_params
 from repro_torch.mec import MECEnv, MECState, SlotTasks, make_scenario
 from repro_torch.rollout import RolloutDriver, SlotDraws
 
@@ -53,8 +53,9 @@ def jax_run(name, golden, seed):
 def port_run(name, golden, tasks, rand):
     env = MECEnv(make_scenario(name), device="cpu")
     drv = RolloutDriver(agent_def("grle", env, device="cpu"),
-                        rand.shape[1], device="cpu")
-    st = agent_state_from_numpy(golden["params"], golden["exit_mask"], "cpu")
+                        rand.shape[1], train=False, device="cpu")
+    st = agent_state_from_params(drv.adef, golden["params"],
+                                 golden["exit_mask"])
     draws = SlotDraws(
         SlotTasks(*(torch.tensor(tasks[f]) for f in SlotTasks._fields)),
         torch.tensor(rand.astype(np.int64)))
@@ -144,7 +145,7 @@ def test_teacher_forced_slots_match(golden):
     cascade, so each slot's decision and next state are held alone."""
     env = MECEnv(make_scenario(str(golden["scenario"])), device="cpu")
     adef = agent_def("grle", env, device="cpu")
-    st = agent_state_from_numpy(golden["params"], golden["exit_mask"], "cpu")
+    st = agent_state_from_params(adef, golden["params"], golden["exit_mask"])
     n_slots = golden["rand_cands"].shape[0]
     decisions = []
     for t in range(n_slots):
@@ -172,8 +173,9 @@ def test_own_generator_run_matches_reference_statistics(golden):
     within sampling spread of the JAX driver's golden run (4 fleets)."""
     env = MECEnv(make_scenario(str(golden["scenario"])), device="cpu")
     drv = RolloutDriver(agent_def("grle", env, device="cpu"), 16,
-                        device="cpu")
-    st = agent_state_from_numpy(golden["params"], golden["exit_mask"], "cpu")
+                        train=False, device="cpu")
+    st = agent_state_from_params(drv.adef, golden["params"],
+                                 golden["exit_mask"])
     c1, t1 = drv.run(3, golden_tool.N_SLOTS, agent_state=st)
     _, t2 = drv.run(3, golden_tool.N_SLOTS, agent_state=st)
     assert torch.equal(t1.decisions, t2.decisions)
@@ -185,10 +187,16 @@ def test_own_generator_run_matches_reference_statistics(golden):
 
 
 def test_driver_refuses_training_and_cpu_fallback(monkeypatch):
+    """Training that could never run is refused, as in the reference (a
+    ring smaller than the minibatch, or than one slot's fleets); so is a
+    silent move to the CPU."""
     env = MECEnv(make_scenario("fig5_baseline", n_devices=4), device="cpu")
     adef = agent_def("grle", env, device="cpu", hidden=(16, 8))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        RolloutDriver(adef, 2, train=True, device="cpu")
+    with pytest.raises(ValueError, match="smaller than minibatch"):
+        RolloutDriver(adef, 2, train=True, replay_capacity=32, device="cpu")
+    with pytest.raises(ValueError, match="cannot hold one slot"):
+        RolloutDriver(adef, 200, train=True, device="cpu")
+    RolloutDriver(adef, 2, train=False, replay_capacity=32, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RolloutDriver(adef, 2)

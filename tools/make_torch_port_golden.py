@@ -1,10 +1,12 @@
-"""Write ``tests/data/torch_port_golden.npz``: a JAX GRLE decision trace
-with the random draws that produced it, for holding the PyTorch port
+"""Write ``tests/data/torch_port_golden.npz`` and
+``tests/data/torch_port_train_golden.npz``: JAX GRLE traces with the
+random draws that produced them, for holding the PyTorch port
 (``repro_torch``) against the JAX package where JAX is not installed.
 
     PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
+        [--train-out PATH] [--only decision|train]
 
-Runs on the CPU with JAX only. Steps:
+Runs on the CPU with JAX only. The decision file:
 
 1. train GRLE on ``fig5_baseline`` with ``RolloutDriver(train=True)``
    (seed 0, 4 fleets, 200 slots) so its decisions are not near-uniform;
@@ -16,10 +18,20 @@ Runs on the CPU with JAX only. Steps:
    (``reference_episode``), which also records every slot's ``MECState``
    and the critic's top-two margin.
 
-The file holds the params, exit mask, the driver's trace, the draws
+It holds the params, exit mask, the driver's trace, the draws
 (``SlotTasks`` leaves, exploration candidates as int8), the states and
-margins, and the ``metrics_finalize`` values. ``tests/test_torch_rollout.py``
-checks that a rebuild equals the stored file.
+margins, and the ``metrics_finalize`` values.
+
+The training file (``build_train``): a ``RolloutDriver(train=True).run(
+mode="loop")`` episode from the driver's own fresh params on
+fig5_baseline, B=4, T=64 (replay 128, minibatch 64, a train step every
+10 slots: 5 steps, at slots 20..60), with the same draws, each train
+step's replay rows (``train_takes``: ``replay_sample`` itself, called with
+the step's sample key on a ring whose entries hold their own index), per
+slot the decisions, q_est and margins of a replay that trains as the
+driver does, each step's loss, and the params and Adam moments after the
+last step. ``tests/test_torch_rollout.py`` and ``tests/test_torch_train.py``
+check that a rebuild equals the stored files.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.core.devreplay import replay_sample
 from repro.core.graph import build_graph
 from repro.core.policy import agent_def
 from repro.core.quantize import one_hot_candidates
@@ -42,8 +55,11 @@ from repro.rollout.vecenv import VecMECEnv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_port_train_golden.npz")
 SCENARIO, TRAIN_SEED, TRAIN_FLEETS, TRAIN_SLOTS = "fig5_baseline", 0, 4, 200
 EVAL_SEED, N_FLEETS, N_SLOTS = 1, 4, 32
+TRAIN_EP_SEED, TRAIN_EP_SLOTS = 2, 64
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
 
@@ -116,7 +132,8 @@ def driver_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int):
     return tasks, np.stack([np.asarray(r) for r in rands])
 
 
-def reference_episode(adef, params, exit_mask, tasks, rand_cands):
+def reference_episode(adef, params, exit_mask, tasks, rand_cands,
+                      state=None):
     """Replay the JAX decision path on injected draws, fleet-batched.
 
     Returns decisions, q_est, reward, the ``MECState`` before every slot
@@ -124,33 +141,42 @@ def reference_episode(adef, params, exit_mask, tasks, rand_cands):
     critic's margin between the best candidate and the best one with a
     different decision (``q_margin``) and the smallest per-device gap
     between the actor's top two allowed scores (``xhat_margin``).
+
+    With ``state`` (a JAX ``AgentState`` keyed as the driver keys it) the
+    actor's params are the state's, and after every slot the learner
+    absorbs the B fleets' (graph, decision) pairs as
+    ``RolloutDriver(train=True)`` does; then the per-slot ``loss`` [T]
+    and the final ``agent_state`` are returned too.
     """
     env = adef.env
-    jparams = jax.tree_util.tree_map(jnp.asarray, params)
     mask = jnp.asarray(exit_mask)
 
-    def fleet(state, t, rand):
+    def fleet(state, t, rand, params):
         g = build_graph(env.observe(state, t), env.N, env.L)
-        x_hat, _ = adef.scores(jparams, g, mask)
+        x_hat, _ = adef.scores(params, g, mask)
         cands = jnp.concatenate(
             [one_hot_candidates(x_hat, adef.n_candidates), rand], axis=0)
         q = env.evaluate(state, t, cands)
         best = jnp.argmax(q)
         new_state, res = env.step(state, t, cands[best])
-        return new_state, res.reward, cands, q, best, x_hat
+        return new_state, res.reward, cands, q, best, x_hat, g
 
-    step = jax.jit(jax.vmap(fleet))
+    step = jax.jit(jax.vmap(fleet, in_axes=(0, 0, 0, None)))
+    absorb = jax.jit(adef.absorb)
     n_slots, n_fleets = rand_cands.shape[:2]
-    state = VecMECEnv(env, n_fleets).reset()
-    states, out = [state], {k: [] for k in
-                            ("decisions", "q_est", "reward", "q_margin",
-                             "xhat_margin")}
+    env_state = VecMECEnv(env, n_fleets).reset()
+    states, out = [env_state], {k: [] for k in
+                                ("decisions", "q_est", "reward", "q_margin",
+                                 "xhat_margin", "loss")}
+    params = (jax.tree_util.tree_map(jnp.asarray, params) if state is None
+              else state.params)
     for t in range(n_slots):
         t_tasks = SlotTasks(**{f: jnp.asarray(tasks[f][t])
                                for f in TASK_FIELDS})
-        state, reward, cands, q, best, x_hat = step(
-            state, t_tasks, jnp.asarray(rand_cands[t], jnp.int32))
-        states.append(state)
+        env_state, reward, cands, q, best, x_hat, g = step(
+            env_state, t_tasks, jnp.asarray(rand_cands[t], jnp.int32),
+            params)
+        states.append(env_state)
         cands, q, best = map(np.asarray, (cands, q, best))
         x_hat = np.sort(np.asarray(x_hat), axis=-1)
         dec = cands[np.arange(n_fleets), best]
@@ -161,11 +187,108 @@ def reference_episode(adef, params, exit_mask, tasks, rand_cands):
         out["reward"].append(np.asarray(reward))
         out["q_margin"].append(q[np.arange(n_fleets), best] - q_other)
         out["xhat_margin"].append((x_hat[..., -1] - x_hat[..., -2]).min(-1))
-    out = {k: np.stack(v) for k, v in out.items()}
+        if state is not None:
+            state, loss = absorb(state, g, jnp.asarray(dec))
+            params = state.params
+            out["loss"].append(np.asarray(loss))
+    out = {k: np.stack(v) for k, v in out.items() if v}
     for name in ("dev_free", "es_free", "slot"):
         out[f"state_{name}"] = np.stack(
             [np.asarray(getattr(s, name)) for s in states])
+    if state is not None:
+        out["agent_state"] = state
     return out
+
+
+def episode_keys(seed: int):
+    """(k_init, k_episode) of ``RolloutDriver.init_carry(PRNGKey(seed))``:
+    the key a fresh ``adef.init`` gets and the episode's agent key."""
+    _, _, k_agent, _ = jax.random.split(jax.random.PRNGKey(seed), 4)
+    return jax.random.split(k_agent)
+
+
+def train_slots(adef, n_fleets: int, n_slots: int):
+    """The 1-based slots whose ``absorb`` trains: every ``train_every``
+    slots once the ring holds a full minibatch."""
+    return [s for s in range(1, n_slots + 1)
+            if s % adef.train_every == 0
+            and min(s * n_fleets, adef.buffer_size) >= adef.batch_size]
+
+
+def train_takes(adef, k_episode, sizes):
+    """The replay rows each train step samples, one row of [batch_size]
+    per ring size in ``sizes``: ``replay_sample`` with the step's sample
+    key (the chain ``AgentDef.train_step`` splits from the episode key) on
+    a ring whose decisions hold their own index."""
+    ring = adef.empty_replay()
+    index = jnp.broadcast_to(
+        jnp.arange(ring.capacity, dtype=jnp.int32)[:, None],
+        ring.decisions.shape)
+    key, takes = k_episode, []
+    for size in sizes:
+        key, k_samp = jax.random.split(key)
+        r = ring._replace(decisions=index,
+                          size=jnp.asarray(size, jnp.int32))
+        _, rows = replay_sample(r, k_samp, adef.batch_size)
+        takes.append(np.asarray(rows[:, 0]))
+    return np.stack(takes)
+
+
+def build_train(seed: int = TRAIN_EP_SEED):
+    """Everything the training golden file holds, as a flat dict."""
+    adef = grle(SCENARIO)
+    exit_mask = np.asarray(adef.exit_mask())
+    drv = RolloutDriver(adef, n_fleets=N_FLEETS, train=True)
+    key = jax.random.PRNGKey(seed)
+    carry, trace = drv.run(key, TRAIN_EP_SLOTS, mode="loop")
+    trace = {k: np.asarray(v) for k, v in trace._asdict().items()}
+    metrics = {k: np.asarray(v) for k, v in metrics_finalize(
+        carry.metrics, slot_s=adef.env.cfg.slot_s,
+        n_fleets=N_FLEETS).items()}
+    k_init, k_episode = episode_keys(seed)
+    state0 = adef.episode_state(adef.init(k_init), k_episode)
+    tasks, rand = driver_draws(adef, exit_mask, seed, N_FLEETS,
+                               TRAIN_EP_SLOTS)
+    ref = reference_episode(adef, None, exit_mask, tasks, rand, state0)
+    # the replay is the driver's own run, training included
+    np.testing.assert_array_equal(ref["decisions"], trace["decisions"])
+    np.testing.assert_array_equal(np.isnan(ref["loss"]),
+                                  np.isnan(trace["loss"]))
+    np.testing.assert_allclose(ref["loss"], trace["loss"], rtol=1e-6)
+    slots = train_slots(adef, N_FLEETS, TRAIN_EP_SLOTS)
+    np.testing.assert_array_equal(
+        np.flatnonzero(~np.isnan(trace["loss"])) + 1, slots)
+    sizes = [min(s * N_FLEETS, adef.buffer_size) for s in slots]
+    takes = train_takes(adef, k_episode, sizes)
+    final = carry.agent_state
+    data = {"scenario": np.asarray(SCENARIO), "seed": np.asarray(seed),
+            "exit_mask": exit_mask, "rand_cands": rand.astype(np.int8),
+            "train_slots": np.asarray(slots, np.int32),
+            "replay_take": takes.astype(np.int32),
+            "final/opt_step": np.asarray(final.opt_state["step"])}
+    trees = {"init_params": state0.params, "final/params": final.params,
+             "final/mu": final.opt_state["mu"],
+             "final/nu": final.opt_state["nu"]}
+    for prefix, tree in trees.items():
+        for layer, leaves in tree.items():
+            for name, x in leaves.items():
+                data[f"{prefix}/{layer}/{name}"] = np.asarray(x)
+    data.update({f"tasks/{k}": v for k, v in tasks.items()})
+    data.update({f"trace/{k}": v for k, v in trace.items()})
+    data.update({f"metrics/{k}": v for k, v in metrics.items()})
+    for k in ("q_margin", "xhat_margin"):
+        data[k] = ref[k]
+    return data
+
+
+def tree_of(data: dict, prefix: str) -> dict:
+    """The ``{layer: {name: array}}`` tree stored under ``prefix/``."""
+    tree = {}
+    for k in data:
+        if k.startswith(prefix + "/"):
+            layer, name = k[len(prefix) + 1:].split("/")
+            tree.setdefault(layer, {})[name] = data[k]
+    return tree
 
 
 def build(seed: int = EVAL_SEED, params=None):
@@ -196,10 +319,8 @@ def load(path: str = GOLDEN) -> dict:
     """The golden file as a flat dict, params regrouped into a tree."""
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
-    params = {}
-    for k in [k for k in data if k.startswith("params/")]:
-        _, layer, name = k.split("/")
-        params.setdefault(layer, {})[name] = data.pop(k)
+    params = tree_of(data, "params")
+    data = {k: v for k, v in data.items() if not k.startswith("params/")}
     data["params"] = params
     return data
 
@@ -207,12 +328,19 @@ def load(path: str = GOLDEN) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN)
+    ap.add_argument("--train-out", default=TRAIN_GOLDEN)
+    ap.add_argument("--only", choices=("decision", "train"))
     args = ap.parse_args(argv)
-    data = build()
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    np.savez_compressed(args.out, **data)
-    print(f"wrote {args.out}: {os.path.getsize(args.out)} bytes, "
-          f"{len(data)} arrays")
+    jobs = {"decision": (build, args.out), "train": (build_train,
+                                                     args.train_out)}
+    for name, (fn, out) in jobs.items():
+        if args.only not in (None, name):
+            continue
+        data = fn()
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(out, **data)
+        print(f"wrote {out}: {os.path.getsize(out)} bytes, "
+              f"{len(data)} arrays")
     return 0
 
 
