@@ -129,7 +129,27 @@ order, each fatal on failure:
    beside the decision path's (episodes in the order decision, training,
    training, decision), and one train step split into forward, backward
    and Adam: ms by CUDA events and CUDA launches of each;
-19. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+19. the compiled episode, ``RolloutDriver.run(mode="scan")`` (one CUDA
+   graph a slot; phases 4, 5, 17 and 18 pass ``mode="loop"``, whose
+   launches the wrappers count, which they cannot for a graph's replays):
+   (1) the decision golden in scan mode, 128/128 as in phase 4; (2) the
+   training golden in scan mode as in phase 17, then against the loop on
+   the same draws: decisions and rewards bit for bit, the largest loss
+   and param differences printed; (3) B=64, T=200, fig5_baseline on the
+   port's own generator (registered with the graphs), without and with
+   training (ring 128, minibatch 64, a step every 10 slots): slot ms of
+   episodes in the order loop, scan, scan, loop; from the profiler's
+   device records of a scan episode exactly 800 gcn_agg and 200
+   edge_score launches (880 and 220 with training), each cudaGraphLaunch
+   carrying its own slot's (4 and 1, 8 and 2 on a train step), one
+   cudaGraphLaunch a slot and the busy share; whether scan equals loop bit for bit on one
+   seed (else both runs' ssp and avg_accuracy); (4) B=1024, T=50 without
+   training, slot ms of loop and scan; (5) B=64, T=200 with training and
+   ``telemetry=True``: scan's counters and histogram counts equal the
+   loop's bit for bit and its loss EMA within 1e-5 relative, the counters
+   agree with the trace, and telemetry on and off give the same
+   decisions, rewards and params; scan slot ms with telemetry on and off;
+20. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -177,6 +197,13 @@ LM_GOLDEN_TOL = 1e-4
 # short row by up to 2^-8 of a key's weight; ~2x the largest reading on the
 # card, well under the faults of FLASH_FAULTS
 FLASH_EMU_TOL = 1e-3
+# torch.profiler (torch 2.11, CUDA 12.8, H100) can lose the device records
+# of the last milliseconds of work in its window, even after a synchronize:
+# a scan episode whose window closed at once showed 872 of its 880 gcn_agg
+# launches, the last slots' records missing (tools/torch_profiler_window.py
+# measures it). Every profiled window here stays open this long after its
+# work's closing synchronize.
+PROFILER_TAIL_S = 0.2
 # ptxas' warnings that it serialized a kernel's wgmma instructions
 WGMMA_SERIALIZED = ("C7514", "C7518")
 CONSIST_TOL = 2e-2
@@ -1390,9 +1417,48 @@ def grad_phase(dev, env, params, gen):
     return worst
 
 
-def train_golden_phase(dev):
+def golden_phase(dev, mode):
+    """tests/data/torch_port_golden.npz (a JAX run with its draws) through
+    the port's driver in ``mode``: every decision matches, or differs only
+    at a recorded near-tie; q_est within 1e-5 relative."""
+    from repro_torch.core import agent_def, agent_state_from_params
+    from repro_torch.mec import MECEnv, SlotTasks, make_scenario
+    from repro_torch.rollout import RolloutDriver, SlotDraws
+    with np.load(GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    tree = tree_of(gold, "params")
+    g_env = MECEnv(make_scenario(str(gold["scenario"])), device=dev)
+    g_def = agent_def("grle", g_env, device=dev)
+    st = agent_state_from_params(g_def, tree, gold["exit_mask"])
+    t_gold, b_gold = gold["rand_cands"].shape[:2]
+    draws = SlotDraws(
+        SlotTasks(*(torch.tensor(gold[f"tasks/{f}"], device=dev)
+                    for f in TASK_FIELDS)),
+        torch.tensor(gold["rand_cands"].astype(np.int64), device=dev))
+    _, trace = RolloutDriver(g_def, b_gold, train=False, device=dev).run(
+        SEED, t_gold, mode=mode, agent_state=st, draws=draws)
+    dec = trace.decisions.cpu().numpy()
+    same = (dec == gold["trace/decisions"]).all(-1)
+    dq = np.abs(trace.q_est.cpu().numpy() - gold["trace/q_est"])
+    print(f"mode={mode}: decisions matching: {int(same.sum())}/{same.size} "
+          f"slot-fleets; max |dq| {float(dq.max()):.3e}; "
+          f"max |dreward| {float(np.abs(trace.reward.cpu().numpy() - gold['trace/reward']).max()):.3e}")
+    for t, b in np.argwhere(~same):
+        margin = min(gold["q_margin"][t, b], gold["xhat_margin"][t, b])
+        print(f"  slot {t} fleet {b}: q margin {gold['q_margin'][t, b]:.3e}, "
+              f"x_hat margin {gold['xhat_margin'][t, b]:.3e}")
+        if margin > NEAR_TIE:
+            raise SystemExit(f"golden ({mode}): decision differs at slot {t} "
+                             f"fleet {b}, not at a near-tie")
+    if not (dq[same] <= 1e-5 * np.abs(gold["trace/q_est"][same])).all():
+        raise SystemExit(f"golden ({mode}): q_est differs by more than 1e-5 "
+                         f"relative")
+
+
+def train_golden_phase(dev, mode="loop"):
     """(b) tests/data/torch_port_train_golden.npz (a JAX train=True run
-    with its draws and minibatch rows) through the port's driver."""
+    with its draws and minibatch rows) through the port's driver in
+    ``mode``. Returns the run's (carry, trace)."""
     from repro_torch.core import agent_def, agent_state_from_params
     from repro_torch.mec import MECEnv, SlotTasks, make_scenario
     from repro_torch.rollout import RolloutDriver, SlotDraws
@@ -1409,7 +1475,8 @@ def train_golden_phase(dev):
                     for f in TASK_FIELDS)),
         torch.tensor(gold["rand_cands"].astype(np.int64), device=dev),
         torch.tensor(gold["replay_take"], device=dev))
-    carry, trace = drv.run(SEED, t_gold, agent_state=st, draws=draws)
+    carry, trace = drv.run(SEED, t_gold, mode=mode, agent_state=st,
+                           draws=draws)
     dec = trace.decisions.cpu().numpy()
     same = (dec == gold["trace/decisions"]).all(-1)
     first_train = int(gold["train_slots"][0]) - 1       # slot index
@@ -1426,8 +1493,8 @@ def train_golden_phase(dev):
         raise SystemExit(f"train golden: a decision flipped at slot {stop}, "
                          f"before the first train step (slot index "
                          f"{first_train})")
-    print(f"decisions matching: {int(same[:stop].sum())}/{same[:stop].size}"
-          f" slot-fleets before slot {stop}" + (
+    print(f"mode={mode}: decisions matching: {int(same[:stop].sum())}/"
+          f"{same[:stop].size} slot-fleets before slot {stop}" + (
               "" if stop == t_gold else
               f"; a near-tie flip at slot {stop}: the comparison stops"))
     loss, want = trace.loss.cpu().numpy()[:stop], gold["trace/loss"][:stop]
@@ -1443,7 +1510,7 @@ def train_golden_phase(dev):
     if stop < t_gold:
         print("final params and moments not compared (the run left the "
               "golden one at the flip)")
-        return
+        return carry, trace
     fin = carry.agent_state
     for name, got, tol in (("params", fin.params, TRAIN_PARAM_TOL),
                            ("mu", fin.opt_state["mu"], TRAIN_PARAM_TOL),
@@ -1462,15 +1529,18 @@ def train_golden_phase(dev):
                              f"{tol[0]} atol {tol[1]}")
     if int(fin.opt_state["step"]) != int(gold["final/opt_step"]):
         raise SystemExit("train golden: Adam step count differs")
+    return carry, trace
 
 
 def cuda_launches(fn) -> int:
     """CUDA kernels (and copies) one ``fn()`` runs, by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_TAIL_S)
     cuda = torch.autograd.DeviceType.CUDA
     return sum(1 for e in prof.events() if e.device_type == cuda)
 
@@ -1530,12 +1600,12 @@ def train_step_parts(adef, state, gen, reps=20):
         lambda: adef.train_step(state, generator=gen))
 
 
-def episode_s(drv, seed=SEED):
-    """Wall seconds of one N_SLOTS episode, ending in a synchronize, and
-    its (carry, trace)."""
+def episode_s(drv, seed=SEED, mode="loop", n_slots=N_SLOTS):
+    """Wall seconds of one ``n_slots`` episode in ``mode``, ending in a
+    synchronize, and its (carry, trace)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = drv.run(seed, N_SLOTS)
+    out = drv.run(seed, n_slots, mode=mode)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
 
@@ -1551,7 +1621,7 @@ def train_path_phase(dev, adef):
     from repro_torch.rollout import RolloutDriver
     drv = RolloutDriver(adef, N_FLEETS, train=True, device=dev)
     plain = RolloutDriver(adef, N_FLEETS, train=False, device=dev)
-    drv.run(SEED + 1, 20)                   # warm-up: a train step too
+    drv.run(SEED + 1, 20, mode="loop")      # warm-up: a train step too
     walls = {"decision": [episode_s(plain)[0]]}
     ops.reset_launch_counts()
     wall, (carry, trace) = episode_s(drv)
@@ -1601,6 +1671,223 @@ def train_path_phase(dev, adef):
           f"host wall, {whole_launches} CUDA launches; per slot over "
           f"{adef.train_every} slots: {whole / adef.train_every:.3f} ms")
     return counts
+
+
+# ------------------------------------------------- the compiled episode
+SPANS = ("sample", "actor", "env_step", "train")
+
+
+def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED):
+    """One episode under torch.profiler, whose window stays open
+    ``PROFILER_TAIL_S`` after it: (carry, trace), the device records of
+    the two actor kernels, the same per cudaGraphLaunch in launch order
+    ([gcn_agg, edge_score] a launch, by the launch's correlation id), CUDA
+    kernels (and copies) in all, cudaGraphLaunch calls, and the busy share
+    (device time over the wall time of the episode, which ends in a
+    synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = drv.run(seed, n_slots, mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILER_TAIL_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    launches = sorted((e.time_range.start, e.id) for e in events
+                      if e.name == "cudaGraphLaunch")
+    slot_of = {corr: i for i, (_, corr) in enumerate(launches)}
+    per_launch = [[0, 0] for _ in launches]
+    ours = {"gcn_agg": 0, "edge_score": 0}
+    busy_us, kernels = 0.0, 0
+    for e in events:
+        if e.device_type != cuda or e.name in SPANS:
+            continue
+        kernels += 1
+        busy_us += e.time_range.elapsed_us()
+        for j, k in enumerate(ours):
+            if f"{k}_kernel" in e.name:
+                ours[k] += 1
+                if e.id in slot_of:
+                    per_launch[slot_of[e.id]][j] += 1
+    return (out, ours, per_launch, kernels, len(launches),
+            busy_us / (wall * 1e6))
+
+
+def same_run(a, b) -> bool:
+    """Two (carry, trace) pairs equal bit for bit (NaN equal to NaN)."""
+    from repro_torch.rollout.driver import _tensors
+    xs, ys = _tensors(a), _tensors(b)
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(((x == y) | (x != x) & (y != y)).all())
+        for x, y in zip(xs, ys))
+
+
+def max_diff(xs, ys) -> float:
+    return max((float((x.float() - y.float()).abs().nan_to_num().max())
+                for x, y in zip(xs, ys) if x.numel()), default=0.0)
+
+
+def interleaved(drv, n_slots=N_SLOTS):
+    """Slot ms of episodes in the order loop, scan, scan, loop on one seed
+    (host time drifts within a call); the first of each mode's runs."""
+    drv.run(SEED + 1, 3, mode="loop")                  # warm-up
+    drv.run(SEED, n_slots, mode="scan")                # capture
+    ms, runs = {"loop": [], "scan": []}, {}
+    for mode in ("loop", "scan", "scan", "loop"):
+        wall, out = episode_s(drv, mode=mode, n_slots=n_slots)
+        ms[mode].append(wall / n_slots * 1e3)
+        runs.setdefault(mode, out)
+    return ms, runs
+
+
+def compiled_episode_phase(dev, adef):
+    """19. RolloutDriver.run(mode="scan"): the golden runs, the full-width
+    episodes against the loop, launch and graph counts from the profiler,
+    B=1024, and the telemetry registry. Returns {B=64 train: slot ms}."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.pytree import flatten_dict
+    from repro_torch.rollout import RolloutDriver
+    print("(1) decision golden, scan")
+    golden_phase(dev, "scan")
+
+    print("(2) training golden, scan, and the loop on the same draws")
+    s_carry, s_trace = train_golden_phase(dev, "scan")
+    l_carry, l_trace = train_golden_phase(dev, "loop")
+    if not (torch.equal(s_trace.decisions, l_trace.decisions)
+            and torch.equal(s_trace.reward, l_trace.reward)):
+        raise SystemExit("train golden: scan and loop differ in decisions or "
+                         "rewards")
+    ok = ~torch.isnan(l_trace.loss)
+    p_s = list(flatten_dict(s_carry.params).values())
+    p_l = list(flatten_dict(l_carry.params).values())
+    print(f"scan vs loop: decisions and rewards bitwise equal; max |dloss| "
+          f"{max_diff([s_trace.loss[ok]], [l_trace.loss[ok]]):.3e}, max "
+          f"|dparam| {max_diff(p_s, p_l):.3e}")
+
+    print(f"(3) full width, own generator: B={N_FLEETS} T={N_SLOTS} "
+          f"fig5_baseline")
+    slot = {}
+    for train in (False, True):
+        drv = RolloutDriver(adef, N_FLEETS, train=train, device=dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        drv.run(SEED, N_SLOTS, mode="scan")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        captured = ops.launch_counts()
+        ms, runs = interleaved(drv)
+        ops.reset_launch_counts()
+        (carry, trace), ours, per_launch, kernels, graphs, busy = (
+            profiled_episode(drv, "scan"))
+        replayed = ops.launch_counts()
+        n_train = N_SLOTS // adef.train_every if train else 0
+        want = {"gcn_agg": 4 * (N_SLOTS + n_train),
+                "edge_score": N_SLOTS + n_train}
+        due = [train and (t + 1) % adef.train_every == 0
+               for t in range(N_SLOTS)]
+        off = {t: got for t, got in enumerate(per_launch)
+               if got != ([8, 2] if due[t] else [4, 1])}
+        equal = same_run(runs["loop"], runs["scan"])
+        slot[train] = ms
+        print(f"train={train}: slot ms, episodes loop, scan, scan, loop: "
+              f"{ms['loop'][0]:.3f}, {ms['scan'][0]:.3f}, {ms['scan'][1]:.3f},"
+              f" {ms['loop'][1]:.3f}; first scan episode (warm-up and capture"
+              f" included) {first_s:.3f} s, wrapper calls in it {captured}")
+        print(f"  profiled scan episode: actor kernels on the device {ours} "
+              f"(expected {want}), {kernels / N_SLOTS:.2f} CUDA kernels and "
+              f"{graphs / N_SLOTS:.2f} cudaGraphLaunch a slot, busy share "
+              f"{busy:.1%}; wrapper calls {replayed}")
+        print(f"  scan equals loop bit for bit on one seed: {equal}")
+        if not equal:
+            for mode, (c, _) in runs.items():
+                m = drv.metrics(c)
+                print(f"  {mode}: ssp {m['ssp']:.6f} avg_accuracy "
+                      f"{m['avg_accuracy']:.6f}")
+        if ours != want or off:
+            raise SystemExit(f"scan train={train}: actor kernels on the "
+                             f"device {ours}, expected {want}; graph "
+                             f"launches whose [gcn_agg, edge_score] differ "
+                             f"from their slot's [4, 1] or, training, "
+                             f"[8, 2]: {dict(list(off.items())[:12])} "
+                             f"({len(off)} of {len(per_launch)})")
+        if captured["gcn_agg"] == 0 or captured["edge_score"] == 0:
+            raise SystemExit(f"scan train={train}: the capture called no "
+                             f"actor kernel ({captured})")
+        if graphs != N_SLOTS:
+            raise SystemExit(f"scan train={train}: {graphs} graph launches "
+                             f"for {N_SLOTS} slots")
+        m = drv.metrics(carry)
+        if (not torch.isfinite(trace.reward).all()
+                or int(m["train_steps"]) != n_train
+                or not 0.0 < m["ssp"] <= 1.0):
+            raise SystemExit(f"scan train={train}: output malformed")
+
+    big, big_t = 1024, 50
+    print(f"(4) large batch: B={big} T={big_t}, train=False")
+    drv = RolloutDriver(adef, big, train=False, device=dev)
+    ms, runs = interleaved(drv, big_t)
+    print(f"slot ms, episodes loop, scan, scan, loop: {ms['loop'][0]:.3f}, "
+          f"{ms['scan'][0]:.3f}, {ms['scan'][1]:.3f}, {ms['loop'][1]:.3f}; "
+          f"scan equals loop bit for bit: "
+          f"{same_run(runs['loop'], runs['scan'])}")
+    del drv, runs
+
+    print(f"(5) telemetry: B={N_FLEETS} T={N_SLOTS}, train=True")
+    tel = RolloutDriver(adef, N_FLEETS, train=True, telemetry=True,
+                        device=dev)
+    off = RolloutDriver(adef, N_FLEETS, train=True, device=dev)
+    c_loop, _ = tel.run(SEED, N_SLOTS, mode="loop")
+    c_scan, t_scan = tel.run(SEED, N_SLOTS, mode="scan")
+    c_off, t_off = off.run(SEED, N_SLOTS, mode="scan")
+    a, b = c_scan.telemetry, c_loop.telemetry
+    for name in a.counters:
+        if not torch.equal(a.counters[name], b.counters[name]):
+            raise SystemExit(f"telemetry: counter {name} differs, scan "
+                             f"{float(a.counters[name])} loop "
+                             f"{float(b.counters[name])}")
+    for name in a.hists:
+        if not torch.equal(a.hists[name].counts, b.hists[name].counts):
+            raise SystemExit(f"telemetry: histogram {name} differs")
+    ema_rel = abs(float(a.loss_ema) / float(b.loss_ema) - 1)
+    if not ema_rel <= 1e-5:
+        raise SystemExit(f"telemetry: loss_ema differs by {ema_rel:.3e}")
+    c = {k: float(v) for k, v in a.counters.items()}
+    active = t_scan.active > 0.5
+    checks = {
+        "slots": c["slots"] == N_SLOTS,
+        "tasks": c["tasks"] == float(active.sum()),
+        "success": c["success"] == float((t_scan.success & active).sum()),
+        "train_steps": c["train_steps"]
+        == float((~torch.isnan(t_scan.loss)).sum()),
+        "reward": abs(c["reward"] / float(t_scan.reward.double().sum())
+                      - 1) <= 1e-5,
+        "hists": all(float(a.hists[n].counts.sum()) == c["tasks"]
+                     for n in ("exit", "server", "latency"))}
+    on_off = (torch.equal(t_scan.decisions, t_off.decisions)
+              and torch.equal(t_scan.reward, t_off.reward)
+              and all(torch.equal(x, y) for x, y in zip(
+                  flatten_dict(c_scan.params).values(),
+                  flatten_dict(c_off.params).values())))
+    print(f"scan vs loop: counters and histogram counts bitwise equal, "
+          f"loss_ema relative difference {ema_rel:.3e}; counters vs trace "
+          f"{checks}; telemetry on vs off: same decisions, rewards and "
+          f"params {on_off}")
+    print(f"counters {c}")
+    walls = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        wall, _ = episode_s(tel if name == "on" else off, mode="scan")
+        walls[name].append(wall / N_SLOTS * 1e3)
+    print(f"scan slot ms with telemetry on, off, off, on: {walls['on'][0]:.3f}"
+          f", {walls['off'][0]:.3f}, {walls['off'][1]:.3f}, "
+          f"{walls['on'][1]:.3f}")
+    if not all(checks.values()) or not on_off:
+        raise SystemExit("telemetry: counters disagree with the trace, or "
+                         "the registry perturbed the run")
+    return slot
 
 
 # ------------------------------------------------------------------ phases
@@ -1690,42 +1977,15 @@ def main() -> int:
                   flush=True)
 
     phase(4, "golden replay of a JAX run")
-    with np.load(GOLDEN) as z:
-        gold = {k: z[k] for k in z.files}
-    tree = tree_of(gold, "params")
-    g_env = MECEnv(make_scenario(str(gold["scenario"])), device=dev)
-    g_def = agent_def("grle", g_env, device=dev)
-    st = agent_state_from_params(g_def, tree, gold["exit_mask"])
-    t_gold, b_gold = gold["rand_cands"].shape[:2]
-    draws = SlotDraws(
-        SlotTasks(*(torch.tensor(gold[f"tasks/{f}"], device=dev)
-                    for f in TASK_FIELDS)),
-        torch.tensor(gold["rand_cands"].astype(np.int64), device=dev))
-    _, trace = RolloutDriver(g_def, b_gold, train=False, device=dev).run(
-        SEED, t_gold, agent_state=st, draws=draws)
-    dec = trace.decisions.cpu().numpy()
-    same = (dec == gold["trace/decisions"]).all(-1)
-    dq = np.abs(trace.q_est.cpu().numpy() - gold["trace/q_est"])
-    print(f"decisions matching: {int(same.sum())}/{same.size} slot-fleets; "
-          f"max |dq| {float(dq.max()):.3e}; "
-          f"max |dreward| {float(np.abs(trace.reward.cpu().numpy() - gold['trace/reward']).max()):.3e}")
-    for t, b in np.argwhere(~same):
-        margin = min(gold["q_margin"][t, b], gold["xhat_margin"][t, b])
-        print(f"  slot {t} fleet {b}: q margin {gold['q_margin'][t, b]:.3e}, "
-              f"x_hat margin {gold['xhat_margin'][t, b]:.3e}")
-        if margin > NEAR_TIE:
-            raise SystemExit(f"golden: decision differs at slot {t} fleet {b}"
-                             f", not at a near-tie")
-    if not (dq[same] <= 1e-5 * np.abs(gold["trace/q_est"][same])).all():
-        raise SystemExit("golden: q_est differs by more than 1e-5 relative")
+    golden_phase(dev, "loop")
 
     phase(5, "main path: GRLE fig5_baseline, full width")
     drv = RolloutDriver(adef, N_FLEETS, train=False, device=dev)
-    drv.run(SEED + 1, 5)                        # warm-up: allocator, cuBLAS
+    drv.run(SEED + 1, 5, mode="loop")           # warm-up: allocator, cuBLAS
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    carry, trace = drv.run(SEED, N_SLOTS)
+    carry, trace = drv.run(SEED, N_SLOTS, mode="loop")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1796,7 +2056,10 @@ def main() -> int:
     phase(18, "training path: GRLE fig5_baseline, full width, train=True")
     counts = train_path_phase(dev, adef)
 
-    phase(19, "summary")
+    phase(19, "the compiled episode: RolloutDriver.run(mode=\"scan\")")
+    compiled_episode_phase(dev, adef)
+
+    phase(20, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",

@@ -89,14 +89,18 @@ def replay_add(replay: DeviceReplay, graphs: MECGraph,
 def replay_indices(replay: DeviceReplay, batch_size: int,
                    generator: torch.Generator) -> torch.Tensor:
     """[batch_size] ring indices drawn from ``generator`` by the
-    reference's rule (see the module docstring)."""
+    reference's rule (see the module docstring). The filled region is
+    read from the device ``size``, so a captured train step samples the
+    ring as it stands at each replay; the host mirror only picks the
+    refill branch, which a train step (always on a full minibatch) never
+    takes."""
     cap, size = replay.capacity, replay.host_size
     if batch_size > cap:
         raise ValueError(f"minibatch of {batch_size} exceeds replay capacity "
                          f"{cap}")
     dev = replay.decisions.device
     scores = torch.rand((cap,), generator=generator, device=dev)
-    scores = torch.where(torch.arange(cap, device=dev) < size, scores,
+    scores = torch.where(torch.arange(cap, device=dev) < replay.size, scores,
                          torch.inf)
     take = torch.sort(scores, stable=True).indices[:batch_size]
     if size >= batch_size:

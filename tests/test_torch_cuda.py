@@ -5,12 +5,14 @@ imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.core import agent_def
+from repro_torch.core import AgentDef, agent_def
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import edge_score as edge_mod
 from repro_torch.kernels import flash_attention as flash_mod
@@ -19,7 +21,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as ssm_mod
 from repro_torch.mec import MECEnv, make_scenario
 from repro_torch.models import DecoderLM
-from repro_torch.rollout import RolloutDriver
+from repro_torch.nn.pytree import flatten_dict
+from repro_torch.obs import hist_add, hist_init
+from repro_torch.rollout import RolloutDriver, SlotDraws
 from repro_torch.train import make_prefill_step, make_serve_step
 
 pytestmark = pytest.mark.cuda
@@ -168,7 +172,7 @@ def test_driver_launches_each_kernel_per_slot(cuda):
     drv = RolloutDriver(agent_def("grle", env, device=cuda), 8, train=False,
                         device=cuda)
     ops.reset_launch_counts()
-    _, trace = drv.run(0, 3)
+    _, trace = drv.run(0, 3, mode="loop")
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gcn_agg": 12, "edge_score": 3,
                                    "flash_attention": 0,
@@ -215,7 +219,7 @@ def test_training_driver_launches(cuda):
                         replay_capacity=16, batch_size=16, train_every=2,
                         device=cuda)
     ops.reset_launch_counts()
-    carry, trace = drv.run(0, 6)
+    carry, trace = drv.run(0, 6, mode="loop")
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gcn_agg": 36, "edge_score": 9,
                                    "flash_attention": 0,
@@ -225,6 +229,102 @@ def test_training_driver_launches(cuda):
     assert int(carry.agent_state.loss_count) == 3
     assert not any(p.requires_grad for layer in carry.agent_state.params
                    .values() for p in layer.values())
+
+
+# ------------------------------------------------------- compiled episode
+@pytest.mark.parametrize("inject_take", [False, True])
+def test_scan_equals_loop_on_injected_draws(cuda, inject_take):
+    """B=4 at full width, training every 2 slots on a 16-entry ring, with
+    telemetry: tasks and exploration candidates injected, minibatch rows
+    injected or drawn from the driver's generator (registered with the
+    graphs). The captured episode makes the loop's decisions and rewards
+    and folds the same telemetry; a second scan run replays the graphs."""
+    env = MECEnv(make_scenario("fig5_baseline"), device=cuda)
+    adef = agent_def("grle", env, device=cuda)
+    b, t = 4, 12
+    drv = RolloutDriver(adef, b, train=True, replay_capacity=16,
+                        batch_size=8, train_every=2, telemetry=True,
+                        device=cuda)
+    tasks = env.sample_slot(torch.Generator(cuda).manual_seed(3), (t, b))
+    rng = np.random.default_rng(0)
+    rand = torch.tensor(rng.integers(0, env.N * env.L,
+                                     (t, b, adef.n_random, env.M)),
+                        device=cuda)
+    take = None
+    if inject_take:
+        sizes = [min(b * s, 16) for s in range(2, t + 1, 2)]
+        take = torch.tensor(np.stack([rng.permutation(z)[:8]
+                                      for z in sizes]), device=cuda)
+    draws = SlotDraws(tasks, rand, take)
+    state = adef.init(torch.Generator(cuda).manual_seed(0))
+    runs = [drv.run(5, t, mode=mode, agent_state=state, draws=draws)
+            for mode in ("loop", "scan", "scan")]
+    (c0, t0), rest = runs[0], runs[1:]
+    assert np.isfinite(t0.loss.cpu().numpy()[1::2]).all()
+    for c, tr in rest:
+        for f in ("decisions", "reward", "success", "active"):
+            assert torch.equal(getattr(tr, f), getattr(t0, f)), f
+        np.testing.assert_allclose(tr.loss.cpu().numpy(),
+                                   t0.loss.cpu().numpy(), rtol=1e-5)
+        for k, p in flatten_dict(c.params).items():
+            np.testing.assert_allclose(p.cpu().numpy(),
+                                       flatten_dict(c0.params)[k].cpu()
+                                       .numpy(), rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+        for name, h in c.telemetry.hists.items():
+            assert torch.equal(h.counts, c0.telemetry.hists[name].counts)
+        assert c.agent_state.host_step == c0.agent_state.host_step == t
+        assert int(c.agent_state.opt_state["step"]) == t // 2
+
+
+def test_scan_raises_on_a_host_sync_in_the_slot(cuda, monkeypatch):
+    """A host sync planted in the slot body: the scan's warm-up under the
+    sync debug mode refuses it, and nothing runs uncaptured instead."""
+    env = MECEnv(make_scenario("fig5_baseline"), device=cuda)
+    drv = RolloutDriver(agent_def("grle", env, device=cuda), 2, train=False,
+                        device=cuda)
+    real = AgentDef.decide_with
+
+    def syncing(self, *args, **kw):
+        out = real(self, *args, **kw)
+        float(out[1].sum())                 # reads the device on the host
+        return out
+
+    monkeypatch.setattr(AgentDef, "decide_with", syncing)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        drv.run(0, 3, mode="scan")
+    assert torch.cuda.get_sync_debug_mode() == 0
+    _, trace = drv.run(0, 3, mode="loop")
+    assert trace.decisions.shape == (3, 2, env.M)
+
+
+def test_scan_captures_while_dropped_graphs_await_collection(cuda):
+    """Graphs that only the cyclic collector can free (drivers a caller
+    left in a reference cycle) do not break the next capture, even with
+    the collector set to run at every allocation: CUDA forbids destroying
+    a graph while a stream captures."""
+    env = MECEnv(make_scenario("fig5_baseline"), device=cuda)
+    adef = agent_def("grle", env, device=cuda)
+    for seed in range(2):
+        dropped = RolloutDriver(adef, 2, train=False, device=cuda)
+        dropped.run(seed, 2, mode="scan")
+        dropped.cycle = dropped
+    del dropped
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        _, trace = RolloutDriver(adef, 2, train=False, device=cuda).run(
+            0, 3, mode="scan")
+    finally:
+        gc.set_threshold(*threshold)
+    assert trace.decisions.shape == (3, 2, env.M)
+
+
+def test_hist_add_sends_nan_and_inf_where_the_reference_does(cuda):
+    """On the card too: -inf underflows, +inf and NaN overflow."""
+    h = hist_init([0.0, 1.0, 2.0, 3.0], device=cuda)
+    v = torch.tensor([np.nan, np.inf, -np.inf, 1.0, 3.0], device=cuda)
+    assert hist_add(h, v).counts.tolist() == [1.0, 0.0, 1.0, 0.0, 3.0]
 
 
 # ---------------------------------------------------------------- attention

@@ -41,6 +41,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.train.steps, repro_torch.train.checkpoint\n"
             "import repro_torch.optim, repro_torch.core.devreplay\n"
             "import repro_torch.nn.pytree, repro_torch.train._msgpack\n"
+            "import repro_torch.obs, repro_torch.rollout.replay\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -8,8 +8,10 @@ injected into the port's driver, which must then make the same decisions.
 to the GPU machine, where JAX is not installed; the first test here keeps
 it current.
 """
+import gc
 import os
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -17,7 +19,10 @@ import torch
 
 from repro_torch.core import agent_def, agent_state_from_params
 from repro_torch.mec import MECEnv, MECState, SlotTasks, make_scenario
-from repro_torch.rollout import RolloutDriver, SlotDraws
+from repro_torch.obs import telemetry_host
+from repro_torch.rollout import (RolloutDriver, SlotDraws, carry_metrics,
+                                 carry_telemetry, trace_metrics)
+from repro_torch.rollout.driver import _tensors
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -50,7 +55,7 @@ def jax_run(name, golden, seed):
     return adef, trace, metrics, tasks, rand, ref
 
 
-def port_run(name, golden, tasks, rand):
+def port_run(name, golden, tasks, rand, mode="loop"):
     env = MECEnv(make_scenario(name), device="cpu")
     drv = RolloutDriver(agent_def("grle", env, device="cpu"),
                         rand.shape[1], train=False, device="cpu")
@@ -59,7 +64,8 @@ def port_run(name, golden, tasks, rand):
     draws = SlotDraws(
         SlotTasks(*(torch.tensor(tasks[f]) for f in SlotTasks._fields)),
         torch.tensor(rand.astype(np.int64)))
-    carry, trace = drv.run(0, rand.shape[0], agent_state=st, draws=draws)
+    carry, trace = drv.run(0, rand.shape[0], mode=mode, agent_state=st,
+                           draws=draws)
     return drv, carry, trace
 
 
@@ -176,8 +182,8 @@ def test_own_generator_run_matches_reference_statistics(golden):
                         train=False, device="cpu")
     st = agent_state_from_params(drv.adef, golden["params"],
                                  golden["exit_mask"])
-    c1, t1 = drv.run(3, golden_tool.N_SLOTS, agent_state=st)
-    _, t2 = drv.run(3, golden_tool.N_SLOTS, agent_state=st)
+    c1, t1 = drv.run(3, golden_tool.N_SLOTS, mode="loop", agent_state=st)
+    _, t2 = drv.run(3, golden_tool.N_SLOTS, mode="loop", agent_state=st)
     assert torch.equal(t1.decisions, t2.decisions)
     m = drv.metrics(c1)
     assert m["tasks"] == golden_tool.N_SLOTS * 16 * env.M
@@ -202,3 +208,158 @@ def test_driver_refuses_training_and_cpu_fallback(monkeypatch):
         RolloutDriver(adef, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         agent_def("grle", env)
+
+
+# ------------------------------------------------------- compiled episode
+def test_scan_reproduces_golden_fig5(golden):
+    """``mode="scan"`` (the static-buffer episode, uncaptured on the CPU)
+    on the golden draws: the JAX run's decisions, rewards and metrics."""
+    want = {k.split("/", 1)[1]: v for k, v in golden.items()
+            if k.startswith("trace/")}
+    metrics = {k.split("/", 1)[1]: v for k, v in golden.items()
+               if k.startswith("metrics/")}
+    tasks = {f: golden[f"tasks/{f}"] for f in SlotTasks._fields}
+    drv, carry, trace = port_run(str(golden["scenario"]), golden, tasks,
+                                 golden["rand_cands"], mode="scan")
+    check_against(drv, carry, trace, want, metrics, golden["q_margin"],
+                  golden["xhat_margin"])
+
+
+def small_driver(train=True, telemetry=True, b=2):
+    env = MECEnv(make_scenario("fig8_csi", n_devices=4), device="cpu")
+    adef = agent_def("grle", env, device="cpu", hidden=(16, 8))
+    return RolloutDriver(adef, b, train=train, replay_capacity=32,
+                         batch_size=8, train_every=5, telemetry=telemetry,
+                         device="cpu")
+
+
+def assert_same_run(a, b):
+    """Two (carry, trace) pairs equal bit for bit, NaN equal to NaN, and
+    the host mirrors too."""
+    xs, ys = _tensors(a), _tensors(b)
+    assert len(xs) == len(ys)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert torch.equal(x, y) or torch.equal(
+            torch.nan_to_num(x, nan=7.0), torch.nan_to_num(y, nan=7.0)), i
+    ca, cb = a[0].agent_state, b[0].agent_state
+    assert ca.host_step == cb.host_step
+    assert ca.replay.host_size == cb.replay.host_size
+
+
+@pytest.mark.parametrize("train,telemetry", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+def test_scan_equals_loop_bit_for_bit(train, telemetry):
+    """On one seed of the driver's own generator: the trace, the
+    ``CellMetrics``, the telemetry and the learner, bit for bit; a second
+    scan run on the driver's cached buffers again; a caller's generator
+    object the same as its seed."""
+    drv = small_driver(train, telemetry)
+    loop = drv.run(7, 30, mode="loop")
+    scan = drv.run(7, 30, mode="scan")
+    assert_same_run(loop, scan)
+    assert_same_run(loop, drv.run(7, 30))               # scan is the default
+    assert_same_run(loop, drv.run(torch.Generator().manual_seed(7), 30))
+    assert (loop[0].telemetry is None) == (not telemetry)
+    if train:
+        assert int(scan[0].agent_state.loss_count) == 6
+        assert scan[0].agent_state.host_step == 30
+        assert scan[0].agent_state.replay.host_size == 32
+
+
+def test_scan_results_do_not_alias_its_buffers():
+    """A run's carry and trace stay as they were when the driver runs
+    again: the scan hands out copies of its static buffers."""
+    drv = small_driver()
+    c1, t1 = drv.run(1, 12)
+    kept = [x.clone() for x in _tensors((c1, t1))]
+    drv.run(2, 12)
+    for x, y in zip(kept, _tensors((c1, t1))):
+        assert torch.equal(torch.nan_to_num(x, nan=7.0),
+                           torch.nan_to_num(y, nan=7.0))
+
+
+def test_telemetry_does_not_perturb_trajectories():
+    """The registry only observes: decisions, rewards and the learned
+    params are identical with it on and off."""
+    c_on, t_on = small_driver(telemetry=True).run(3, 25)
+    c_off, t_off = small_driver(telemetry=False).run(3, 25)
+    assert torch.equal(t_on.decisions, t_off.decisions)
+    assert torch.equal(t_on.reward, t_off.reward)
+    for a, b in zip(_tensors(c_on.params), _tensors(c_off.params)):
+        assert torch.equal(a, b)
+    assert c_off.telemetry is None and carry_telemetry(c_off) is None
+
+
+def test_counters_agree_with_trace():
+    """As tests/test_obs.py holds the reference: task and success counts
+    exactly, the Eq-9 reward to float32 summation order, the decision
+    histograms partition the active tasks."""
+    drv = small_driver()
+    carry, trace = drv.run(4, 30)
+    host = carry_telemetry(carry)
+    c = host["counters"]
+    active = trace.active.numpy() > 0.5
+    assert c["slots"] == 30
+    assert c["tasks"] == active.sum()
+    assert c["success"] == (trace.success.numpy() & active).sum()
+    assert c["train_steps"] == (~np.isnan(trace.loss.numpy())).sum() == 6
+    np.testing.assert_allclose(c["reward"], trace.reward.numpy().sum(),
+                               rtol=1e-5)
+    for name in ("exit", "server", "latency"):
+        assert sum(host["hists"][name]["counts"]) == pytest.approx(
+            c["tasks"])
+    assert host == {**telemetry_host(carry.telemetry),
+                    "summary": host["summary"]}
+    assert len(host["summary"]["exit_share"]) == drv.env.L
+
+
+def test_carry_metrics_agrees_with_trace_metrics():
+    drv = small_driver()
+    carry, trace = drv.run(9, 25)
+    m_acc = carry_metrics(carry, slot_s=drv.env.cfg.slot_s, n_fleets=2)
+    m_tr = trace_metrics(trace, slot_s=drv.env.cfg.slot_s)
+    for k in ("ssp", "avg_accuracy", "throughput_tps", "avg_reward"):
+        np.testing.assert_allclose(m_acc[k], m_tr[k], rtol=1e-5, err_msg=k)
+    assert isinstance(m_acc["tasks"], int) and m_acc["tasks"] == m_tr["tasks"]
+    assert isinstance(m_acc["train_steps"], int)
+    assert m_acc["train_steps"] == int(np.isfinite(trace.loss.numpy()).sum())
+    np.testing.assert_allclose(m_acc["final_loss"], m_tr["final_loss"],
+                               rtol=1e-6)
+    c0, t0 = small_driver(train=False).run(9, 3)
+    assert carry_metrics(c0, slot_s=0.03, n_fleets=2)["final_loss"] is None
+    assert trace_metrics(t0, slot_s=0.03)["final_loss"] is None
+
+
+def test_driver_surface():
+    """The reference's public names: ``init_carry``, ``carry.params``,
+    ``mode`` checked, the replay ring re-exported under ``rollout``."""
+    import repro_torch.core.devreplay as core_replay
+    import repro_torch.rollout as rollout
+    drv = small_driver()
+    carry = drv.init_carry(0)
+    assert carry.params is carry.agent_state.params
+    assert int(carry.agent_state.step) == 0 and carry.telemetry is not None
+    with pytest.raises(ValueError, match="unknown mode"):
+        drv.run(0, 2, mode="jit")
+    for name in ("DeviceReplay", "replay_init", "replay_add",
+                 "replay_sample"):
+        assert getattr(rollout, name) is getattr(core_replay, name)
+
+
+def test_a_dropped_driver_is_freed_at_once():
+    """The compiled episode holds no reference back to its driver: a driver
+    its caller drops is freed by reference counting, never by a later pass
+    of the cyclic collector (which on the card could fall inside another
+    driver's capture and destroy graphs there)."""
+    drv = small_driver(train=False, telemetry=False)
+    drv.run(0, 3)
+    ref = weakref.ref(drv)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del drv
+        assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()

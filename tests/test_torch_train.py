@@ -447,7 +447,7 @@ class TestTrainGating:
         env = small_env(4)
         adef = agent_def("grle", env, device="cpu", **SMALL_KW)
         drv = RolloutDriver(adef, 1, train=True, device="cpu")
-        final, trace = drv.run(13, 30)
+        final, trace = drv.run(13, 30, mode="loop")
         state, decisions, losses = drive_host(adef, env, 13, 30)
         np.testing.assert_array_equal(trace.decisions[:, 0].numpy(),
                                       decisions)
@@ -479,7 +479,7 @@ def test_train_golden_file_is_current(train_golden):
             np.testing.assert_array_equal(v, want, err_msg=k)
 
 
-def port_episode(name, data, n_fleets, **overrides):
+def port_episode(name, data, n_fleets, mode="loop", **overrides):
     env = MECEnv(make_scenario(name), device="cpu")
     drv = RolloutDriver(agent_def("grle", env, device="cpu"), n_fleets,
                         train=True, device="cpu", **overrides)
@@ -490,8 +490,8 @@ def port_episode(name, data, n_fleets, **overrides):
                     for f in SlotTasks._fields)),
         torch.tensor(data["rand_cands"].astype(np.int64)),
         torch.tensor(data["replay_take"]))
-    carry, trace = drv.run(0, data["rand_cands"].shape[0], agent_state=st,
-                           draws=draws)
+    carry, trace = drv.run(0, data["rand_cands"].shape[0], mode=mode,
+                           agent_state=st, draws=draws)
     return drv, carry, trace
 
 
@@ -567,6 +567,96 @@ def test_port_trains_as_a_live_jax_episode():
         carry.metrics, slot_s=jdef.env.cfg.slot_s, n_fleets=4)
     data.update({f"metrics/{k}": np.asarray(v) for k, v in metrics.items()})
     check_episode(*port_episode("fig8_csi", data, 4, **kw), data)
+
+
+def test_scan_trains_as_the_golden_episode(train_golden):
+    """The golden training episode through ``mode="scan"``: the same
+    decisions, losses, final params and Adam moments as the JAX driver."""
+    check_episode(*port_episode(str(train_golden["scenario"]),
+                                train_golden, 4, mode="scan"), train_golden)
+
+
+def test_telemetry_matches_a_live_jax_scan_episode():
+    """fig8_csi, B=2, T=30, ring 32, minibatch 8, a step every 5 slots: the
+    JAX driver's ``telemetry=True, mode="scan"`` episode replayed in the
+    port on its draws and minibatch rows: the same decisions, counters
+    within 1e-5 relative, histogram counts exactly, the loss EMA within
+    1e-5."""
+    kw = dict(replay_capacity=32, batch_size=8, train_every=5)
+    jdef = jax_agent_def("grle", JaxEnv(jax_scenario("fig8_csi")))
+    jdrv = JaxDriver(jdef, n_fleets=2, train=True, telemetry=True, **kw)
+    seed, n_slots = 9, 30
+    j_carry, j_trace = jdrv.run(jax.random.PRNGKey(seed), n_slots,
+                                mode="scan")
+    k_init, k_episode = golden_tool.episode_keys(seed)
+    slots = golden_tool.train_slots(jdrv.adef, 2, n_slots)
+    assert slots == [5, 10, 15, 20, 25, 30]
+    exit_mask = np.asarray(jdef.exit_mask())
+    tasks, rand = golden_tool.driver_draws(jdrv.adef, exit_mask, seed, 2,
+                                           n_slots)
+    takes = golden_tool.train_takes(jdrv.adef, k_episode,
+                                    [min(2 * s, 32) for s in slots])
+    env = MECEnv(make_scenario("fig8_csi"), device="cpu")
+    drv = RolloutDriver(agent_def("grle", env, device="cpu"), 2, train=True,
+                        telemetry=True, device="cpu", **kw)
+    st = agent_state_from_params(drv.adef, np_tree(jdef.init(k_init).params),
+                                 exit_mask)
+    draws = SlotDraws(
+        SlotTasks(*(torch.tensor(tasks[f]) for f in SlotTasks._fields)),
+        torch.tensor(rand.astype(np.int64)), torch.tensor(takes))
+    carry, trace = drv.run(0, n_slots, mode="scan", agent_state=st,
+                           draws=draws)
+    np.testing.assert_array_equal(trace.decisions.numpy(),
+                                  np.asarray(j_trace.decisions))
+    got, want = carry.telemetry, j_carry.telemetry
+    # (a jitted pytree's dicts come back with sorted keys)
+    assert sorted(got.counters) == sorted(want.counters)
+    for k, v in want.counters.items():
+        np.testing.assert_allclose(float(got.counters[k]), float(v),
+                                   rtol=1e-5, err_msg=k)
+    for k, h in want.hists.items():
+        np.testing.assert_array_equal(got.hists[k].counts.numpy(),
+                                      np.asarray(h.counts), err_msg=k)
+    np.testing.assert_allclose(float(got.loss_ema), float(want.loss_ema),
+                               rtol=1e-5)
+    assert float(got.counters["train_steps"]) == 6
+
+
+def replay_indices_before(replay, batch_size, generator):
+    """``replay_indices`` as it was before it read the device ``size``: the
+    filled region from the host mirror ``host_size``."""
+    cap, size = replay.capacity, replay.host_size
+    scores = torch.rand((cap,), generator=generator)
+    scores = torch.where(torch.arange(cap) < size, scores, torch.inf)
+    take = torch.sort(scores, stable=True).indices[:batch_size]
+    if size >= batch_size:
+        return take
+    fill = torch.randint(0, max(size, 1), (batch_size,), generator=generator)
+    return torch.where(torch.arange(batch_size) < size, take, fill)
+
+
+@pytest.mark.parametrize("adds,batch", [((3,), 6), ((3, 3, 3, 3), 5),
+                                        ((8,), 8), ((2, 1), 6), ((4, 4), 3)])
+def test_replay_indices_read_the_device_size(adds, batch):
+    """The indices drawn are the ones drawn before the mask read the
+    device ``size``; and with a full minibatch stored, a stale host mirror
+    (what a captured train step holds) samples the same filled region."""
+    shapes = MECGraph((3, 7), (4, 4), (3, 4), (3, 4))
+    ring = replay_init(10, shapes, 3, device="cpu")
+    for n in adds:
+        ring = replay_add(ring, MECGraph(*(torch.ones((n,) + sh)
+                                           for sh in shapes)),
+                          torch.zeros((n, 3), dtype=torch.int32))
+    assert ring.host_size == int(ring.size)
+    for seed in range(4):
+        got = replay_indices(ring, batch, torch.Generator().manual_seed(seed))
+        want = replay_indices_before(ring, batch,
+                                     torch.Generator().manual_seed(seed))
+        assert torch.equal(got, want), seed
+        if ring.host_size >= batch:
+            stale = ring._replace(host_size=ring.capacity)
+            assert torch.equal(replay_indices(
+                stale, batch, torch.Generator().manual_seed(seed)), want)
 
 
 # ------------------------------------------------------------ checkpoint

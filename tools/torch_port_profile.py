@@ -2,7 +2,7 @@
 ``--train``, its training path) spends its time on one NVIDIA GPU.
 
     python3 tools/torch_port_profile.py [--fleets 1,64,1024] [--slots 20]
-        [--train]
+        [--train] [--mode loop|scan]
 
 For each fleet count B it runs the port's ``RolloutDriver`` on
 fig5_baseline at full width with random weights (seed 0): a warm-up
@@ -17,8 +17,12 @@ a step every 10 slots); every episode starts from an empty ring, so the
 warm-up and the window are stretched to the first slot that trains (slot
 70 at B=1), and ``train_step`` alone is profiled over 10 calls on the
 timed episode's final state: host µs, device µs and CUDA launches per
-train step. Prints one JSON line per B. Needs a GPU; refuses to run
-without one.
+train step. ``--mode scan`` measures the compiled episode
+(``run(mode="scan")``, one CUDA-graph launch a slot, captured before the
+timed episode and before the window) and, in the same call and before
+it, the loop: one row per mode, with ``cudaGraphLaunch`` calls per slot.
+Prints one JSON line per B and mode. Needs a GPU; refuses to run without
+one.
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ def first_train_slot(adef, n_fleets: int) -> int:
 
 
 def measure(n_fleets: int, n_slots: int, timed_slots: int,
-            train: bool = False) -> dict:
+            train: bool = False, mode: str = "loop") -> dict:
     dev = torch.device("cuda")
     env = MECEnv(make_scenario("fig5_baseline"), device=dev)
     drv = RolloutDriver(agent_def("grle", env, device=dev), n_fleets,
@@ -60,24 +64,28 @@ def measure(n_fleets: int, n_slots: int, timed_slots: int,
     gen = torch.Generator(device=dev).manual_seed(0)
     state = drv.adef.init(gen)
     warm = first_train_slot(drv.adef, n_fleets) if train else 5
-    drv.run(gen, warm, agent_state=state)                  # warm-up
+    drv.run(gen, warm, agent_state=state, mode="loop")     # warm-up
+    if mode == "scan":                                     # capture
+        drv.run(gen, timed_slots, agent_state=state, mode=mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, _ = drv.run(gen, timed_slots, agent_state=state)
+    carry, _ = drv.run(gen, timed_slots, agent_state=state, mode=mode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     metrics = drv.metrics(carry)
 
     if train:
         n_slots = max(n_slots, warm)
+    if mode == "scan":                       # capture at the window's length
+        drv.run(gen, n_slots, agent_state=state, mode=mode)
     prof, prof_wall = profiled(
-        lambda: drv.run(gen, n_slots, agent_state=state))
+        lambda: drv.run(gen, n_slots, agent_state=state, mode=mode))
     cpu = torch.autograd.DeviceType.CPU
     phase_host = {p: sum(e.time_range.elapsed_us() for e in prof.events()
                          if e.device_type == cpu and e.name == p) / n_slots
                   for p in PHASES}
     row = {
-        "fleets": n_fleets, "train": train,
+        "fleets": n_fleets, "train": train, "mode": mode,
         "fleet_slots_per_s": n_fleets * timed_slots / wall,
         "slot_ms": wall / timed_slots * 1e3,
         "ssp": metrics["ssp"], "avg_accuracy": metrics["avg_accuracy"],
@@ -85,6 +93,8 @@ def measure(n_fleets: int, n_slots: int, timed_slots: int,
         "profiled_slots": n_slots,
         "profiled_slot_ms": prof_wall / n_slots * 1e3,
         "host_us_per_slot_by_phase": phase_host,
+        "graph_launches_per_slot": sum(
+            1 for e in prof.events() if e.name == "cudaGraphLaunch") / n_slots,
         # the phases' record_function spans are not kernels
         **device_summary(prof, prof_wall, n_slots, "slot", OUR_KERNELS,
                          spans=PHASES, top=8),
@@ -113,6 +123,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timed-slots", type=int, default=200)
     ap.add_argument("--train", action="store_true",
                     help="profile the training path (train=True)")
+    ap.add_argument("--mode", choices=("loop", "scan"), default="loop",
+                    help="scan: the compiled episode, beside the loop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_profile: needs an NVIDIA GPU", file=sys.stderr)
@@ -120,10 +132,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card_name = card()
     print(card_name)
+    modes = ("loop", "scan") if args.mode == "scan" else ("loop",)
     for b in (int(x) for x in args.fleets.split(",")):
-        row = measure(b, args.slots, args.timed_slots, args.train)
-        row["card"] = card_name
-        print(json.dumps(row), flush=True)
+        for mode in modes:
+            row = measure(b, args.slots, args.timed_slots, args.train, mode)
+            row["card"] = card_name
+            print(json.dumps(row), flush=True)
     return 0
 
 

@@ -5,7 +5,7 @@ Used by ``tools/torch_port_profile.py`` (a GRLE slot) and
 event of ``torch.profiler`` with device time; ``record_function`` spans,
 which also appear on the device under the span's name, are left out by
 name. The busy share is kernel time over the host's wall time of the
-profiled window, which ends in a synchronize and includes the profiler's
+profiled calls, which ends in a synchronize and includes the profiler's
 own overhead.
 """
 from __future__ import annotations
@@ -29,9 +29,16 @@ def device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+# torch.profiler (torch 2.11, CUDA 12.8, H100) can lose the device records
+# of the last milliseconds of work in its window, even after a synchronize
+# (tools/torch_profiler_window.py); the window stays open this long after.
+TAIL_S = 0.2
+
+
 def profiled(fn, n_calls: int = 1):
-    """Run ``fn`` ``n_calls`` times under the profiler -> (profile, wall
-    seconds of the window)."""
+    """Run ``fn`` ``n_calls`` times under the profiler, whose window stays
+    open ``TAIL_S`` after them -> (profile, wall seconds of the calls)."""
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -39,6 +46,7 @@ def profiled(fn, n_calls: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(TAIL_S)
     return prof, wall
 
 
