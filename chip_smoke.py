@@ -1,5 +1,6 @@
-"""Drive repro_torch's GRLE decision and training paths and its LM serving
-paths (dense GQA and RWKV-6) on one NVIDIA GPU and check them.
+"""Drive repro_torch's GRLE decision and training paths, its LM serving
+paths (dense GQA and RWKV-6) and its serving engines on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,35 @@ order, each fatal on failure:
    loop's bit for bit and its loss EMA within 1e-5 relative, the counters
    agree with the trace, and telemetry on and off give the same
    decisions, rewards and params; scan slot ms with telemetry on and off;
-20. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+20. serving golden replay: ``tests/data/torch_serve_golden.npz`` (a JAX
+   ``EdgeServingEngine`` run, reduced Qwen in f32, 12 slots of explicit
+   and arrival-driven requests with decoding and one train step, with its
+   draws) through the port's engine with the draws injected: every slot's
+   assignments and generated tokens equal, rewards within 1e-5 and the
+   loss within 1e-5 relative, the final params within TRAIN_PARAM_TOL;
+21. serving at full width: Llama-3.2-1B (bf16, random weights from seed
+   0) behind ``EdgeServingEngine`` (replicas fast-pod 1.0 and slow-pod
+   0.5, 8 batch slots, a 256-row cache, GRLE with ring 32, minibatch 8, a
+   train step every 5 slots), 30 slots of 8 requests (prompts of 16..64
+   tokens, 16 new) with decoding: launches exactly gcn_agg 4 and
+   edge_score 1 per slot plus as many per train step, decode_attention
+   exit x (longest prompt + 16) per exit group; finite losses; slot ms
+   with and without decoding; the telemetry summary; the five actor
+   launches of this engine (M=8, O=8; its workload's tasks, its live
+   state, its trained params) at B=1 and the minibatch B=8, forward (TOL)
+   and every input's gradient (GRAD_RTOL/GRAD_ATOL) against the plain
+   versions, and decode_attention at each exit group's batch size, at
+   the first and the longest position's lengths, against its plain
+   version (ATTN_TOL). Then ``ContinuousServingEngine`` (batch 32, no LM:
+   its rates are the scheduling plane's, the agent and the env step)
+   drains a ``make_trace`` of 64 users over 200 dyn_bursty slots: the
+   counter law exact, steps/s, requests/s, gcn_agg 4 per step and per
+   train step, and its actor launches (M=32) checked as the sync
+   engine's; and for 50 steps
+   of that trace the async engine's assignments equal a sync engine's
+   from the same seed, params within TRAIN_PARAM_TOL. Each serving phase
+   prints its wall seconds;
+22. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -252,6 +281,16 @@ FIRST_DESIGN_US = {
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
+# serving: the golden run's engine (tools/make_torch_port_golden.py's
+# SERVE_* constants), and the full-width engines: ring 32, minibatch 8, a
+# train step every 5 slots, so training falls inside the phase
+SERVE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_serve_golden.npz")
+SERVE_ARCH, SERVE_REPLICAS = "qwen1_5_0_5b", (("a", 1.0), ("b", 0.7))
+SERVE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5,
+                      n_candidates=8)
+ENGINE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5)
+ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 30, 16
+ASYNC_B, ASYNC_USERS, ASYNC_SLOTS, EQUIV_STEPS = 32, 64, 200, 50
 
 
 def phase(n, title):
@@ -1297,17 +1336,25 @@ def _dicts(tree):
             yield from _dicts(v)
 
 # ------------------------------------------------------------ actor kernels
-def actor_cases(env, params, gen, b):
+def actor_cases(env, params, gen, b, *, workload=None, state=None):
     """The five actor launches of one slot at B = b fleets, on inputs of
     the main path (a fresh slot's graph; layer 2 on layer 1's plain
-    output): (kernel, launch, args, wrapper, plain version, (bytes, flops))."""
+    output): (kernel, launch, args, wrapper, plain version, (bytes, flops)).
+    A serving engine's path passes its ``workload`` (the slot's tasks come
+    from its arrival process) and its live MECState, which every graph
+    shares."""
     from repro_torch.core import gcn
     from repro_torch.core.graph import build_graph
     from repro_torch.kernels import edge_score as edge_mod
     from repro_torch.kernels import gcn_agg as gcn_mod
     from repro_torch.kernels import ref
-    tasks = env.sample_slot(gen, (b,))
-    g = build_graph(env.observe(env.reset((b,)), tasks), env.N, env.L)
+    if workload is None:
+        tasks = env.sample_slot(gen, (b,))
+    else:
+        _, tasks = workload.sample(workload.init(gen, batch=(b,)), gen)
+    state = (env.reset((b,)) if state is None else
+             type(state)(*(x.expand((b,) + x.shape) for x in state)))
+    g = build_graph(env.observe(state, tasks), env.N, env.L)
     adj, adj_t = g.adj, g.adj.transpose(-1, -2)
     split = gcn._split
     fs, fo = g.device_feat.shape[-1], g.option_feat.shape[-1]
@@ -1378,43 +1425,48 @@ def close_excess(got, want, rtol, atol) -> float:
     return float(((got - want).abs() - (atol + rtol * want.abs())).max())
 
 
+def grad_err(dev, kernel, name, args, plain, gen, label) -> float:
+    """Every input's gradient of one actor launch against autograd of its
+    plain version: the kernel's forward with the hand-written backward
+    against PyTorch's own differentiation of ref.*_ref, for one random
+    cotangent. Fatal beyond GRAD_RTOL/GRAD_ATOL; returns the largest
+    error."""
+    from repro_torch.kernels import ops
+    op = getattr(ops, kernel)
+    xs = [a.detach().clone().requires_grad_() for a in args]
+    ys = [a.detach().clone().requires_grad_() for a in args]
+    if kernel == "gcn_agg" and not args[0].is_contiguous():
+        # the option side's transposed adjacency view, as in the path
+        xs[0] = args[0].detach().transpose(-1, -2).clone() \
+            .requires_grad_().transpose(-1, -2)
+    before = ops.launch_counts()[kernel]
+    out = op(*xs)
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    got = torch.autograd.grad((out * cot).sum(), xs)
+    want = torch.autograd.grad((plain(*ys) * cot).sum(), ys)
+    torch.cuda.synchronize()
+    if ops.launch_counts()[kernel] != before + 1:
+        raise SystemExit(f"grad {kernel} {name}: the kernel did not run")
+    errs = [(float((g - w).abs().max()),
+             close_excess(g, w, GRAD_RTOL, GRAD_ATOL))
+            for g, w in zip(got, want)]
+    print(f"  {kernel:10s} {name:14s} {label} max abs grad error per input "
+          f"{[f'{e:.2e}' for e, _ in errs]}", flush=True)
+    for i, (e, excess) in enumerate(errs):
+        if not excess <= 0:
+            raise SystemExit(f"grad {kernel} {name} {label} input {i}: max "
+                             f"abs error {e}, beyond rtol {GRAD_RTOL} atol "
+                             f"{GRAD_ATOL}")
+    return max(e for e, _ in errs)
+
+
 def grad_phase(dev, env, params, gen):
     """(a) Every input's gradient of each actor kernel, at the training
     minibatch (64 graphs of a fresh slot, full width), against autograd of
-    its plain version: the kernel's forward with the hand-written
-    backward against PyTorch's own differentiation of ref.*_ref, for one
-    random cotangent. Returns the largest error."""
-    from repro_torch.kernels import ops
-    worst = 0.0
-    for kernel, name, args, _, plain, _ in actor_cases(env, params, gen,
-                                                       N_FLEETS):
-        op = getattr(ops, kernel)
-        xs = [a.detach().clone().requires_grad_() for a in args]
-        ys = [a.detach().clone().requires_grad_() for a in args]
-        if kernel == "gcn_agg" and not args[0].is_contiguous():
-            # the option side's transposed adjacency view, as in the path
-            xs[0] = args[0].detach().transpose(-1, -2).clone() \
-                .requires_grad_().transpose(-1, -2)
-        before = ops.launch_counts()[kernel]
-        out = op(*xs)
-        cot = torch.randn(out.shape, generator=gen, device=dev)
-        got = torch.autograd.grad((out * cot).sum(), xs)
-        want = torch.autograd.grad((plain(*ys) * cot).sum(), ys)
-        torch.cuda.synchronize()
-        if ops.launch_counts()[kernel] != before + 1:
-            raise SystemExit(f"grad {kernel} {name}: the kernel did not run")
-        errs = [(float((g - w).abs().max()),
-                 close_excess(g, w, GRAD_RTOL, GRAD_ATOL))
-                for g, w in zip(got, want)]
-        print(f"  {kernel:10s} {name:14s} B={N_FLEETS} max abs grad error "
-              f"per input {[f'{e:.2e}' for e, _ in errs]}", flush=True)
-        for i, (e, excess) in enumerate(errs):
-            if not excess <= 0:
-                raise SystemExit(f"grad {kernel} {name} input {i}: max abs "
-                                 f"error {e}, beyond rtol {GRAD_RTOL} atol "
-                                 f"{GRAD_ATOL}")
-            worst = max(worst, e)
-    return worst
+    its plain version (grad_err). Returns the largest error."""
+    return max(grad_err(dev, kernel, name, args, plain, gen, f"B={N_FLEETS}")
+               for kernel, name, args, _, plain, _ in actor_cases(
+                   env, params, gen, N_FLEETS))
 
 
 def golden_phase(dev, mode):
@@ -1890,6 +1942,283 @@ def compiled_episode_phase(dev, adef):
     return slot
 
 
+# ------------------------------------------------------------- serving
+def serve_engine_from(data, dev):
+    """The port's EdgeServingEngine as tests/data/torch_serve_golden.npz
+    records the JAX one: reduced Qwen in f32 with lm_params_numpy weights,
+    the run's initial agent params and exit mask, the exit table from the
+    stored roofline figures, and every draw of the run injected."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import agent_state_from_params
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.mec import SlotTasks
+    from repro_torch.serve import EdgeServingEngine, Replica, ServeDraws
+    cfg = get_arch(SERVE_ARCH, reduced=True)
+    eng = EdgeServingEngine(
+        cfg, [Replica(n, s) for n, s in SERVE_REPLICAS],
+        scheduler=str(data["scheduler"]), batch_slots=len(
+            data["assign_replica"][0]), seed=int(data["seed"]),
+        workload="mmpp", scenario="dyn_bursty", agent_kw=SERVE_AGENT_KW,
+        profile_kw={k: float(data[f"profile/{k}"])
+                    for k in ("peak_flops", "hbm_bw")}, device=dev)
+    eng.params = lm_params_from_numpy(
+        lm_params_numpy(cfg, int(data["lm_seed"])), cfg, dev)
+    eng.set_agent_state(agent_state_from_params(
+        eng.agent_def, tree_of(data, "init_params"), data["exit_mask"]))
+    takes = dict(zip(data["train_steps"].tolist(), data["replay_take"]))
+    eng.inject_draws(
+        ServeDraws(SlotTasks(*(torch.tensor(data[f"tasks/{f}"][t])
+                               for f in TASK_FIELDS)),
+                   torch.tensor(data["rand_cands"][t].astype(np.int64)),
+                   None if t not in takes else torch.tensor(takes[t]))
+        for t in range(len(data["schedule"])))
+    return eng
+
+
+def serve_golden_phase(dev):
+    """20. tests/data/torch_serve_golden.npz (a JAX EdgeServingEngine run
+    with its draws: 12 slots, explicit and arrival-driven requests,
+    decoding, one train step) through the port's engine on the card:
+    assignments and generated tokens equal, rewards and losses within
+    1e-5 relative, final params within TRAIN_PARAM_TOL."""
+    from repro_torch.kernels import ops
+    with np.load(SERVE_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    eng = serve_engine_from(gold, dev)
+    names = [n for n, _ in SERVE_REPLICAS]
+    ops.reset_launch_counts()
+    same_assign = same_text = 0
+    reward_err = loss_err = 0.0
+    for i, n in enumerate(gold["schedule"].tolist()):
+        reqs = None if n < 0 else [eng.make_request() for _ in range(n)]
+        count = int(eng.agent_state.loss_count)
+        assignments, info = eng.serve_slot(reqs, decode=True)
+        want = [(names[r], int(e)) for r, e in zip(
+            gold["assign_replica"][i], gold["assign_exit"][i]) if r >= 0]
+        texts = [list(map(int, gold["texts"][i, j]))
+                 for j in range(len(want))]
+        same_assign += assignments == want
+        same_text += (info["texts"] or []) == texts
+        reward_err = max(reward_err, abs(info["reward"] - gold["reward"][i])
+                         / max(abs(gold["reward"][i]), 1e-6))
+        if int(eng.agent_state.loss_count) > count:
+            loss = float(eng.agent_state.last_loss)
+            loss_err = max(loss_err, abs(loss - gold["loss"][i])
+                           / abs(gold["loss"][i]))
+        elif np.isfinite(gold["loss"][i]):
+            raise SystemExit(f"serve golden: slot {i} took no train step")
+    excess, diff = -math.inf, 0.0
+    for layer, leaves in tree_of(gold, "final/params").items():
+        for name, want in leaves.items():
+            got = eng.agent_state.params[layer][name]
+            w = torch.tensor(want, device=dev)
+            excess = max(excess, close_excess(got, w, *TRAIN_PARAM_TOL))
+            diff = max(diff, float((got - w).abs().max()))
+    t = len(gold["schedule"])
+    print(f"slots with equal assignments {same_assign}/{t}, equal generated "
+          f"tokens {same_text}/{t}; max reward error {reward_err:.3e} "
+          f"(relative), loss {loss_err:.3e}; final params max |diff| "
+          f"{diff:.3e}; launches {ops.launch_counts()}")
+    if (same_assign != t or same_text != t or not reward_err <= 1e-5
+            or not loss_err <= TRAIN_LOSS_RTOL or not excess <= 0):
+        raise SystemExit("serve golden: the port's engine differs from the "
+                         "JAX run")
+
+
+def serve_actor_check(dev, eng, label):
+    """The five actor launches of ``eng``'s path (its env: M = its batch
+    slots, O = N*L; its workload's tasks, its live MECState and its agent
+    params) at B=1 (a decision) and at the training minibatch, each
+    wrapper against its plain version (TOL) and each gradient against
+    autograd of the plain version (grad_err). Fatal on any difference."""
+    adef = eng.agent_def
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b in (1, adef.batch_size):
+        for kernel, name, args, fn, plain, _ in actor_cases(
+                eng.env, eng.agent_state.params, gen, b,
+                workload=eng._workload, state=eng.mec_state):
+            err = float((fn(*args) - plain(*args)).abs().max())
+            torch.cuda.synchronize()
+            print(f"  {kernel:10s} {name:14s} {label} M={eng.env.M} "
+                  f"O={eng.env.N * eng.env.L} B={b} max_abs_err {err:.3e}",
+                  flush=True)
+            if not err <= TOL:
+                raise SystemExit(f"serve {label} {kernel} {name} B={b}: max "
+                                 f"abs error {err} above {TOL}")
+            grad_err(dev, kernel, name, args, plain, gen, f"{label} B={b}")
+
+
+def serve_decode_check(dev, cfg, groups):
+    """decode_attention at each exit group's shape of the sync path
+    (``groups``: batch size -> positions a group's _decode ran), against
+    its plain version on random cache contents, at the first and the last
+    position's lengths; ATTN_TOL, fatal."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dtype, tol = cfg.torch_dtype, ATTN_TOL[cfg.torch_dtype]
+    for b, total in sorted(groups.items()):
+        kv = (b, SERVE_CACHE, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, cfg.n_heads, cfg.head_dim), kv, kv))
+        for n in (1, total):
+            lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+            got = decode_mod.decode_attention(q, k, v, lengths).float()
+            want = ref.decode_attention_ref(q, k, v, lengths).float()
+            err = float((got - want).abs().max())
+            print(f"  decode_attention B={b} S={SERVE_CACHE} length {n} "
+                  f"max_abs_err {err:.3e}", flush=True)
+            if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+                raise SystemExit(f"serve decode_attention B={b} length {n}: "
+                                 f"kernel differs from plain by more than "
+                                 f"{tol} (rtol and atol); max abs error {err}")
+
+
+def serve_path_phase(dev):
+    """21. Serving at full width: Llama-3.2-1B (bf16, random weights from
+    seed 0) behind EdgeServingEngine, GRLE choosing replica and exit for
+    ENGINE_B requests a slot and training online; then the async engine
+    draining a dyn_bursty trace, and async against sync on the port's
+    generator."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.nn.pytree import flatten_dict
+    from repro_torch.serve import (ContinuousServingEngine,
+                                   EdgeServingEngine, Replica, Request,
+                                   make_trace)
+    cfg = get_arch(LM_ARCH)
+    replicas = [Replica("fast-pod", 1.0), Replica("slow-pod", 0.5)]
+    t0 = time.perf_counter()
+    eng = EdgeServingEngine(cfg, replicas, scheduler="grle",
+                            batch_slots=ENGINE_B, cache_len=SERVE_CACHE,
+                            seed=SEED, agent_kw=ENGINE_AGENT_KW, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.arch_id} at full width, {cfg.dtype}, exits "
+          f"{cfg.exit_layers}; replicas {[(r.name, r.speed) for r in replicas]}"
+          f"; exit table ms {np.round(eng.exit_times * 1e3, 4).tolist()}, "
+          f"deadline {eng.env.cfg.deadline_s * 1e3:.3f} ms; engine built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+
+    def requests():
+        lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                            size=ENGINE_B)
+        return [Request(tokens=rng.integers(0, cfg.vocab, int(n)).astype(
+                    np.int32), deadline_s=eng.env.cfg.deadline_s,
+                        max_new=ENGINE_NEW) for n in lens]
+
+    eng.serve_slot(requests()[:2], decode=True)       # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    want = {"gcn_agg": 0, "edge_score": 0, "flash_attention": 0,
+            "decode_attention": 0, "ssm_scan": 0}
+    walls, losses, exits, shapes = [], [], {}, {}
+    for _ in range(ENGINE_SLOTS):
+        reqs = requests()
+        due = eng.agent_def.train_due(eng.agent_state, 1)
+        t0 = time.perf_counter()
+        assignments, info = eng.serve_slot(reqs, decode=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want["gcn_agg"] += 4 + 4 * due
+        want["edge_score"] += 1 + due
+        groups = {}
+        for r, (_, e) in zip(reqs, assignments):
+            groups.setdefault(e, []).append(len(r.tokens))
+            exits[e] = exits.get(e, 0) + 1
+        want["decode_attention"] += sum(e * (max(n) + ENGINE_NEW)
+                                        for e, n in groups.items())
+        for n in groups.values():      # decode batch -> longest positions
+            shapes[len(n)] = max(shapes.get(len(n), 0), max(n) + ENGINE_NEW)
+        if due:
+            losses.append(float(eng.agent_state.last_loss))
+        if any(len(t) != ENGINE_NEW or min(t) < 0 or max(t) >= cfg.vocab
+               for t in info["texts"]):
+            raise SystemExit("serve path: generated tokens malformed")
+    counts = ops.launch_counts()
+    print(f"{ENGINE_SLOTS} slots x {ENGINE_B} requests (prompts "
+          f"{PROMPT_LENS[0]}..{PROMPT_LENS[1]} tokens, {ENGINE_NEW} new), "
+          f"decode=True: slot ms mean {np.mean(walls) * 1e3:.3f}, median "
+          f"{np.median(walls) * 1e3:.3f}, min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}; exits chosen {dict(sorted(exits.items()))}"
+          f"; {len(losses)} train steps, losses "
+          f"{[round(x, 6) for x in losses]}")
+    print(f"launches {counts}, expected {want}")
+    if counts != want:
+        raise SystemExit(f"serve path launches {counts}, expected {want}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"serve path: losses {losses}")
+    serve_actor_check(dev, eng, "sync")
+    serve_decode_check(dev, cfg, shapes)
+    walls = []
+    for _ in range(ENGINE_SLOTS):
+        reqs = requests()
+        t0 = time.perf_counter()
+        eng.serve_slot(reqs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"{ENGINE_SLOTS} slots, decode=False: slot ms mean "
+          f"{np.mean(walls) * 1e3:.3f}, median {np.median(walls) * 1e3:.3f}")
+    snap = eng.telemetry_snapshot()
+    print(f"telemetry summary {json.dumps(snap['summary'])}")
+    print(f"metrics {eng.metrics.summary()}; transfers {snap['transfers']}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the async engine draining a bursty trace
+    kw = dict(scheduler="grle", batch_slots=ASYNC_B, seed=SEED,
+              scenario="dyn_bursty", agent_kw=ENGINE_AGENT_KW, device=dev)
+    asy = ContinuousServingEngine(cfg, replicas, **kw)
+    slot = float(asy.env.cfg.slot_s)
+    trace = make_trace(n_users=ASYNC_USERS, n_slots=ASYNC_SLOTS, slot_s=slot,
+                       scenario="dyn_bursty", seed=SEED)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reports = asy.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    c, steps = asy.counts, len(reports)
+    n_train = int(asy.agent_state.loss_count)
+    law = c["admitted"] == c["served"] + c["expired"] + asy.in_flight
+    print(f"async, scheduling plane only (agent and env step, no LM): "
+          f"{len(trace)} requests from {ASYNC_USERS} users over "
+          f"{ASYNC_SLOTS} slots of {slot * 1e3:.3f} ms, batch {ASYNC_B}: "
+          f"{steps} steps in {wall:.3f} s, {steps / wall:.1f} steps/s, "
+          f"{c['served'] / wall:.1f} requests/s; counts {c}, in flight "
+          f"{asy.in_flight}; {n_train} train steps; launches {counts}")
+    snap = asy.telemetry_snapshot()
+    print(f"async telemetry summary {json.dumps(snap['summary'])}")
+    if (not law or asy.in_flight or c["admitted"] != len(trace)
+            or counts["gcn_agg"] != 4 * steps + 4 * n_train
+            or counts["edge_score"] != steps + n_train or n_train < 1):
+        raise SystemExit(f"async: counter law or launches wrong: counts {c}"
+                         f", launches {counts}, {steps} steps, {n_train} "
+                         f"train steps")
+    serve_actor_check(dev, asy, "async")
+
+    # async against sync on the port's own generator
+    asy = ContinuousServingEngine(cfg, replicas, **kw)
+    syn = EdgeServingEngine(cfg, replicas, workload="mmpp",
+                            init_model=False, **kw)
+    reports = asy.run(trace, max_steps=EQUIV_STEPS)
+    same = 0
+    for rep in reports:
+        reqs = [syn.make_request() for _ in rep["assignments"]]
+        assignments, _ = syn.serve_slot(reqs)
+        same += [(a["replica"], a["exit"])
+                 for a in rep["assignments"]] == assignments
+    pa = flatten_dict(asy.agent_state.params)
+    ps = flatten_dict(syn.agent_state.params)
+    diff = max(float((pa[k] - ps[k]).abs().max()) for k in pa)
+    excess = max(close_excess(pa[k], ps[k], *TRAIN_PARAM_TOL) for k in pa)
+    print(f"async vs sync, {len(reports)} steps: equal assignments "
+          f"{same}/{len(reports)}, {int(asy.agent_state.loss_count)} train "
+          f"steps, params max |diff| {diff:.3e}")
+    if same != len(reports) or not excess <= 0:
+        raise SystemExit("async and sync engines disagree")
+
+
 # ------------------------------------------------------------------ phases
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2059,7 +2388,18 @@ def main() -> int:
     phase(19, "the compiled episode: RolloutDriver.run(mode=\"scan\")")
     compiled_episode_phase(dev, adef)
 
-    phase(20, "summary")
+    phase(20, "serving: golden replay of a JAX EdgeServingEngine run")
+    t0 = time.perf_counter()
+    serve_golden_phase(dev)
+    print(f"phase 20 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(21, "serving at full width: Llama-3.2-1B behind GRLE, sync and "
+              "async")
+    t0 = time.perf_counter()
+    serve_path_phase(dev)
+    print(f"phase 21 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(22, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",

@@ -16,7 +16,7 @@ The reference's ``AgentState.key`` has no counterpart: every draw comes
 from a ``torch.Generator`` the caller passes (or from injected draws,
 ``rand_cands=`` and ``take=``), since torch cannot reproduce threefry.
 
-Not ported yet: the MLP actor (DROO/DROOE).
+Not ported yet: the MLP actor (DROO/DROOE; ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch.core.devreplay import (DeviceReplay, replay_add,
 from repro_torch.core.graph import MECGraph, build_graph
 from repro_torch.core.quantize import max_candidates, one_hot_candidates
 from repro_torch.device import resolve_device
+from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECEnv, MECState, SlotTasks
 from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 from repro_torch.optim import adam, apply_updates, scale_updates
@@ -99,7 +100,8 @@ class AgentDef:
     def __post_init__(self):
         if self.actor == "mlp":
             raise NotImplementedError(
-                "the MLP actor (DROO/DROOE) is not ported to repro_torch yet")
+                "the MLP actor (DROO/DROOE) is not ported to repro_torch yet "
+                "(ROADMAP queue 1 item 5)")
         if self.actor != "gcn":
             raise ValueError(f"unknown actor {self.actor!r}")
         device = resolve_device(self.device)
@@ -177,9 +179,11 @@ class AgentDef:
     def decide_with(self, params, exit_mask: torch.Tensor,
                     mec_state: MECState, tasks: SlotTasks, *,
                     generator: Optional[torch.Generator] = None,
-                    rand_cands: Optional[torch.Tensor] = None):
+                    rand_cands: Optional[torch.Tensor] = None,
+                    sp: Optional[ScenarioParams] = None):
         """Fused actor + critic pass for ``batch`` networks (the leading
-        axes of ``mec_state``'s leaves).
+        axes of ``mec_state``'s leaves); ``sp`` overrides the env's
+        scenario knobs in observe and evaluate (None: the env's own).
 
         The K = ``n_random`` exploration candidates are ``rand_cands``
         (``batch + (K, M)``, injected — the tests feed the reference's
@@ -188,7 +192,7 @@ class AgentDef:
         Returns (decision ``batch + (M,)`` int32, q_best ``batch``, graph).
         """
         env = self.env
-        obs = env.observe(mec_state, tasks)
+        obs = env.observe(mec_state, tasks, sp)
         g = build_graph(obs, env.N, env.L)
         x_hat, _ = self.scores(params, g, exit_mask)
         cands = one_hot_candidates(x_hat, self.n_candidates)  # [..., S, M]
@@ -200,7 +204,7 @@ class AgentDef:
                 raise ValueError(f"rand_cands shape {tuple(rand_cands.shape)}"
                                  f", expected {want}")
             cands = torch.cat([cands, rand_cands.to(torch.int32)], dim=-2)
-        q = env.evaluate(mec_state, tasks, cands)               # [..., S+K]
+        q = env.evaluate(mec_state, tasks, cands, sp)           # [..., S+K]
         best = torch.argmax(q, dim=-1, keepdim=True)            # first max
         decision = torch.take_along_dim(cands, best[..., None], -2)[..., 0, :]
         return decision, q.gather(-1, best)[..., 0], g
@@ -219,11 +223,12 @@ class AgentDef:
         return torch.argmax(noise, dim=-1).to(torch.int32)
 
     def decide(self, state: AgentState, mec_state: MECState,
-               tasks: SlotTasks, *, generator=None, rand_cands=None):
+               tasks: SlotTasks, *, generator=None, rand_cands=None,
+               sp: Optional[ScenarioParams] = None):
         """One slot's decision from the agent's own params and exit mask."""
         return self.decide_with(state.params, state.exit_mask, mec_state,
                                 tasks, generator=generator,
-                                rand_cands=rand_cands)
+                                rand_cands=rand_cands, sp=sp)
 
 
     # ----------------------------------------------------------------- loss
@@ -306,15 +311,17 @@ class AgentDef:
     def step(self, state: AgentState, mec_state: MECState, tasks: SlotTasks,
              *, generator: Optional[torch.Generator] = None,
              rand_cands: Optional[torch.Tensor] = None,
-             take: Optional[torch.Tensor] = None):
+             take: Optional[torch.Tensor] = None,
+             sp: Optional[ScenarioParams] = None):
         """The fused Algorithm-1 slot body for one network (unbatched
         ``mec_state``): decide, add to the replay ring, maybe train. The
         draws come from ``generator`` unless injected (``rand_cands`` [K,
-        M], ``take`` [batch_size]). The environment transition stays with
-        the caller. Returns (new state, decision [M], StepAux)."""
+        M], ``take`` [batch_size]); ``sp`` as in ``decide_with``. The
+        environment transition stays with the caller. Returns (new state,
+        decision [M], StepAux)."""
         decision, q_best, g = self.decide(state, mec_state, tasks,
                                           generator=generator,
-                                          rand_cands=rand_cands)
+                                          rand_cands=rand_cands, sp=sp)
         g1 = MECGraph(*(x[None] for x in g))
         state, loss = self.absorb(state, g1, decision[None],
                                   generator=generator, take=take)

@@ -15,7 +15,7 @@ on the same inputs the two agree to float32 rounding.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,33 +53,49 @@ class SlotResult(NamedTuple):
     t_cmp: torch.Tensor         # [..., M]
 
 
-def _uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=device)
+def _scale(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Uniforms in [0, 1) mapped onto [lo, hi)."""
     return lo + (hi - lo) * u
+
+
+def _uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
+    return _scale(torch.rand(shape, generator=gen, device=device), lo, hi)
+
+
+class SlotUniforms(NamedTuple):
+    """The raw uniforms in [0, 1) behind ``assemble_slot``'s four draws
+    (the injection seam: the tests feed the reference's here)."""
+    size: torch.Tensor       # [..., M]
+    csi: torch.Tensor        # [..., M, N]
+    jitter: torch.Tensor     # [..., N, L]
+    connect: torch.Tensor    # [..., M, N]
 
 
 def assemble_slot(sp: ScenarioParams, m: int, *, rate_true: torch.Tensor,
                   capacity: torch.Tensor, active: torch.Tensor,
-                  generator: torch.Generator) -> SlotTasks:
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[SlotUniforms] = None) -> SlotTasks:
     """Finish a slot draw from given rates/capacity/active mask.
 
     Task sizes, CSI-error estimates, inference jitter and connectivity
-    (with the never-lose-every-link fallback), drawn from ``generator``
-    for the leading batch axes of ``rate_true`` ([..., M, N]).
+    (with the never-lose-every-link fallback), for the leading batch axes
+    of ``rate_true`` ([..., M, N]): from the uniforms ``draws`` when
+    given, else drawn from ``generator`` in that order.
     """
     n, l = sp.exit_times_s.shape
     batch = rate_true.shape[:-2]
     dev = rate_true.device
-    size_bits = _uniform(generator, batch + (m,), sp.task_kb[0],
-                         sp.task_kb[1], dev) * 8e3             # KB -> bits
-    eps = _uniform(generator, batch + (m, n), -sp.csi_error, sp.csi_error, dev)
+    if draws is None:
+        draws = SlotUniforms(*(torch.rand(batch + shape, generator=generator,
+                                       device=dev)
+                            for shape in ((m,), (m, n), (n, l), (m, n))))
+    size_bits = _scale(draws.size, sp.task_kb[0], sp.task_kb[1]) * 8e3  # bits
+    eps = _scale(draws.csi, -sp.csi_error, sp.csi_error)
     rate_est = rate_true * (1.0 + eps)
-    jit = _uniform(generator, batch + (n, l), -sp.inference_jitter,
-                   sp.inference_jitter, dev)
+    jit = _scale(draws.jitter, -sp.inference_jitter, sp.inference_jitter)
     cmp_base = sp.exit_times_s / capacity[..., :, None]
     cmp_true = cmp_base * (1.0 + jit)
-    connect = (torch.rand(batch + (m, n), generator=generator, device=dev)
-               >= sp.connectivity_drop).to(torch.float32)
+    connect = (draws.connect >= sp.connectivity_drop).to(torch.float32)
     # never let a device lose every link
     has_link = connect.sum(-1, keepdim=True) > 0
     connect = torch.where(has_link, connect, torch.ones_like(connect))
@@ -109,6 +125,10 @@ class MECEnv:
         self.params: ScenarioParams = cfg.scenario_params(self.device)
         self.exit_acc = self.params.exit_acc
 
+    def _sp(self, sp: Optional[ScenarioParams]) -> ScenarioParams:
+        """``sp``, or this env's own knobs for None."""
+        return self.params if sp is None else sp
+
     # ------------------------------------------------------------------ state
     def reset(self, batch: Tuple[int, ...] = ()) -> MECState:
         dev = self.device
@@ -120,13 +140,15 @@ class MECEnv:
 
     # ------------------------------------------------------------- task draws
     def sample_slot(self, generator: torch.Generator,
-                    batch: Tuple[int, ...] = ()) -> SlotTasks:
-        """One slot's iid task draw (paper §VI-A) for ``batch`` networks.
+                    batch: Tuple[int, ...] = (),
+                    sp: Optional[ScenarioParams] = None) -> SlotTasks:
+        """One slot's iid task draw (paper §VI-A) for ``batch`` networks,
+        knobs from ``sp`` (None: this env's own).
 
         The draws come from ``generator`` (on this env's device); they
         follow the reference's distributions, not its threefry bits.
         """
-        sp, dev = self.params, self.device
+        sp, dev = self._sp(sp), self.device
         rate_true = _uniform(generator, batch + (self.M, self.N),
                              sp.rate_mbps[0], sp.rate_mbps[1], dev) * 1e6
         capacity = _uniform(generator, batch + (self.N,),
@@ -138,11 +160,12 @@ class MECEnv:
 
     # ------------------------------------------------------------ core physics
     def _simulate(self, state: MECState, tasks: SlotTasks,
-                  decision: torch.Tensor, *, realized: bool):
+                  decision: torch.Tensor, sp: ScenarioParams, *,
+                  realized: bool):
         """One slot's queueing physics for decisions ``batch + (S, M)``
         in [0, N*L). Returns SlotResult (leaves ``batch + (S, ...)``) and
         the end-of-slot (dev_free, es_free)."""
-        cfg, sp, L = self.cfg, self.params, self.L
+        cfg, L = self.cfg, self.L
         decision = decision.long()
         n_idx = decision // L                                    # [..., S, M]
         l_idx = decision % L
@@ -214,17 +237,20 @@ class MECEnv:
 
     # ------------------------------------------------------------- public API
     def evaluate(self, state: MECState, tasks: SlotTasks,
-                 decisions: torch.Tensor) -> torch.Tensor:
+                 decisions: torch.Tensor,
+                 sp: Optional[ScenarioParams] = None) -> torch.Tensor:
         """Reward Q for candidate decisions ``batch + (S, M)`` (Eq 15
         critic) from the *estimated* quantities -> ``batch + (S,)``."""
-        res, _ = self._simulate(state, tasks, decisions, realized=False)
+        res, _ = self._simulate(state, tasks, decisions, self._sp(sp),
+                                realized=False)
         return res.reward
 
-    def step(self, state: MECState, tasks: SlotTasks, decision: torch.Tensor):
+    def step(self, state: MECState, tasks: SlotTasks, decision: torch.Tensor,
+             sp: Optional[ScenarioParams] = None):
         """Realize decisions ``batch + (M,)``; returns (new_state,
         SlotResult)."""
         res, (dev_free, es_free) = self._simulate(
-            state, tasks, decision.unsqueeze(-2), realized=True)
+            state, tasks, decision.unsqueeze(-2), self._sp(sp), realized=True)
         result = SlotResult(res.reward.squeeze(-1),
                             *(x.squeeze(-2) for x in res[1:]))
         new_state = MECState(dev_free=dev_free.squeeze(-2),
@@ -233,7 +259,8 @@ class MECEnv:
         return new_state, result
 
     # ------------------------------------------------------------ observation
-    def observe(self, state: MECState, tasks: SlotTasks) -> dict:
+    def observe(self, state: MECState, tasks: SlotTasks,
+                sp: Optional[ScenarioParams] = None) -> dict:
         """Feature views used by the agents (normalized, estimate-side).
 
         Returns dict with:
@@ -244,7 +271,7 @@ class MECEnv:
           edge_rate [..., M, N] — normalized rate estimate per link
           connect [..., M, N]
         """
-        cfg, sp = self.cfg, self.params
+        cfg, sp = self.cfg, self._sp(sp)
         batch = state.slot.shape
         gen_time = (state.slot.to(torch.float32) * cfg.slot_s)[..., None]
         inv_dl = 1.0 / sp.deadline_s

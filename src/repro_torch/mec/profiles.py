@@ -1,7 +1,11 @@
-"""Early-exit accuracy/latency profile: the paper's Table I.
+"""Early-exit accuracy/latency profiles: the paper's Table I and an
+analytic one for decoder LMs.
 
-Counterpart of ``repro/mec/profiles.py`` (Table I part only; the analytic
-roofline profiles there rest on TPU constants and are not ported).
+Counterpart of ``repro/mec/profiles.py``. ``llm_exit_profile`` models the
+serving replica by its roofline figures, keyword arguments whose defaults
+are the NVIDIA H100 SXM's published ones (dense bf16 FLOP/s, HBM bytes/s),
+so with default arguments the exit table is this card's. The VGG-16
+roofline profile of the reference is not ported.
 """
 from __future__ import annotations
 
@@ -26,3 +30,44 @@ def exit_profile_gpu():
     times_ms = np.stack(
         [VGG16_TABLE_I["ms_rtx2080ti"], VGG16_TABLE_I["ms_gtx1080ti"]])
     return times_ms * 1e-3, VGG16_TABLE_I["accuracy"].copy()
+
+
+# NVIDIA H100 SXM, published: dense bf16 tensor-core FLOP/s, HBM3 bytes/s.
+H100_PEAK_BF16_FLOPS = 989e12
+H100_HBM_BW = 3.35e12
+# fixed per-step overhead of a decode step, seconds (the reference's)
+STEP_OVERHEAD_S = 50e-6
+
+
+def llm_exit_profile(n_layers: int, d_model: int, d_ff: int, vocab: int,
+                     exits: tuple, *, n_chips: int = 1,
+                     seq_len: int = 1, kv_len: int = 4096,
+                     quality_floor: float = 0.72, quality_ceil: float = 0.95,
+                     peak_flops: float = H100_PEAK_BF16_FLOPS,
+                     hbm_bw: float = H100_HBM_BW):
+    """Analytic early-exit profile for a decoder-only transformer.
+
+    * latency(exit) from the decode-step roofline of a replica with
+      ``peak_flops`` FLOP/s and ``hbm_bw`` bytes/s per card (bf16 weights
+      and K/V up to that layer, plus the LM head), the larger of the
+      memory and compute terms plus ``STEP_OVERHEAD_S`` a step;
+    * quality(exit) from the log-depth early-exit scaling of the
+      multi-exit literature (deeper exits saturate, as in the paper's
+      Fig. 3).
+
+    Returns (times_s [1, len(exits)], quality [len(exits)]).
+    """
+    exits = np.asarray(exits)
+    per_layer_params = 4 * d_model * d_model + 3 * d_model * d_ff
+    bytes_per_layer = 2.0 * per_layer_params            # bf16 weights
+    kv_bytes_per_layer = 2 * 2.0 * kv_len * d_model     # K and V, bf16 (MHA upper bound)
+    head_bytes = 2.0 * d_model * vocab
+    cum_bytes = exits * (bytes_per_layer + kv_bytes_per_layer) + head_bytes
+    t_mem = cum_bytes / (hbm_bw * n_chips)
+    cum_flops = seq_len * 2.0 * (exits * per_layer_params + d_model * vocab)
+    t_comp = cum_flops / (peak_flops * n_chips)
+    times = np.maximum(t_mem, t_comp) + STEP_OVERHEAD_S
+    # saturating quality curve in depth (the paper's Fig 3 shape)
+    frac = np.log1p(exits) / np.log1p(n_layers)
+    quality = quality_floor + (quality_ceil - quality_floor) * frac
+    return times[None, :], quality

@@ -1,9 +1,10 @@
 """Named experiment scenarios — one per paper figure (§VI-D).
 
 Counterpart of ``repro/mec/scenarios.py`` (named scenarios only; the
-scenario spaces come later). The ``poisson``/``mmpp`` entries are listed
-so names line up with the reference, but ``make_scenario`` refuses them
-until ``rollout/workloads.py`` has those arrival processes.
+scenario spaces come later). The ``dyn_*`` entries with a ``poisson`` or
+``mmpp`` workload run through ``rollout/workloads.py`` (the serving
+engines and the load generator); ``RolloutDriver`` still takes ``iid``
+scenarios only.
 """
 from __future__ import annotations
 
@@ -15,10 +16,6 @@ def make_scenario(name: str, *, n_devices: int = 14, slot_ms: float = 30.0,
     base = dict(n_devices=n_devices, slot_s=slot_ms * 1e-3, early_exit=early_exit)
     base.update(SCENARIOS[name])
     base.update(overrides)
-    if base.get("workload", "iid") != "iid":
-        raise NotImplementedError(
-            f"scenario {name!r} uses the {base['workload']!r} workload, which "
-            f"repro_torch does not port yet; iid scenarios: {IID_SCENARIOS}")
     return MECConfig(**base)
 
 
@@ -46,5 +43,4 @@ SCENARIOS = {
 
 # Scenario families, in paper order.
 PAPER_FIGURES = ("fig5_baseline", "fig6_capacity", "fig7_jitter", "fig8_csi")
-IID_SCENARIOS = tuple(n for n, kw in SCENARIOS.items()
-                      if kw.get("workload", "iid") == "iid")
+DYNAMIC_SCENARIOS = tuple(n for n in SCENARIOS if n.startswith("dyn_"))

@@ -1,8 +1,9 @@
-"""Observability (PyTorch port): the device-resident telemetry registry.
+"""Observability (PyTorch port): the device-resident telemetry registry,
+JSONL run logs and the run-history store.
 
-Counterpart of ``repro/obs/telemetry.py``. The rest of the reference's
-``obs/`` (compile tracking, profiler hooks, run logs, history, regression
-verdicts, cost attribution) is not ported yet.
+Counterparts of ``repro/obs/telemetry.py``, ``log.py`` and
+``history.py``. The rest of the reference's ``obs/`` (compile tracking,
+profiler hooks, regression verdicts, cost attribution) is not ported yet.
 """
 from repro_torch.obs.telemetry import (
     LATENCY_BINS,
@@ -27,6 +28,9 @@ from repro_torch.obs.telemetry import (
     telemetry_summary,
     telemetry_update,
 )
+from repro_torch.obs.log import RunLog, json_safe, read_events, run_manifest
+from repro_torch.obs.history import (HistoryStore, default_store,
+                                     history_manifest)
 
 __all__ = [
     "Histogram", "Telemetry",
@@ -37,4 +41,6 @@ __all__ = [
     "pop_telemetry", "pop_telemetry_update",
     "ROLLOUT_COUNTERS", "SERVE_COUNTERS", "POP_COUNTERS",
     "QUEUE_DEPTH_EDGES", "LATENCY_BINS", "LOSS_EMA_BETA",
+    "RunLog", "json_safe", "read_events", "run_manifest",
+    "HistoryStore", "default_store", "history_manifest",
 ]

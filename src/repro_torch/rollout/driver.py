@@ -163,6 +163,11 @@ class RolloutDriver:
         self.adef = (dataclasses.replace(adef, **overrides) if overrides
                      else adef)
         self.env = self.adef.env
+        if self.env.cfg.workload != "iid":
+            raise NotImplementedError(
+                f"RolloutDriver runs iid workloads only; the "
+                f"{self.env.cfg.workload!r} workload's fleet-batched rollouts "
+                f"(and per-fleet scenarios) are ROADMAP queue 1 item 5")
         self.vec = VecMECEnv(self.env, n_fleets)
         self.workload = make_workload(self.env)
         self.n_fleets = n_fleets
@@ -286,7 +291,8 @@ class RolloutDriver:
         a train step, its minibatch rows ``take`` (None: drawn)."""
         with record_function("sample"):
             if tasks is None:
-                tasks = self.workload.sample(gen, self.n_fleets)
+                _, tasks = self.workload.sample(None, gen,
+                                                batch=(self.n_fleets,))
         agent = carry.agent_state
         with record_function("actor"):
             decision, q_best, graphs = self.adef.decide(

@@ -42,6 +42,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.optim, repro_torch.core.devreplay\n"
             "import repro_torch.nn.pytree, repro_torch.train._msgpack\n"
             "import repro_torch.obs, repro_torch.rollout.replay\n"
+            "import repro_torch.serve, repro_torch.obs.history\n"
+            "import repro_torch.obs.log, repro_torch.launch.serve\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -57,3 +59,18 @@ def test_chip_smoke_refuses_without_a_gpu():
                        cwd=ROOT)
     assert p.returncode != 0
     assert '"ok"' not in p.stdout
+
+
+def test_launch_serve_runs_on_the_cpu():
+    """``python -m repro_torch.launch.serve --device cpu`` serves its
+    slots and prints its summary."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "qwen1_5_0_5b", "--reduced", "--slots", "2"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    assert p.returncode == 0, p.stderr
+    lines = p.stdout.splitlines()
+    assert [ln.split()[:2] for ln in lines[:2]] == [["slot", "0"],
+                                                     ["slot", "1"]]
+    assert lines[-1].startswith("summary: {'ssp': ")

@@ -180,5 +180,13 @@ def test_device_none_needs_a_gpu(monkeypatch):
 
 
 def test_poisson_scenarios_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="poisson"):
-        make_scenario("dyn_poisson")
+    """``make_scenario`` builds the poisson scenarios (the serving engines
+    run them); the fleet driver still refuses them (ROADMAP item 5)."""
+    from repro_torch.core import agent_def
+    from repro_torch.rollout import RolloutDriver
+
+    cfg = make_scenario("dyn_poisson")
+    assert cfg.workload == "poisson" and cfg.arrival_rate == 0.7
+    adef = agent_def("grle", MECEnv(cfg, device="cpu"), device="cpu")
+    with pytest.raises(NotImplementedError, match="poisson.*item 5"):
+        RolloutDriver(adef, 2, device="cpu")

@@ -1,10 +1,12 @@
-"""Write ``tests/data/torch_port_golden.npz`` and
-``tests/data/torch_port_train_golden.npz``: JAX GRLE traces with the
-random draws that produced them, for holding the PyTorch port
-(``repro_torch``) against the JAX package where JAX is not installed.
+"""Write ``tests/data/torch_port_golden.npz``,
+``tests/data/torch_port_train_golden.npz`` and
+``tests/data/torch_serve_golden.npz``: JAX GRLE traces with the random
+draws that produced them, for holding the PyTorch port (``repro_torch``)
+against the JAX package where JAX is not installed.
 
     PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
-        [--train-out PATH] [--only decision|train]
+        [--train-out PATH] [--serve-out PATH]
+        [--only decision|train|serve]
 
 Runs on the CPU with JAX only. The decision file:
 
@@ -32,6 +34,20 @@ slot the decisions, q_est and margins of a replay that trains as the
 driver does, each step's loss, and the params and Adam moments after the
 last step. ``tests/test_torch_rollout.py`` and ``tests/test_torch_train.py``
 check that a rebuild equals the stored files.
+
+The serving file (``build_serve``): a JAX ``EdgeServingEngine`` (reduced
+``qwen1_5_0_5b`` in float32 with ``repro_torch.core.bridge.
+lm_params_numpy`` weights from ``SERVE_LM_SEED``, replicas a/1.0 and
+b/0.7, ``batch_slots=4``, ``dyn_bursty`` MMPP arrivals, GRLE with
+``SERVE_AGENT_KW``) serving the 12 slots of ``SERVE_SCHEDULE`` (explicit
+requests or arrival-driven ones) with ``decode=True``. ``record_draws``
+records each scheduling step's tasks and the agent's key, from which
+``serve_draws`` rebuilds the exploration candidates and each train
+step's replay rows. It holds the agent's initial params and exit mask,
+the draws, the exit table's roofline figures, and per slot the
+assignments, reward, loss and generated tokens, with the final params
+and the §VI-D summary. ``tests/test_torch_serve.py`` checks that a
+rebuild equals it.
 """
 from __future__ import annotations
 
@@ -60,6 +76,16 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
 SCENARIO, TRAIN_SEED, TRAIN_FLEETS, TRAIN_SLOTS = "fig5_baseline", 0, 4, 200
 EVAL_SEED, N_FLEETS, N_SLOTS = 1, 4, 32
 TRAIN_EP_SEED, TRAIN_EP_SLOTS = 2, 64
+SERVE_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_serve_golden.npz")
+SERVE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5,
+                      n_candidates=8)
+SERVE_ARCH, SERVE_SEED, SERVE_LM_SEED, SERVE_BATCH = "qwen1_5_0_5b", 0, 0, 4
+SERVE_REPLICAS = (("a", 1.0), ("b", 0.7))
+# per slot: the number of explicit requests, or -1 for arrival-driven
+SERVE_SCHEDULE = (4, -1, 2, 3, -1, 4, 1, -1, 4, 3, -1, 2)
+SERVE_NEW = 8          # make_request's max_new
+SUMMARY_KEYS = ("ssp", "avg_accuracy", "throughput_tps", "avg_reward",
+                "tasks")
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
 
@@ -325,14 +351,147 @@ def load(path: str = GOLDEN) -> dict:
     return data
 
 
+# ------------------------------------------------------------------ serving
+def serve_engine(scheduler: str = "grle", kind: str = "sync", **kw):
+    """A JAX serving engine as the serve golden and tests build it; the
+    sync one with ``lm_params_numpy`` weights."""
+    from repro.configs import get_arch
+    from repro.serve import ContinuousServingEngine, EdgeServingEngine, Replica
+    from repro_torch.core.bridge import lm_params_numpy
+
+    cfg = get_arch(SERVE_ARCH, reduced=True)
+    kw = dict(dict(scheduler=scheduler, batch_slots=SERVE_BATCH,
+                   seed=SERVE_SEED, workload="mmpp", scenario="dyn_bursty",
+                   agent_kw=SERVE_AGENT_KW), **kw)
+    replicas = [Replica(n, s) for n, s in SERVE_REPLICAS]
+    if kind != "sync":
+        return ContinuousServingEngine(cfg, replicas, **kw)
+    eng = EdgeServingEngine(cfg, replicas, **kw)
+    eng.params = jax.tree_util.tree_map(
+        jnp.asarray, lm_params_numpy(cfg, SERVE_LM_SEED))
+    return eng
+
+
+def record_draws(eng) -> list:
+    """Wrap a JAX engine's workload sample and agent step so that every
+    scheduling step appends {"tasks" (before the occupancy overlay),
+    "key", "size", "step"}: the agent's RNG key, replay size and slot
+    count as the step finds them."""
+    rec = []
+    sample, step = eng._workload.sample, eng._agent_step
+
+    def rec_sample(state, key, sp=None):
+        state, tasks = sample(state, key, sp)
+        rec.append({"tasks": tasks})
+        return state, tasks
+
+    def rec_step(state, mec_state, tasks, key=None, sp=None):
+        rec[-1].update(key=state.key, size=int(state.replay.size),
+                       step=int(state.step))
+        return step(state, mec_state, tasks, key, sp)
+
+    eng._workload.sample = rec_sample
+    eng._agent_step = rec_step
+    return rec
+
+
+def serve_draws(eng, rec) -> dict:
+    """The recorded steps' draws as the port injects them: tasks leaves
+    [T, ...], the exploration candidates [T, K, M] (``AgentDef.step``
+    splits the state's key and draws Gumbel noise over the allowed
+    options, ``decide_with``) and each train step's replay rows
+    [n_train, batch_size] at the steps ``train_steps``."""
+    adef = eng.agent_def
+    env = adef.env
+    mask = jnp.asarray(eng.agent_state.exit_mask)
+    rand, takes, train_steps = [], [], []
+    for t, r in enumerate(rec):
+        new_key, key = jax.random.split(r["key"])
+        g_mask = jnp.repeat(r["tasks"].connect, env.L, axis=-1)
+        allowed = (mask[None, :] > 0.5) & (g_mask > 0.5)
+        gumbel = jax.random.gumbel(key, (adef.n_random, *allowed.shape))
+        rand.append(np.asarray(jnp.argmax(
+            jnp.where(allowed[None], gumbel, -jnp.inf), axis=-1)))
+        size = min(r["size"] + 1, adef.buffer_size)
+        if (r["step"] + 1) % adef.train_every == 0 \
+                and size >= adef.batch_size:
+            takes.append(train_takes(adef, new_key, [size])[0])
+            train_steps.append(t)
+    out = {f"tasks/{f}": np.stack([np.asarray(getattr(r["tasks"], f))
+                                   for r in rec]) for f in TASK_FIELDS}
+    out["rand_cands"] = np.stack(rand).astype(np.int8)
+    out["replay_take"] = (np.stack(takes).astype(np.int32) if takes else
+                          np.zeros((0, adef.batch_size), np.int32))
+    out["train_steps"] = np.asarray(train_steps, np.int32)
+    return out
+
+
+def serve_run(scheduler: str = "grle") -> dict:
+    """The JAX sync engine over ``SERVE_SCHEDULE`` with decoding: the
+    golden file's arrays plus "state0" (the initial ``AgentState``,
+    numpy), "telemetry" (the snapshot), "latency_ring" and
+    "tokens_served"."""
+    from repro.mec.profiles import TPU_V5E_HBM_BW, TPU_V5E_PEAK_FLOPS
+
+    eng = serve_engine(scheduler)
+    state0 = jax.tree_util.tree_map(np.asarray, eng.agent_state)
+    rec = record_draws(eng)
+    names = [n for n, _ in SERVE_REPLICAS]
+    t, m = len(SERVE_SCHEDULE), SERVE_BATCH
+    out = {"assign_replica": np.full((t, m), -1, np.int32),
+           "assign_exit": np.full((t, m), -1, np.int32),
+           "texts": np.full((t, m, SERVE_NEW), -1, np.int32),
+           "reward": np.zeros((t,), np.float32),
+           "loss": np.full((t,), np.nan, np.float32)}
+    for i, n in enumerate(SERVE_SCHEDULE):
+        reqs = None if n < 0 else [eng.make_request() for _ in range(n)]
+        count = int(eng.agent_state.loss_count)
+        assignments, info = eng.serve_slot(reqs, decode=True)
+        for j, (name, e) in enumerate(assignments):
+            out["assign_replica"][i, j] = names.index(name)
+            out["assign_exit"][i, j] = e
+            out["texts"][i, j] = info["texts"][j]
+        out["reward"][i] = info["reward"]
+        if int(eng.agent_state.loss_count) > count:
+            out["loss"][i] = float(eng.agent_state.last_loss)
+    out.update(serve_draws(eng, rec))
+    summary = eng.metrics.summary()
+    data = {"seed": np.asarray(SERVE_SEED),
+            "lm_seed": np.asarray(SERVE_LM_SEED),
+            "scheduler": np.asarray(scheduler),
+            "schedule": np.asarray(SERVE_SCHEDULE, np.int32),
+            "profile/peak_flops": np.asarray(TPU_V5E_PEAK_FLOPS),
+            "profile/hbm_bw": np.asarray(TPU_V5E_HBM_BW),
+            "exit_mask": np.asarray(state0.exit_mask),
+            "tokens_served": np.asarray(eng.tokens_served),
+            **{f"summary/{k}": np.asarray(summary[k]) for k in SUMMARY_KEYS},
+            **out}
+    final = jax.tree_util.tree_map(np.asarray, eng.agent_state.params)
+    for prefix, tree in (("init_params", state0.params),
+                         ("final/params", final)):
+        for layer, leaves in tree.items():
+            for name, x in leaves.items():
+                data[f"{prefix}/{layer}/{name}"] = np.asarray(x)
+    extra = {"state0": state0, "telemetry": eng.telemetry_snapshot(),
+             "latency_ring": np.asarray(eng._latency_ring, np.float64)}
+    return data, extra
+
+
+def build_serve() -> dict:
+    """Everything the serving golden file holds, as a flat dict."""
+    return serve_run("grle")[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN)
     ap.add_argument("--train-out", default=TRAIN_GOLDEN)
-    ap.add_argument("--only", choices=("decision", "train"))
+    ap.add_argument("--serve-out", default=SERVE_GOLDEN)
+    ap.add_argument("--only", choices=("decision", "train", "serve"))
     args = ap.parse_args(argv)
-    jobs = {"decision": (build, args.out), "train": (build_train,
-                                                     args.train_out)}
+    jobs = {"decision": (build, args.out),
+            "train": (build_train, args.train_out),
+            "serve": (build_serve, args.serve_out)}
     for name, (fn, out) in jobs.items():
         if args.only not in (None, name):
             continue
