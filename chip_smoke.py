@@ -1,6 +1,6 @@
-"""Drive repro_torch's GRLE decision and training paths, its LM serving
-paths (dense GQA and RWKV-6) and its serving engines on one NVIDIA GPU
-and check them.
+"""Drive repro_torch's GRLE decision and training paths, the paper's
+baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
+GQA and RWKV-6) and its serving engines on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -176,9 +176,36 @@ order, each fatal on failure:
    train step, and its actor launches (M=32) checked as the sync
    engine's; and for 50 steps
    of that trace the async engine's assignments equal a sync engine's
-   from the same seed, params within TRAIN_PARAM_TOL. Each serving phase
-   prints its wall seconds;
-22. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+   from the same seed, params within TRAIN_PARAM_TOL. The sync engine
+   also serves one request longer than its cache (a 250-token prompt, 40
+   new tokens: decoded over the wrapped cache, as the reference does),
+   with exit x 290 decode_attention launches, and holds that group's
+   decode_attention at S=256 with every length at S against its plain
+   version (ATTN_TOL). Each serving phase prints its wall seconds;
+22. dynamic and baseline golden replay: ``tests/data/
+   torch_port_dyn_golden.npz`` (three JAX ``train=True`` runs, B=4,
+   T=64, ring 32, minibatch 8, a step every 5 slots: DROO on fig8_csi,
+   DROOE on dyn_bursty with the workload's raw uniforms injected, GRLE on
+   dyn_markov_channel with one sampled scenario per fleet), each first
+   teacher-forced (every decision the run's or at a recorded near-tie,
+   the env and learner then following the run's decisions: every loss
+   within TRAIN_LOSS_RTOL, the final params and moments within
+   TRAIN_PARAM_TOL), then through the port's driver in loop and in scan
+   mode, held as phase 17 holds its run up to the first near-tie flip
+   (DROO's critic meets exact ties, and there the driver's run leaves the
+   golden one), loop and scan bitwise equal;
+23. the paper's four methods at full width: GRLE, GRL, DROOE and DROO on
+   fig5_baseline's structure (M=14, N=2, L=5, ring 128, minibatch 64,
+   omega 10), B=64, T=200, train=True, scan mode, seed 0, on fig8_csi,
+   dyn_bursty and a domain-randomized fleet (one ScenarioSpace("fig5_
+   baseline", "fig8_csi") draw per fleet): ssp, avg_accuracy, slot ms,
+   the first run's warm-up and capture seconds, the GRLE/GRL and
+   GRLE/DROOE accuracy ratios (printed, not gated); from the profiler's
+   device records exactly 880 gcn_agg and 220 edge_score launches per
+   GCN run and none per MLP run; per scenario one greedy_decision on a
+   fresh slot and GRLE's q_best over the oracle's value (Fig 4's
+   normalization); the phase's wall seconds;
+24. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -291,6 +318,15 @@ SERVE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5,
 ENGINE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5)
 ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 30, 16
 ASYNC_B, ASYNC_USERS, ASYNC_SLOTS, EQUIV_STEPS = 32, 64, 200, 50
+# a request longer than the engine's cache: decoded over the wrapped cache
+WRAP_PROMPT, WRAP_NEW = 250, 40
+# dynamic and baseline golden runs (tools/make_torch_port_golden.py's DYN_*)
+DYN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_dyn_golden.npz")
+DYN_RUNS = ("droo_fig8", "drooe_bursty", "grle_space")
+DYN_KW = dict(replay_capacity=32, batch_size=8, train_every=5)
+# the paper's four methods (§VI-C) and phase 23's scenarios
+METHODS = ("grle", "grl", "drooe", "droo")
+SPACE = ("fig5_baseline", "fig8_csi")
 
 
 def phase(n, title):
@@ -1410,13 +1446,16 @@ def launch_floor_ms(dev) -> float:
 
 # --------------------------------------------------------------- training
 def tree_of(data: dict, prefix: str) -> dict:
-    """The ``{layer: {leaf: array}}`` tree a golden file stores under
-    ``prefix/``."""
+    """The nested ``{layer: ... {leaf: array}}`` tree a golden file stores
+    under ``prefix/``."""
     tree = {}
     for k in data:
         if k.startswith(prefix + "/"):
-            layer, leaf = k[len(prefix) + 1:].split("/")
-            tree.setdefault(layer, {})[leaf] = data[k]
+            *heads, leaf = k[len(prefix) + 1:].split("/")
+            node = tree
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[leaf] = data[k]
     return tree
 
 
@@ -1529,6 +1568,21 @@ def train_golden_phase(dev, mode="loop"):
         torch.tensor(gold["replay_take"], device=dev))
     carry, trace = drv.run(SEED, t_gold, mode=mode, agent_state=st,
                            draws=draws)
+    check_train_replay(gold, carry, trace, mode, "train golden")
+    return carry, trace
+
+
+def check_train_replay(gold, carry, trace, mode, label, forced=False):
+    """Phase 17's gate on a replayed ``train=True`` golden run: decisions
+    equal, or a flip only at a recorded near-tie (<= NEAR_TIE), after
+    which the comparison stops (fatal before the first train step, unless
+    ``forced``: a teacher-forced replay of the run, ``forced_replay``,
+    already held every train step); each loss before it within
+    TRAIN_LOSS_RTOL; without a flip, the final params and Adam moments
+    within TRAIN_PARAM_TOL (nu: TRAIN_NU_TOL). Returns the slots
+    compared."""
+    from repro_torch.nn.pytree import flatten_dict
+    t_gold = gold["rand_cands"].shape[0]
     dec = trace.decisions.cpu().numpy()
     same = (dec == gold["trace/decisions"]).all(-1)
     first_train = int(gold["train_slots"][0]) - 1       # slot index
@@ -1539,10 +1593,10 @@ def train_golden_phase(dev, mode="loop"):
         print(f"  slot {t} fleet {b}: q margin {gold['q_margin'][t, b]:.3e},"
               f" x_hat margin {gold['xhat_margin'][t, b]:.3e}")
         if margin > NEAR_TIE:
-            raise SystemExit(f"train golden: decision differs at slot {t} "
+            raise SystemExit(f"{label}: decision differs at slot {t} "
                              f"fleet {b}, not at a near-tie")
-    if stop <= first_train:
-        raise SystemExit(f"train golden: a decision flipped at slot {stop}, "
+    if stop <= first_train and not forced:
+        raise SystemExit(f"{label}: a decision flipped at slot {stop}, "
                          f"before the first train step (slot index "
                          f"{first_train})")
     print(f"mode={mode}: decisions matching: {int(same[:stop].sum())}/"
@@ -1551,25 +1605,35 @@ def train_golden_phase(dev, mode="loop"):
               f"; a near-tie flip at slot {stop}: the comparison stops"))
     loss, want = trace.loss.cpu().numpy()[:stop], gold["trace/loss"][:stop]
     if not (np.isnan(loss) == np.isnan(want)).all():
-        raise SystemExit("train golden: train steps at other slots")
+        raise SystemExit(f"{label}: train steps at other slots")
     ok = ~np.isnan(want)
     rel = np.abs(loss[ok] / want[ok] - 1)
     print(f"train steps compared: {int(ok.sum())}, losses "
           f"{np.round(loss[ok], 6).tolist()}, max relative error "
-          f"{float(rel.max()):.3e}")
+          f"{float(rel.max(initial=0.0)):.3e}")
     if not (rel <= TRAIN_LOSS_RTOL).all():
-        raise SystemExit(f"train golden: loss beyond {TRAIN_LOSS_RTOL}")
+        raise SystemExit(f"{label}: loss beyond {TRAIN_LOSS_RTOL}")
     if stop < t_gold:
         print("final params and moments not compared (the run left the "
               "golden one at the flip)")
-        return carry, trace
-    fin = carry.agent_state
+        return stop
+    check_final_state(gold, carry.agent_state, label)
+    return stop
+
+
+def check_final_state(gold, fin, label):
+    """A replay's final params and Adam moments against the golden run's,
+    within TRAIN_PARAM_TOL (nu: TRAIN_NU_TOL), and its Adam step."""
+    from repro_torch.nn.pytree import flatten_dict
     for name, got, tol in (("params", fin.params, TRAIN_PARAM_TOL),
                            ("mu", fin.opt_state["mu"], TRAIN_PARAM_TOL),
                            ("nu", fin.opt_state["nu"], TRAIN_NU_TOL)):
-        want_t = tree_of(gold, f"final/{name}")
-        pairs = [(got[layer][leaf].cpu(), torch.tensor(want_t[layer][leaf]))
-                 for layer in want_t for leaf in want_t[layer]]
+        want_t = flatten_dict(tree_of(gold, f"final/{name}"))
+        got_t = flatten_dict(got)
+        if set(got_t) != set(want_t):
+            raise SystemExit(f"{label}: final {name} leaves differ")
+        pairs = [(got_t[k].cpu(), torch.tensor(w))
+                 for k, w in want_t.items()]
         err = max(float((g - w).abs().max()) for g, w in pairs)
         rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
                   for g, w in pairs)
@@ -1577,11 +1641,10 @@ def train_golden_phase(dev, mode="loop"):
         print(f"final {name}: max abs error {err:.3e}, max relative "
               f"{rel:.3e} (tolerance rtol {tol[0]} atol {tol[1]})")
         if not excess <= 0:
-            raise SystemExit(f"train golden: final {name} beyond rtol "
+            raise SystemExit(f"{label}: final {name} beyond rtol "
                              f"{tol[0]} atol {tol[1]}")
     if int(fin.opt_state["step"]) != int(gold["final/opt_step"]):
-        raise SystemExit("train golden: Adam step count differs")
-    return carry, trace
+        raise SystemExit(f"{label}: Adam step count differs")
 
 
 def cuda_launches(fn) -> int:
@@ -1729,7 +1792,7 @@ def train_path_phase(dev, adef):
 SPANS = ("sample", "actor", "env_step", "train")
 
 
-def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED):
+def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED, **run_kw):
     """One episode under torch.profiler, whose window stays open
     ``PROFILER_TAIL_S`` after it: (carry, trace), the device records of
     the two actor kernels, the same per cudaGraphLaunch in launch order
@@ -1742,7 +1805,7 @@ def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = drv.run(seed, n_slots, mode=mode)
+        out = drv.run(seed, n_slots, mode=mode, **run_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(PROFILER_TAIL_S)
@@ -1942,6 +2005,216 @@ def compiled_episode_phase(dev, adef):
     return slot
 
 
+
+# ------------------------------------- dynamic fleets and the baselines
+def dyn_golden_phase(dev):
+    """22. tests/data/torch_port_dyn_golden.npz: each run (its initial
+    params, draws, minibatch rows and per-fleet scenarios) through the
+    port's driver in loop and scan mode, held by check_train_replay."""
+    from repro_torch.core import agent_def, agent_state_from_params
+    from repro_torch.mec import (MECEnv, ScenarioParams, SlotTasks,
+                                 SlotUniforms, make_scenario)
+    from repro_torch.rollout import (InitDraws, RolloutDriver, SlotDraws,
+                                     WorkloadDraws)
+    with np.load(DYN_GOLDEN) as z:
+        everything = {k: z[k] for k in z.files}
+
+    def t(x, dtype=None):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    for run in DYN_RUNS:
+        gold = {k[len(run) + 1:]: v for k, v in everything.items()
+                if k.startswith(run + "/")}
+        method, scenario = str(gold["method"]), str(gold["scenario"])
+        sp = (ScenarioParams(*(t(gold[f"sp/{f}"])
+                               for f in ScenarioParams._fields))
+              if "sp/task_kb" in gold else None)
+        rand = t(gold["rand_cands"].astype(np.int64))
+        take = t(gold["replay_take"])
+        if "init/rate" in gold:
+            wl = WorkloadDraws(
+                *(t(gold[f"wl/{f}"]) for f in WorkloadDraws._fields[:-1]),
+                SlotUniforms(*(t(gold[f"wl/slot/{f}"])
+                               for f in SlotUniforms._fields)))
+            draws = SlotDraws(None, rand, take,
+                              init=InitDraws(t(gold["init/rate"]),
+                                             t(gold["init/capacity"])),
+                              workload=wl)
+        else:
+            draws = SlotDraws(SlotTasks(*(t(gold[f"tasks/{f}"])
+                                          for f in TASK_FIELDS)), rand, take)
+        env = MECEnv(make_scenario(scenario), device=dev)
+        t_gold, b_gold = gold["rand_cands"].shape[:2]
+        drv = RolloutDriver(agent_def(method, env, device=dev), b_gold,
+                            train=True, per_fleet_scenarios=sp is not None,
+                            device=dev, **DYN_KW)
+        st = agent_state_from_params(drv.adef, tree_of(gold, "init_params"),
+                                     gold["exit_mask"])
+        print(f"{run}: {method} on {scenario} ({env.cfg.workload}"
+              + (", one scenario per fleet" if sp is not None else "")
+              + f"), B={b_gold} T={t_gold}")
+        forced_replay(gold, drv, st, draws, sp, f"dyn golden {run}")
+        traces = {}
+        for mode in ("loop", "scan"):
+            carry, trace = drv.run(SEED, t_gold, mode=mode, agent_state=st,
+                                   draws=draws, sp=sp)
+            check_train_replay(gold, carry, trace, mode, f"dyn golden {run}",
+                               forced=True)
+            traces[mode] = trace
+        same = (torch.equal(traces["loop"].decisions,
+                            traces["scan"].decisions)
+                and torch.equal(traces["loop"].reward, traces["scan"].reward))
+        print(f"  scan vs loop: decisions and rewards bitwise equal {same}")
+        if not same:
+            raise SystemExit(f"dyn golden {run}: scan and loop differ")
+
+
+def forced_replay(gold, drv, state, draws, sp, label):
+    """The golden run teacher-forced: each slot the port decides from its
+    own learner on the run's draws, and must make the run's decision or
+    differ only at a recorded near-tie (<= NEAR_TIE); then the env and
+    the learner take the run's decision (as ``RolloutDriver._slot`` does
+    with its own), so a tie cannot move the rest of the run. Every loss
+    within TRAIN_LOSS_RTOL, the final params and Adam moments as
+    check_final_state holds them. Critic ties (symmetric assignments
+    whose Q differs only by summation order) are common for DROO, whose
+    driver replay stops at the first; this holds its training whole."""
+    from repro_torch.mec import SlotTasks
+    from repro_torch.rollout.driver import _at
+    adef, env, b = drv.adef, drv.env, drv.n_fleets
+    want = torch.tensor(gold["trace/decisions"], device=state.step.device)
+    t_gold = want.shape[0]
+    env_state = env.reset((b,))
+    wl = None
+    if draws.init is not None:
+        wl = drv.workload.init(None, sp, draws=draws.init)
+    agent = adef.episode_state(state)
+    losses, flips, n_train = [], 0, 0
+    for t in range(t_gold):
+        if draws.tasks is not None:
+            tasks = SlotTasks(*(x[t] for x in draws.tasks))
+        else:
+            wl, tasks = drv.workload.sample(wl, None, sp,
+                                            draws=_at(draws.workload, t))
+        dec, _, graphs = adef.decide(agent, env_state, tasks,
+                                     rand_cands=draws.rand_cands[t], sp=sp)
+        for f in np.flatnonzero((dec != want[t]).any(-1).cpu().numpy()):
+            margin = min(gold["q_margin"][t, f], gold["xhat_margin"][t, f])
+            flips += 1
+            if margin > NEAR_TIE:
+                raise SystemExit(f"{label} (forced): decision differs at "
+                                 f"slot {t} fleet {f}, margin {margin:.3e}")
+        take = None
+        if adef.train_due(agent, b):
+            take = draws.replay_take[n_train]
+            n_train += 1
+        env_state, _ = env.step(env_state, tasks, want[t], sp)
+        agent, loss = adef.absorb(agent, graphs, want[t], take=take)
+        losses.append(float(loss))
+    loss, gold_loss = np.asarray(losses), gold["trace/loss"]
+    if not (np.isnan(loss) == np.isnan(gold_loss)).all():
+        raise SystemExit(f"{label} (forced): train steps at other slots")
+    ok = ~np.isnan(gold_loss)
+    rel = float(np.abs(loss[ok] / gold_loss[ok] - 1).max())
+    print(f"  teacher-forced: {flips} decisions differ, each at a recorded "
+          f"near-tie; {int(ok.sum())} train steps, max loss relative error "
+          f"{rel:.3e}")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise SystemExit(f"{label} (forced): loss beyond {TRAIN_LOSS_RTOL}")
+    check_final_state(gold, agent, f"{label} (forced)")
+
+
+def methods_phase(dev):
+    """23. GRLE, GRL, DROOE and DROO at full width on fig8_csi, dyn_bursty
+    and a domain-randomized fleet: B=64, T=200, train=True, scan mode on
+    the port's generator from seed 0. Per run the §VI-D metrics, slot ms
+    of a second run, the first run's seconds (warm-up and capture
+    included) and, from the profiler, the actor kernels' device launches
+    (fatal: 880 / 220 for the GCN methods, none for the MLP ones); per
+    scenario the accuracy ratios and GRLE's q_best over the greedy
+    oracle's on a fresh slot."""
+    from repro_torch.core import agent_def
+    from repro_torch.mec import (MECEnv, ScenarioParams, make_scenario,
+                                 scenario_space)
+    from repro_torch.rollout import RolloutDriver
+    t0 = time.perf_counter()
+    n_train = N_SLOTS // 10
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fleets = {
+        "fig8_csi": ("fig8_csi", None),
+        "dyn_bursty": ("dyn_bursty", None),
+        "space": ("fig5_baseline", scenario_space(
+            *SPACE, device=dev).sample_batch(gen, N_FLEETS)),
+    }
+    for label, (scenario, sp) in fleets.items():
+        env = MECEnv(make_scenario(scenario), device=dev)
+        acc, grle_state = {}, None
+        print(f"{label}: {scenario} structure ({env.cfg.workload})"
+              + (f", one {SPACE[0]}..{SPACE[1]} draw per fleet"
+                 if sp is not None else "")
+              + f", B={N_FLEETS} T={N_SLOTS}")
+        for method in METHODS:
+            adef = agent_def(method, env, device=dev)
+            drv = RolloutDriver(adef, N_FLEETS, train=True,
+                                per_fleet_scenarios=sp is not None,
+                                device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            drv.run(SEED, N_SLOTS, sp=sp)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            carry, trace = drv.run(SEED, N_SLOTS, sp=sp)
+            torch.cuda.synchronize()
+            slot_ms = (time.perf_counter() - t1) / N_SLOTS * 1e3
+            (_, p_trace), ours, _, kernels, graphs, busy = profiled_episode(
+                drv, "scan", sp=sp)
+            m = drv.metrics(carry)
+            gcn = adef.actor == "gcn"
+            want = ({"gcn_agg": 4 * (N_SLOTS + n_train),
+                     "edge_score": N_SLOTS + n_train} if gcn
+                    else {"gcn_agg": 0, "edge_score": 0})
+            acc[method] = m["avg_accuracy"]
+            print(f"  {method:5s}: ssp {m['ssp']:.6f} avg_accuracy "
+                  f"{m['avg_accuracy']:.6f} final_loss {m['final_loss']:.6f}"
+                  f"; slot {slot_ms:.3f} ms; first run {first_s:.3f} s "
+                  f"(warm-up and capture included); profiled: actor kernels"
+                  f" {ours}, {kernels / N_SLOTS:.2f} CUDA kernels and "
+                  f"{graphs / N_SLOTS:.2f} graph launches a slot, busy "
+                  f"{busy:.1%}", flush=True)
+            if ours != want or graphs != N_SLOTS:
+                raise SystemExit(f"methods {label} {method}: actor kernels "
+                                 f"{ours}, expected {want}; {graphs} graph "
+                                 f"launches for {N_SLOTS} slots")
+            if (int(m["train_steps"]) != n_train
+                    or not math.isfinite(m["final_loss"])
+                    or not 0.0 < m["ssp"] <= 1.0
+                    or not torch.isfinite(trace.reward).all()
+                    or not torch.equal(p_trace.decisions, trace.decisions)):
+                raise SystemExit(f"methods {label} {method}: output "
+                                 f"malformed or runs of one seed differ")
+            if method == "grle":
+                grle_state = (adef, carry.agent_state)
+        print(f"  accuracy ratios: GRLE/GRL {acc['grle'] / acc['grl']:.4f}, "
+              f"GRLE/DROOE {acc['grle'] / acc['drooe']:.4f}, GRLE/DROO "
+              f"{acc['grle'] / acc['droo']:.4f}")
+        # Fig 4's normalization on one fresh slot of one network
+        adef, state = grle_state
+        sp0 = None if sp is None else ScenarioParams(*(x[0] for x in sp))
+        g1 = torch.Generator(device=dev).manual_seed(SEED + 1)
+        tasks = (env.sample_slot(g1, (), sp0) if env.cfg.workload == "iid"
+                 else drv.workload.sample(drv.workload.init(g1, sp0), g1,
+                                          sp0)[1])
+        mec = env.reset()
+        _, q_best, _ = adef.decide(state, mec, tasks, generator=g1, sp=sp0)
+        oracle = env.greedy_decision(mec, tasks, sp=sp0)
+        q_oracle = env.evaluate(mec, tasks, oracle[None], sp0)[0]
+        print(f"  GRLE q_best {float(q_best):.6f} / greedy oracle "
+              f"{float(q_oracle):.6f} = {float(q_best / q_oracle):.4f} "
+              f"(M={env.M}, {int(tasks.active.sum())} active)")
+    print(f"phase 23 wall {time.perf_counter() - t0:.2f} s")
+
+
 # ------------------------------------------------------------- serving
 def serve_engine_from(data, dev):
     """The port's EdgeServingEngine as tests/data/torch_serve_golden.npz
@@ -2052,7 +2325,8 @@ def serve_decode_check(dev, cfg, groups):
     """decode_attention at each exit group's shape of the sync path
     (``groups``: batch size -> positions a group's _decode ran), against
     its plain version on random cache contents, at the first and the last
-    position's lengths; ATTN_TOL, fatal."""
+    position's lengths (at most SERVE_CACHE: a longer run wraps the cache
+    and attends every row); ATTN_TOL, fatal."""
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2061,7 +2335,7 @@ def serve_decode_check(dev, cfg, groups):
         kv = (b, SERVE_CACHE, cfg.n_kv_heads, cfg.head_dim)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, cfg.n_heads, cfg.head_dim), kv, kv))
-        for n in (1, total):
+        for n in (1, min(total, SERVE_CACHE)):
             lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
             got = decode_mod.decode_attention(q, k, v, lengths).float()
             want = ref.decode_attention_ref(q, k, v, lengths).float()
@@ -2162,6 +2436,31 @@ def serve_path_phase(dev):
     snap = eng.telemetry_snapshot()
     print(f"telemetry summary {json.dumps(snap['summary'])}")
     print(f"metrics {eng.metrics.summary()}; transfers {snap['transfers']}")
+
+    # one request longer than the cache, decoded over the wrapped cache
+    long = Request(tokens=rng.integers(0, cfg.vocab, WRAP_PROMPT).astype(
+        np.int32), deadline_s=eng.env.cfg.deadline_s, max_new=WRAP_NEW)
+    total = WRAP_PROMPT + WRAP_NEW
+    due = eng.agent_def.train_due(eng.agent_state, 1)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ((_, e),), info = eng.serve_slot([long], decode=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"gcn_agg": 4 + 4 * due, "edge_score": 1 + due,
+            "flash_attention": 0, "decode_attention": e * total,
+            "ssm_scan": 0}
+    text = info["texts"][0]
+    print(f"a {WRAP_PROMPT}-token prompt with {WRAP_NEW} new tokens "
+          f"({total} positions, cache {SERVE_CACHE} rows) at exit {e}: "
+          f"{wall * 1e3:.3f} ms, launches {counts}, expected {want}")
+    if counts != want:
+        raise SystemExit(f"wrapped request: launches {counts}, expected "
+                         f"{want}")
+    if len(text) != WRAP_NEW or min(text) < 0 or max(text) >= cfg.vocab:
+        raise SystemExit("wrapped request: generated tokens malformed")
+    serve_decode_check(dev, cfg, {1: total})
     del eng
     torch.cuda.empty_cache()
 
@@ -2399,7 +2698,16 @@ def main() -> int:
     serve_path_phase(dev)
     print(f"phase 21 wall {time.perf_counter() - t0:.2f} s")
 
-    phase(22, "summary")
+    phase(22, "dynamic and baseline golden replay of JAX train=True runs")
+    t0 = time.perf_counter()
+    dyn_golden_phase(dev)
+    print(f"phase 22 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(23, "the paper's four methods at full width: fig8_csi, "
+              "dyn_bursty, a domain-randomized fleet")
+    methods_phase(dev)
+
+    phase(24, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",

@@ -5,9 +5,9 @@ The caller converts a JAX tree to numpy first
 checkpoint with ``repro_torch.train.checkpoint``, so this module needs
 neither JAX nor anything of ``repro``. Names, shapes and dtypes are
 checked against the port's layout (``core.gcn.param_shapes`` for the GCN
-actor, ``DecoderLM.param_shapes`` for a decoder LM, the reference's
-``AgentState`` and ``DeviceReplay`` fields for an agent state) and any
-mismatch raises.
+actor, ``MLPActor.param_shapes`` for DROO's MLP, ``DecoderLM.param_shapes``
+for a decoder LM, the reference's ``AgentState`` and ``DeviceReplay``
+fields for an agent state) and any mismatch raises.
 """
 from __future__ import annotations
 
@@ -18,42 +18,62 @@ import torch
 
 from repro_torch.core import gcn
 from repro_torch.core.devreplay import DeviceReplay
-from repro_torch.core.policy import DEV_DIM, OPT_DIM, AgentDef, AgentState
+from repro_torch.core.policy import (DEV_DIM, OPT_DIM, AgentDef, AgentState,
+                                     MLPActor)
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import DecoderLM
 from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 
 
-def params_from_numpy(tree: dict, device, *, hidden=(128, 64),
-                      edge_hidden: int = 64) -> dict:
-    """A numpy GCN param tree -> the port's param dict on ``device``."""
-    want = gcn.param_shapes(DEV_DIM, OPT_DIM, hidden=hidden,
-                            edge_hidden=edge_hidden)
+def _tree_from_numpy(tree: dict, want: dict, device, path: str) -> dict:
+    """``tree`` checked leaf by leaf against the nested shapes ``want``
+    (names, float32, shapes), as tensors on ``device``."""
     if set(tree) != set(want):
-        raise ValueError(f"param layers differ: missing "
-                         f"{sorted(set(want) - set(tree))}, unexpected "
-                         f"{sorted(set(tree) - set(want))}")
+        what = "param layers differ" if not path else f"{path}: leaves"
+        raise ValueError(f"{what}: missing {sorted(set(want) - set(tree))}, "
+                         f"unexpected {sorted(set(tree) - set(want))}")
     out = {}
-    for layer, leaves in want.items():
-        got = tree[layer]
-        if set(got) != set(leaves):
-            raise ValueError(f"{layer}: leaves {sorted(got)}, expected "
-                             f"{sorted(leaves)}")
-        out[layer] = {}
-        for name, shape in leaves.items():
-            x = got[name]
-            if not isinstance(x, np.ndarray):
-                raise TypeError(f"{layer}/{name}: expected a numpy array, "
-                                f"got {type(x).__name__}")
-            if x.dtype != np.float32:
-                raise TypeError(f"{layer}/{name}: dtype {x.dtype}, expected "
-                                f"float32")
-            if x.shape != shape:
-                raise ValueError(f"{layer}/{name}: shape {x.shape}, "
-                                 f"expected {shape}")
-            out[layer][name] = torch.tensor(x, device=device)
+    for name, shape in want.items():
+        x, where = tree[name], f"{path}/{name}" if path else name
+        if isinstance(shape, dict):
+            if not isinstance(x, dict):
+                raise TypeError(f"{where}: expected a dict of leaves, got "
+                                f"{type(x).__name__}")
+            out[name] = _tree_from_numpy(x, shape, device, where)
+            continue
+        if not isinstance(x, np.ndarray):
+            raise TypeError(f"{where}: expected a numpy array, got "
+                            f"{type(x).__name__}")
+        if x.dtype != np.float32:
+            raise TypeError(f"{where}: dtype {x.dtype}, expected float32")
+        if x.shape != shape:
+            raise ValueError(f"{where}: shape {x.shape}, expected {shape}")
+        out[name] = torch.tensor(x, device=device)
     return out
+
+
+def actor_shapes(tree: dict, *, hidden=(128, 64), edge_hidden: int = 64,
+                 dims=None) -> dict:
+    """The shapes a numpy actor param tree must have: the GCN's, or, when
+    its layers are ``trunk``/``head``, DROO's MLP at ``dims`` = (M, N, L)
+    (needed for the MLP, whose widths depend on the network)."""
+    if set(tree) == {"trunk", "head"}:
+        if dims is None:
+            raise ValueError("an MLP actor's shapes need dims=(M, N, L)")
+        m, n, l = dims
+        return MLPActor.param_shapes(m, n, n * l)
+    return gcn.param_shapes(DEV_DIM, OPT_DIM, hidden=hidden,
+                            edge_hidden=edge_hidden)
+
+
+def params_from_numpy(tree: dict, device, *, hidden=(128, 64),
+                      edge_hidden: int = 64, dims=None) -> dict:
+    """A numpy actor param tree (GCN, or DROO's MLP at ``dims`` = (M, N,
+    L)) -> the port's param dict on ``device``."""
+    want = actor_shapes(tree, hidden=hidden, edge_hidden=edge_hidden,
+                        dims=dims)
+    return _tree_from_numpy(tree, want, device, "")
 
 
 # the reference's AgentState fields, in order; the port keeps all but ``key``
@@ -89,13 +109,15 @@ def _array(path: str, x, dtype, shape) -> np.ndarray:
 
 
 def agent_state_from_numpy(state, device, *, hidden=(128, 64),
-                           edge_hidden: int = 64) -> AgentState:
+                           edge_hidden: int = 64, dims=None) -> AgentState:
     """The reference's full ``AgentState`` (a NamedTuple or mapping of its
-    fields, numpy leaves) -> the port's on ``device``: params, Adam
-    ``step``/``mu``/``nu``, the replay ring with ``ptr``/``size``, the slot
-    counter, exit mask and loss stats. Every name, shape and dtype is
-    checked. The reference's RNG ``key`` is dropped: the port's draws
-    come from the caller's generator."""
+    fields, numpy leaves) -> the port's on ``device``: params (GCN or
+    DROO's MLP), Adam ``step``/``mu``/``nu``, the replay ring with
+    ``ptr``/``size``, the slot counter, exit mask and loss stats. Every
+    name, shape and dtype is checked. An MLP's widths come from ``dims`` =
+    (M, N, L), or without it from the ring's M and O and the trunk's
+    input width M*(N+2). The reference's RNG ``key`` is dropped: the
+    port's draws come from the caller's generator."""
     device = resolve_device(device)
     st = _fields(state, STATE_FIELDS, "AgentState")
     opt = _fields(st["opt_state"], ("step", "mu", "nu"), "opt_state")
@@ -124,14 +146,31 @@ def agent_state_from_numpy(state, device, *, hidden=(128, 64),
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
 
-    def tree(p):
-        return params_from_numpy(p, device, hidden=hidden,
-                                 edge_hidden=edge_hidden)
+    params = st["params"]
+    if dims is None and set(params) == {"trunk", "head"}:
+        try:
+            in_dim = int(params["trunk"]["fc1"]["w"].shape[0])
+        except (KeyError, TypeError, AttributeError, IndexError):
+            in_dim = 0
+        n = in_dim // m - 2 if m and in_dim % m == 0 else 0
+        if n < 1 or o % n:
+            raise ValueError(f"params/trunk/fc1/w: input width {in_dim} is "
+                             f"not M*(N+2) for M={m} and N dividing O={o}")
+        dims = (m, n, o // n)
+    want = actor_shapes(params, hidden=hidden, edge_hidden=edge_hidden,
+                        dims=dims)
+
+    def tree(p, what):
+        if not isinstance(p, dict):
+            raise TypeError(f"{what}: expected a dict, got "
+                            f"{type(p).__name__}")
+        return _tree_from_numpy(p, want, device, "" if what == "params"
+                                else what)
 
     return AgentState(
-        params=tree(st["params"]),
-        opt_state={"step": t(opt["step"]), "mu": tree(opt["mu"]),
-                   "nu": tree(opt["nu"])},
+        params=tree(st["params"], "params"),
+        opt_state={"step": t(opt["step"]), "mu": tree(opt["mu"], "mu"),
+                   "nu": tree(opt["nu"], "nu")},
         replay=DeviceReplay(*(t(rp[f]) for f in REPLAY_FIELDS),
                             host_size=size),
         step=t(st["step"]), exit_mask=t(st["exit_mask"]),
@@ -143,9 +182,11 @@ def agent_state_from_params(adef: AgentDef, params: dict,
                             exit_mask: np.ndarray) -> AgentState:
     """A fresh ``adef`` state (zero Adam moments, empty ring, counters at
     0) around a numpy param tree and [N*L] exit mask, on ``adef.device``."""
-    _array("exit_mask", exit_mask, np.float32, (adef.env.N * adef.env.L,))
+    env = adef.env
+    _array("exit_mask", exit_mask, np.float32, (env.N * env.L,))
     return adef.init_from(
-        params_from_numpy(params, adef.device, hidden=adef.hidden),
+        params_from_numpy(params, adef.device, hidden=adef.hidden,
+                          dims=(env.M, env.N, env.L)),
         torch.tensor(exit_mask, device=adef.device))
 
 

@@ -1,22 +1,23 @@
 """Agent API: ``AgentDef`` (static spec) / ``AgentState`` (mutable state).
 
-Counterpart of ``repro/core/policy.py`` for the GCN actor (GRLE = gcn +
-early exit, GRL = gcn without). One slot is Algorithm 1's fused
-iteration (``AgentDef.step``): the GCN proposes a relaxed x̂ over (device,
-option) edges, the order-preserving quantizer turns it into candidates, K
-random-valid exploration candidates join them, the Eq-15 critic scores
-every candidate with the FCFS simulator and the best one is kept; the
-(graph, decision) pair enters the replay ring, and every ``train_every``
-slots, once the ring holds a full minibatch, the actor takes one Eq-16
-BCE + Adam step on a replay minibatch (§VI-A). The decision path runs
-under ``torch.no_grad()``; the loss differentiates through the
-hand-written actor kernels (``kernels.ops``).
+Counterpart of ``repro/core/policy.py``. One ``AgentDef`` family covers
+the paper's four methods (§VI-C): GRLE = gcn + early exit, GRL = gcn
+without, DROOE = mlp + early exit, DROO = mlp without. One slot is
+Algorithm 1's fused iteration (``AgentDef.step``): the actor proposes a
+relaxed x̂ over (device, option) edges, the order-preserving quantizer
+turns it into candidates, K random-valid exploration candidates join
+them, the Eq-15 critic scores every candidate with the FCFS simulator
+and the best one is kept; the (graph, decision) pair enters the replay
+ring, and every ``train_every`` slots, once the ring holds a full
+minibatch, the actor takes one Eq-16 BCE + Adam step on a replay
+minibatch (§VI-A). The decision path runs under ``torch.no_grad()``; the
+loss differentiates through the hand-written GCN kernels
+(``kernels.ops``) or, for DROO's MLP actor, plain PyTorch (the reference
+has no kernel there either).
 
 The reference's ``AgentState.key`` has no counterpart: every draw comes
 from a ``torch.Generator`` the caller passes (or from injected draws,
 ``rand_cands=`` and ``take=``), since torch cannot reproduce threefry.
-
-Not ported yet: the MLP actor (DROO/DROOE; ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -34,9 +35,68 @@ from repro_torch.core.quantize import max_candidates, one_hot_candidates
 from repro_torch.device import resolve_device
 from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECEnv, MECState, SlotTasks
+from repro_torch.nn import MLP, Linear
 from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 from repro_torch.optim import adam, apply_updates, scale_updates
 
+# device features: 6 observed + the device-id feature; option features: 4
+DEV_DIM, OPT_DIM = 7, 4
+
+
+# --------------------------------------------------------------------- actors
+class MLPActor:
+    """DROO's DNN actor: flat channel-state features -> edge scores.
+
+    Per the paper (§VI-C), DROO(E) sees only wireless channel state and
+    task info — no queue backlogs, no ES capacity — which is exactly its
+    stated weakness vs the GCN. Params ``{"trunk": MLP, "head": Linear}``;
+    the trunk is M*(N+2) -> hidden -> hidden, the head hidden -> M*O.
+    """
+
+    @staticmethod
+    def param_shapes(n_devices: int, n_servers: int, n_options: int,
+                     hidden: int = 256) -> dict:
+        """The reference's names and ``[in, out]`` shapes."""
+        in_dim, out_dim = n_devices * (n_servers + 2), n_devices * n_options
+        return {
+            "trunk": {"fc1": {"w": (in_dim, hidden), "b": (hidden,)},
+                      "fc2": {"w": (hidden, hidden), "b": (hidden,)}},
+            "head": {"w": (hidden, out_dim), "b": (out_dim,)},
+        }
+
+    @staticmethod
+    def init(generator: torch.Generator, n_devices: int, n_servers: int,
+             n_options: int, *, device, hidden: int = 256) -> dict:
+        in_dim = n_devices * (n_servers + 2)
+        return {
+            "trunk": MLP.init(generator, in_dim, hidden, hidden,
+                              device=device),
+            "head": Linear.init(generator, hidden, n_devices * n_options,
+                                device=device),
+        }
+
+    @staticmethod
+    def features(g: MECGraph, n_exits: int) -> torch.Tensor:
+        """Flat per-graph features [..., M*(N+2)]: each link's rate (the
+        adjacency at each server's first option, which ``build_graph``
+        expanded over its exits) beside the task's size and deadline."""
+        rates = g.adj[..., :, ::n_exits]
+        task = g.device_feat[..., :, :2]             # size, deadline
+        batch = g.adj.shape[:-2]
+        return torch.cat([rates, task], dim=-1).reshape(batch + (-1,))
+
+    @staticmethod
+    def apply(params, g: MECGraph, n_exits: int):
+        x = MLPActor.features(g, n_exits)
+        h = torch.relu(MLP.apply(params["trunk"], x))
+        m, o = g.adj.shape[-2:]
+        batch = g.adj.shape[:-2]
+        logits = Linear.apply(params["head"], h).reshape(batch + (m, o))
+        logits = torch.where(g.mask > 0.5, logits, -1e9)
+        return torch.sigmoid(logits), logits
+
+
+# ------------------------------------------------------------------ methods
 # Method name -> (actor family, early-exit flag). The four rows of §VI-C.
 METHOD_SPECS = {
     "grle": dict(actor="gcn", early_exit=True),
@@ -45,8 +105,24 @@ METHOD_SPECS = {
     "droo": dict(actor="mlp", early_exit=False),
 }
 
-# device features: 6 observed + the device-id feature; option features: 4
-DEV_DIM, OPT_DIM = 7, 4
+
+def actor_family(method: str) -> str:
+    """'gcn' or 'mlp' — methods in one family share a param tree."""
+    return METHOD_SPECS[method.lower()]["actor"]
+
+
+def init_params(actor: str, env: MECEnv, generator: torch.Generator,
+                hidden=(128, 64), *, device=None) -> dict:
+    """Fresh actor params drawn from ``generator``, on ``device`` (default
+    the env's)."""
+    device = env.device if device is None else device
+    if actor == "gcn":
+        return gcn.init(generator, DEV_DIM, OPT_DIM, hidden=hidden,
+                        device=device)
+    if actor == "mlp":
+        return MLPActor.init(generator, env.M, env.N, env.N * env.L,
+                             device=device)
+    raise ValueError(f"unknown actor {actor!r}")
 
 
 def make_exit_mask(n_servers: int, n_exits: int, early_exit: bool, *,
@@ -63,7 +139,7 @@ class AgentState(NamedTuple):
     """Every mutable piece of Algorithm 1: the reference's fields but its
     RNG key, in its order. ``host_step`` mirrors ``step`` on the host, so
     that the train gate needs no device-to-host copy."""
-    params: dict               # GCN actor parameters
+    params: dict               # actor parameters (gcn or mlp family)
     opt_state: dict            # Adam: {"step": int32, "mu": tree, "nu": tree}
     replay: DeviceReplay       # device-resident (graph, decision) ring
     step: torch.Tensor         # scalar int32: slots absorbed so far
@@ -98,11 +174,7 @@ class AgentDef:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
-        if self.actor == "mlp":
-            raise NotImplementedError(
-                "the MLP actor (DROO/DROOE) is not ported to repro_torch yet "
-                "(ROADMAP queue 1 item 5)")
-        if self.actor != "gcn":
+        if self.actor not in ("gcn", "mlp"):
             raise ValueError(f"unknown actor {self.actor!r}")
         device = resolve_device(self.device)
         if device != self.env.device:
@@ -129,6 +201,14 @@ class AgentDef:
         m, o = self.env.M, self.env.N * self.env.L
         return MECGraph((m, DEV_DIM), (o, OPT_DIM), (m, o), (m, o))
 
+    def param_shapes(self) -> dict:
+        """The actor's param tree as ``{name: ... {leaf: shape}}``, as
+        ``init`` draws it."""
+        env = self.env
+        if self.actor == "gcn":
+            return gcn.param_shapes(DEV_DIM, OPT_DIM, hidden=self.hidden)
+        return MLPActor.param_shapes(env.M, env.N, env.N * env.L)
+
     def empty_replay(self) -> DeviceReplay:
         return replay_init(self.buffer_size, self.graph_shapes(), self.env.M,
                            device=self.device)
@@ -138,9 +218,9 @@ class AgentDef:
 
     def init(self, generator: torch.Generator) -> AgentState:
         """Fresh agent state; params drawn from ``generator``."""
-        return self.init_from(gcn.init(generator, DEV_DIM, OPT_DIM,
-                                       hidden=self.hidden,
-                                       device=self.device))
+        return self.init_from(init_params(self.actor, self.env, generator,
+                                          hidden=self.hidden,
+                                          device=self.device))
 
     def init_from(self, params: dict,
                   exit_mask: Optional[torch.Tensor] = None) -> AgentState:
@@ -168,7 +248,10 @@ class AgentDef:
         """Relaxed decision x̂ and logits over [..., M, N*L] edges;
         disallowed (masked-exit or disconnected) options get -1e9 so the
         quantizer never flips a device onto them."""
-        x_hat, logits = gcn.apply(params, g)
+        if self.actor == "gcn":
+            x_hat, logits = gcn.apply(params, g)
+        else:
+            x_hat, logits = MLPActor.apply(params, g, self.env.L)
         allowed = (exit_mask > 0.5) & (g.mask > 0.5)
         x_hat = torch.where(allowed, x_hat, -1e9)
         logits = torch.where(allowed, logits, -1e9)
@@ -329,7 +412,7 @@ class AgentDef:
 
 
 def agent_def(method: str, env: MECEnv, *, device=None, **kw) -> AgentDef:
-    """Factory for the paper's methods by name (GCN ones: grle, grl)."""
+    """Factory for the paper's four methods by name."""
     spec = dict(METHOD_SPECS[method.lower()])
     spec.update(kw)
     return AgentDef(env=env, device=device, **spec)

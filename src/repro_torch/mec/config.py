@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/mec/config.py``: ``MECConfig`` is the static shape
 of a network instance, ``ScenarioParams`` every numeric knob as float32
-tensors on one device.
+tensors on one device. Leaves may carry leading fleet axes (one scenario
+per fleet, ``RolloutDriver(per_fleet_scenarios=True)``); every consumer
+indexes a leaf's own axes from the end.
 """
 from __future__ import annotations
 
@@ -43,6 +45,46 @@ class ScenarioParams(NamedTuple):
     ar1_noise_rate: torch.Tensor     # scalar, innovation std of rate
     ar1_mu_cap: torch.Tensor         # scalar, AR(1) mean of capacity
     ar1_noise_cap: torch.Tensor      # scalar, innovation std of capacity
+
+
+# Fields a scenario sampler may vary freely; everything after these in the
+# NamedTuple is either structural (exit tables) or derived.
+PRIMITIVE_FIELDS = (
+    "task_kb", "rate_mbps", "capacity_range", "inference_jitter",
+    "csi_error", "connectivity_drop", "deadline_s", "arrival_rate",
+    "mmpp_rates", "mmpp_switch", "churn_prob", "ar1_rho",
+)
+
+
+def derive_params(primitives: dict, exit_times_s, exit_acc) -> ScenarioParams:
+    """Finish a ``ScenarioParams`` from primitive knobs, in float32.
+
+    For sampled or interpolated scenarios (``ScenarioSpace.sample``,
+    ``interpolate_params``): the AR(1) moments and bit-rate bounds are
+    recomputed from the primitives, never interpolated. Leaves may carry
+    leading batch axes; the device is the first primitive's.
+    """
+    dev = torch.as_tensor(primitives[PRIMITIVE_FIELDS[0]]).device
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    p = {k: f32(primitives[k]) for k in PRIMITIVE_FIELDS}
+    rate_bps = p["rate_mbps"] * f32(1e6)
+    cap = p["capacity_range"]
+    rho = p["ar1_rho"]
+    sqrt12 = f32(np.float32(np.sqrt(12.0)))
+    c = torch.sqrt(torch.clamp_min(1.0 - rho * rho, 0.0))
+    return ScenarioParams(
+        **p,
+        exit_times_s=f32(exit_times_s),
+        exit_acc=f32(exit_acc),
+        rate_bps=rate_bps,
+        ar1_mu_rate=0.5 * (rate_bps[..., 0] + rate_bps[..., 1]),
+        ar1_noise_rate=(rate_bps[..., 1] - rate_bps[..., 0]) / sqrt12 * c,
+        ar1_mu_cap=0.5 * (cap[..., 0] + cap[..., 1]),
+        ar1_noise_cap=(cap[..., 1] - cap[..., 0]) / sqrt12 * c,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,11 @@ leading batch axes written out: state and task leaves carry ``batch``
 (Eqs 6–7) is a Python loop over the M sorted queue positions with every
 op batched over ``batch + (S,)`` — never a loop over candidates or fleets.
 
+Scenario knobs (``sp``) are shared by every network, or carry the
+leading fleet axes of the state (one scenario per fleet, where the
+reference ``vmap``s ``sp`` with ``in_axes=0``): every knob is indexed from
+its last axis and given unit axes to broadcast (``_knob``).
+
 Arithmetic follows the reference op for op (reciprocal-multiplies where
 it has them, ``(k-1)τ`` in float32, ``lexsort`` as two stable sorts), so
 on the same inputs the two agree to float32 rounding.
@@ -62,6 +67,14 @@ def _uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
     return _scale(torch.rand(shape, generator=gen, device=device), lo, hi)
 
 
+def _knob(x: torch.Tensor, n_trailing: int) -> torch.Tensor:
+    """A ``ScenarioParams`` value (a shared one, or one with fleet axes in
+    front) with ``n_trailing`` unit axes appended, so it broadcasts
+    against the fleet axes followed by ``n_trailing`` axes of one
+    network's."""
+    return x.reshape(tuple(x.shape) + (1,) * n_trailing)
+
+
 class SlotUniforms(NamedTuple):
     """The raw uniforms in [0, 1) behind ``assemble_slot``'s four draws
     (the injection seam: the tests feed the reference's here)."""
@@ -82,24 +95,28 @@ def assemble_slot(sp: ScenarioParams, m: int, *, rate_true: torch.Tensor,
     of ``rate_true`` ([..., M, N]): from the uniforms ``draws`` when
     given, else drawn from ``generator`` in that order.
     """
-    n, l = sp.exit_times_s.shape
+    n, l = sp.exit_times_s.shape[-2:]
     batch = rate_true.shape[:-2]
     dev = rate_true.device
     if draws is None:
         draws = SlotUniforms(*(torch.rand(batch + shape, generator=generator,
                                        device=dev)
                             for shape in ((m,), (m, n), (n, l), (m, n))))
-    size_bits = _scale(draws.size, sp.task_kb[0], sp.task_kb[1]) * 8e3  # bits
-    eps = _scale(draws.csi, -sp.csi_error, sp.csi_error)
+    size_bits = _scale(draws.size, _knob(sp.task_kb[..., 0], 1),
+                       _knob(sp.task_kb[..., 1], 1)) * 8e3  # KB -> bits
+    csi = _knob(sp.csi_error, 2)
+    eps = _scale(draws.csi, -csi, csi)
     rate_est = rate_true * (1.0 + eps)
-    jit = _scale(draws.jitter, -sp.inference_jitter, sp.inference_jitter)
+    jitter = _knob(sp.inference_jitter, 2)
+    jit = _scale(draws.jitter, -jitter, jitter)
     cmp_base = sp.exit_times_s / capacity[..., :, None]
     cmp_true = cmp_base * (1.0 + jit)
-    connect = (draws.connect >= sp.connectivity_drop).to(torch.float32)
+    connect = (draws.connect >= _knob(sp.connectivity_drop, 2)).to(
+        torch.float32)
     # never let a device lose every link
     has_link = connect.sum(-1, keepdim=True) > 0
     connect = torch.where(has_link, connect, torch.ones_like(connect))
-    deadline = sp.deadline_s.expand(batch + (m,)).clone()
+    deadline = _knob(sp.deadline_s, 1).expand(batch + (m,)).clone()
     return SlotTasks(size_bits, deadline, rate_true, rate_est, capacity,
                      cmp_true, cmp_base, connect, active)
 
@@ -143,16 +160,19 @@ class MECEnv:
                     batch: Tuple[int, ...] = (),
                     sp: Optional[ScenarioParams] = None) -> SlotTasks:
         """One slot's iid task draw (paper §VI-A) for ``batch`` networks,
-        knobs from ``sp`` (None: this env's own).
+        knobs from ``sp`` (None: this env's own; shared, or with ``batch``
+        in front).
 
         The draws come from ``generator`` (on this env's device); they
         follow the reference's distributions, not its threefry bits.
         """
         sp, dev = self._sp(sp), self.device
         rate_true = _uniform(generator, batch + (self.M, self.N),
-                             sp.rate_mbps[0], sp.rate_mbps[1], dev) * 1e6
+                             _knob(sp.rate_mbps[..., 0], 2),
+                             _knob(sp.rate_mbps[..., 1], 2), dev) * 1e6
         capacity = _uniform(generator, batch + (self.N,),
-                            sp.capacity_range[0], sp.capacity_range[1], dev)
+                            _knob(sp.capacity_range[..., 0], 1),
+                            _knob(sp.capacity_range[..., 1], 1), dev)
         return assemble_slot(sp, self.M, rate_true=rate_true,
                              capacity=capacity,
                              active=torch.ones(batch + (self.M,), device=dev),
@@ -220,7 +240,10 @@ class MECEnv:
         t_wait = torch.where(act, start_srv - arrival, 0.0)       # Eq (7)
         t_total = t_com + t_wait + t_cmp                          # Eq (8)
 
-        phi = sp.exit_acc[l_idx]                                  # Eq (5)
+        acc = sp.exit_acc                                         # [..., L]
+        acc = acc.reshape(tuple(acc.shape[:-1])
+                          + (1,) * (l_idx.dim() - acc.dim()) + (L,))
+        phi = acc.expand(l_idx.shape[:-1] + (L,)).gather(-1, l_idx)  # Eq (5)
         # links that are down make the task infeasible
         link = torch.take_along_dim(connect, n_idx[..., None], -1)[..., 0]
         t_total = torch.where(link > 0.5, t_total, math.inf)
@@ -274,10 +297,12 @@ class MECEnv:
         cfg, sp = self.cfg, self._sp(sp)
         batch = state.slot.shape
         gen_time = (state.slot.to(torch.float32) * cfg.slot_s)[..., None]
-        inv_dl = 1.0 / sp.deadline_s
-        d_norm = tasks.size_bits * (1.0 / (sp.task_kb[1] * 8e3))
-        dl_norm = tasks.deadline_s / sp.deadline_s
-        r_norm = tasks.rate_est * (1.0 / (sp.rate_mbps[1] * 1e6))
+        inv_dl = 1.0 / _knob(sp.deadline_s, 1)
+        d_norm = tasks.size_bits * (1.0 / (_knob(sp.task_kb[..., 1], 1)
+                                           * 8e3))
+        dl_norm = tasks.deadline_s / _knob(sp.deadline_s, 1)
+        r_norm = tasks.rate_est * (1.0 / (_knob(sp.rate_mbps[..., 1], 2)
+                                          * 1e6))
         r_norm = r_norm * tasks.connect
         # log-compress queue backlogs: under overload they grow to many
         # multiples of the deadline and would otherwise saturate the GCN
@@ -288,15 +313,62 @@ class MECEnv:
              tasks.active], dim=-1)
 
         nl = (self.N, self.L)
-        cmp_norm = tasks.cmp_est * inv_dl                         # [..., N, L]
+        cmp_norm = tasks.cmp_est * inv_dl[..., None]              # [..., N, L]
         backlog_es = torch.log1p(
             torch.clamp_min(state.es_free - gen_time, 0.0) * inv_dl)
         option = torch.stack(
             [cmp_norm,
-             sp.exit_acc.expand(batch + nl),
+             sp.exit_acc.unsqueeze(-2).expand(batch + nl),
              backlog_es[..., None].expand(batch + nl),
              tasks.capacity[..., None].expand(batch + nl)],
             dim=-1).reshape(batch + (self.N * self.L, 4))
         return {"device": device, "option": option,
                 "edge_rate": r_norm, "connect": tasks.connect}
 
+
+    # ----------------------------------------------------------------- oracle
+    def _options(self, early_exit: bool) -> torch.Tensor:
+        options = torch.arange(self.N * self.L, device=self.device)
+        if not early_exit:
+            options = options[options % self.L == self.L - 1]
+        return options
+
+    def greedy_decision(self, state: MECState, tasks: SlotTasks, *,
+                        sweeps: int = 2, early_exit: bool = True,
+                        sp: Optional[ScenarioParams] = None) -> torch.Tensor:
+        """Sequential-greedy + local-search oracle (the Fig-4
+        normalization x'_k), for the leading batch axes of ``state``.
+
+        Every device starts at the first allowed option; then ``sweeps``
+        coordinate-ascent sweeps re-optimize one device at a time against
+        the current joint decision by the critic (``evaluate``, first
+        maximum on ties). ``sp`` as in ``evaluate`` (the reference has
+        none: its env's own knobs).
+        """
+        options = self._options(early_exit).to(torch.int32)
+        batch = state.slot.shape
+        decision = options[0].expand(batch + (self.M,)).clone()
+        k = options.shape[0]
+        for _ in range(sweeps):
+            for m in range(self.M):
+                cands = decision[..., None, :].repeat(
+                    (1,) * len(batch) + (k, 1))
+                cands[..., m] = options
+                q = self.evaluate(state, tasks, cands, sp)    # [..., K]
+                best = torch.argmax(q, dim=-1)
+                decision = torch.take_along_dim(
+                    cands, best[..., None, None], -2)[..., 0, :]
+        return decision
+
+    def exhaustive_decision(self, state: MECState, tasks: SlotTasks, *,
+                            early_exit: bool = True) -> torch.Tensor:
+        """True exhaustive search over every joint decision of one network
+        (options^M candidates, scored 4096 at a time) — only feasible for
+        tiny M (tests)."""
+        chunk = 4096
+        options = self._options(early_exit).to(torch.int32)
+        cands = torch.cartesian_prod(*([options] * self.M)).reshape(
+            -1, self.M)
+        q = torch.cat([self.evaluate(state, tasks, cands[i:i + chunk])
+                       for i in range(0, cands.shape[0], chunk)])
+        return cands[torch.argmax(q)]

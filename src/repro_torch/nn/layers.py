@@ -1,7 +1,7 @@
 """Core layers as (init, apply) namespaces over dict params.
 
 Counterpart of ``repro/nn/layers.py`` (``Linear``, ``Embedding``,
-``RMSNorm``). Params keep the reference's functional layout
+``RMSNorm``, ``MLP``). Params keep the reference's functional layout
 ``{"w": [in, out], "b": [out]}`` — not ``torch.nn.Linear``'s
 ``[out, in]`` — so a JAX param tree maps over 1:1.
 """
@@ -51,3 +51,24 @@ class RMSNorm:
         ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
         return y.to(x.dtype)
+
+
+class MLP:
+    """Two-layer MLP ``{"fc1", "fc2"}``, each a ``Linear``; the activation
+    (relu by default) sits between the two."""
+
+    @staticmethod
+    def init(generator: torch.Generator, in_dim: int, hidden: int,
+             out_dim: int, *, device, use_bias: bool = True,
+             dtype=torch.float32):
+        return {
+            "fc1": Linear.init(generator, in_dim, hidden, device=device,
+                               use_bias=use_bias, dtype=dtype),
+            "fc2": Linear.init(generator, hidden, out_dim, device=device,
+                               use_bias=use_bias, dtype=dtype),
+        }
+
+    @staticmethod
+    def apply(params, x, *, activation=torch.relu):
+        h = activation(Linear.apply(params["fc1"], x))
+        return Linear.apply(params["fc2"], h)

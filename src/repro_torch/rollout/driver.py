@@ -1,17 +1,25 @@
 """Episode driver: Algorithm 1 for B fleets, slot by slot, or compiled.
 
 Counterpart of ``repro/rollout/driver.py``. Each slot, for all B fleets at
-once: draw the tasks, observe and build the graph, run the GCN actor (4
-``gcn_agg`` launches + 1 ``edge_score`` launch for the whole fleet batch),
+once: draw the tasks from the workload (``iid``, or the ``poisson``/``mmpp``
+arrival processes, whose state rides in the carry), observe and build the
+graph, run the actor (GRLE/GRL: 4 ``gcn_agg`` launches + 1 ``edge_score``
+launch for the whole fleet batch; DROO/DROOE: the MLP in plain PyTorch),
 quantize, score every candidate with the Eq-15 critic, realize the best
 one with ``env.step`` and fold the metrics (and, with ``telemetry=True``,
 the rollout telemetry registry). With ``train=True`` (the reference's
 default) one shared learner then absorbs the B fleets' (graph, decision)
 pairs in fleet order, and every ``train_every`` slots, once the ring
 holds a full minibatch, takes one Eq-16 + Adam step, whose forward runs
-the same kernels on the minibatch (4 + 1 more launches). The train gate
-is read on the host (``AgentDef.train_due``); nothing in a slot waits on
-the device.
+the same actor on the minibatch (4 + 1 more launches for the GCN). The
+train gate is read on the host (``AgentDef.train_due``); nothing in a
+slot waits on the device.
+
+Scenario knobs enter as an optional ``ScenarioParams`` ``sp`` on ``run``
+and ``init_carry``, shared by every fleet, or with
+``per_fleet_scenarios=True`` one per fleet (leaves with a leading [B]:
+domain randomization over ``mec.scenarios.ScenarioSpace`` draws), where
+the reference ``vmap``s the slot over a [B]-leading ``sp``.
 
 Both modes run the same slot body, ``_slot``:
 
@@ -28,7 +36,9 @@ Both modes run the same slot body, ``_slot``:
   into it and writes the slot's trace row at a device slot counter. Draws
   come from the caller's generator, registered with both graphs, or from
   injected [T, B, ...] draws read at that counter (minibatch rows at a
-  device train-step counter). Before capture, one eager slot of each kind
+  device train-step counter); ``sp`` sits in static buffers too, copied in
+  before each replay, so another ``sp`` of the same shapes replays the
+  same graphs. Before capture, one eager slot of each kind
   runs on a side stream with CUDA's sync debug mode set to raise, which
   builds the kernels, sets up cuBLAS and fails on any host sync. A failed
   capture raises; scan never falls back to the loop. On the CPU (which the
@@ -51,6 +61,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.policy import AgentDef, AgentState
 from repro_torch.device import resolve_device
+from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECState, SlotTasks
 from repro_torch.obs.telemetry import (Telemetry, rollout_telemetry,
                                        telemetry_host, telemetry_summary,
@@ -58,20 +69,31 @@ from repro_torch.obs.telemetry import (Telemetry, rollout_telemetry,
 from repro_torch.rollout.metrics import (CellMetrics, metrics_finalize,
                                          metrics_init, metrics_update)
 from repro_torch.rollout.vecenv import VecMECEnv
-from repro_torch.rollout.workloads import make_workload
+from repro_torch.rollout.workloads import (InitDraws, WorkloadDraws,
+                                           WorkloadState, make_workload)
 
 
 class SlotDraws(NamedTuple):
-    """Injected random draws for a whole episode (tests, golden replay)."""
-    tasks: SlotTasks            # leaves [T, B, ...]
+    """Injected random draws for a whole episode (tests, golden replay).
+
+    The slot's tasks come ready-made (``tasks``, leaves [T, B, ...]; the
+    workload state is then not advanced), or from the workload's own
+    state fed its raw uniforms (``workload``, a ``poisson``/``mmpp``
+    ``WorkloadDraws`` with leaves [T, B, ...]; ``init`` [B, ...] seeds the
+    state), or, both None, from the generator."""
+    tasks: Optional[SlotTasks]  # leaves [T, B, ...], or None
     rand_cands: torch.Tensor    # [T, B, K, M] exploration candidates
     # [n_train, batch_size] replay rows of each train step, in order
     replay_take: Optional[torch.Tensor] = None
+    init: Optional[InitDraws] = None          # leaves [B, ...]
+    workload: Optional[WorkloadDraws] = None  # leaves [T, B, ...]
 
 
 class RolloutCarry(NamedTuple):
     """What persists across slots."""
     env_state: MECState        # [B, ...]
+    # the workload's state [B, ...]; None for iid, whose draws read none
+    wl_state: Optional[WorkloadState]
     agent_state: AgentState
     metrics: CellMetrics
     # the telemetry registry; None when the driver runs without it
@@ -105,6 +127,25 @@ def _tensors(tree) -> List[torch.Tensor]:
     if isinstance(tree, tuple):
         return [x for v in tree for x in _tensors(v)]
     return []
+
+
+def _signature(tree):
+    """The structure and shapes of a tree of tensors (a cache key)."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape)
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, tuple):
+        return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
+    return tree
+
+
+def _at(tree, t):
+    """Row ``t`` of every tensor of ``tree``: an int, or a [1] device
+    index (read on the device, as a captured graph must)."""
+    if isinstance(t, int):
+        return _refill(tree, (x[t] for x in _tensors(tree)))
+    return _refill(tree, (x.index_select(0, t)[0] for x in _tensors(tree)))
 
 
 def _refill(tree, leaves):
@@ -145,13 +186,25 @@ class RolloutDriver:
     """Drives B fleets of one agent for T slots; ``train=False`` runs the
     decision path alone, ``telemetry=True`` carries the rollout telemetry
     registry. ``replay_capacity``, ``batch_size`` and ``train_every``
-    override the def's for this driver, as in the reference."""
+    override the def's for this driver, as in the reference.
 
-    def __init__(self, adef: AgentDef, n_fleets: int = 1, *,
+    ``agent`` is an ``AgentDef``, or the deprecated ``OffloadingAgent``
+    shim, whose def and current state are taken (``sync_agent`` writes a
+    run's result back into it). With ``per_fleet_scenarios=True`` an
+    ``sp`` given to ``run``/``init_carry`` has a leading [B] on every leaf,
+    one scenario per fleet; otherwise it is shared.
+    """
+
+    def __init__(self, agent, n_fleets: int = 1, *,
                  train: bool = True, replay_capacity: Optional[int] = None,
                  batch_size: Optional[int] = None,
                  train_every: Optional[int] = None,
+                 per_fleet_scenarios: bool = False,
                  telemetry: bool = False, device=None):
+        if isinstance(agent, AgentDef):
+            adef, self._shim = agent, None
+        else:                         # the deprecated OffloadingAgent shim
+            adef, self._shim = agent.adef, agent
         self.device = resolve_device(device)
         if self.device != adef.device:
             raise ValueError(f"RolloutDriver on {self.device} but its agent "
@@ -163,14 +216,10 @@ class RolloutDriver:
         self.adef = (dataclasses.replace(adef, **overrides) if overrides
                      else adef)
         self.env = self.adef.env
-        if self.env.cfg.workload != "iid":
-            raise NotImplementedError(
-                f"RolloutDriver runs iid workloads only; the "
-                f"{self.env.cfg.workload!r} workload's fleet-batched rollouts "
-                f"(and per-fleet scenarios) are ROADMAP queue 1 item 5")
         self.vec = VecMECEnv(self.env, n_fleets)
         self.workload = make_workload(self.env)
         self.n_fleets = n_fleets
+        self.per_fleet_scenarios = per_fleet_scenarios
         self.train = train
         self.telemetry = telemetry
         self.batch_size = self.adef.batch_size
@@ -200,18 +249,47 @@ class RolloutDriver:
             self._seeded = torch.Generator(device=self.device)
         return self._seeded.manual_seed(int(seed_or_generator))
 
+    def _check_sp(self, sp: Optional[ScenarioParams]) -> None:
+        """``sp`` must have the env's knob shapes, behind a leading [B]
+        with ``per_fleet_scenarios``, on the driver's device."""
+        if sp is None:
+            return
+        lead = (self.n_fleets,) if self.per_fleet_scenarios else ()
+        for name, mine, got in zip(ScenarioParams._fields, self.env.params,
+                                   sp):
+            want = lead + tuple(mine.shape)
+            if tuple(got.shape) != want:
+                raise ValueError(
+                    f"sp.{name} of shape {tuple(got.shape)}, expected {want}"
+                    + (" (per_fleet_scenarios: a leading [B])"
+                       if self.per_fleet_scenarios else ""))
+            if got.device.type != self.device.type:
+                raise ValueError(f"sp.{name} on {got.device}, driver on "
+                                 f"{self.device}")
+
     # ------------------------------------------------------------------ carry
     def init_carry(self, seed_or_generator: Union[int, torch.Generator], *,
-                   agent_state: Optional[AgentState] = None) -> RolloutCarry:
-        """Fresh episode state. ``agent_state`` defaults to a fresh
-        ``adef.init`` from the generator; whatever state comes in starts the
-        episode through ``adef.episode_state`` (empty ring, slot counter and
-        loss stats reset; params and optimizer carry over)."""
+                   agent_state: Optional[AgentState] = None,
+                   sp: Optional[ScenarioParams] = None,
+                   draws: Optional[InitDraws] = None) -> RolloutCarry:
+        """Fresh episode state. ``agent_state`` defaults to the shim's live
+        state or a fresh ``adef.init`` from the generator; whatever state
+        comes in starts the episode through ``adef.episode_state`` (empty
+        ring, slot counter and loss stats reset; params and optimizer
+        carry over). A ``poisson``/``mmpp`` workload's state is drawn next
+        (or from ``draws``), its rate and capacity marginals from ``sp``
+        (None: the env's own knobs)."""
+        self._check_sp(sp)
         gen = self._generator(seed_or_generator)
         if agent_state is None:
-            agent_state = self.adef.init(gen)
+            agent_state = (self._shim.state if self._shim is not None
+                           else self.adef.init(gen))
+        wl_state = None
+        if self.workload.kind != "iid":
+            wl_state = self.workload.init(gen, sp, batch=(self.n_fleets,),
+                                          draws=draws)
         return RolloutCarry(
-            self.vec.reset(), self.adef.episode_state(agent_state),
+            self.vec.reset(), wl_state, self.adef.episode_state(agent_state),
             metrics_init(self.device),
             rollout_telemetry(self.env.N, self.env.L, device=self.device)
             if self.telemetry else None)
@@ -220,7 +298,8 @@ class RolloutDriver:
     def run(self, seed_or_generator: Union[int, torch.Generator],
             n_slots: int, *, mode: str = "scan",
             agent_state: Optional[AgentState] = None,
-            draws: Optional[SlotDraws] = None):
+            draws: Optional[SlotDraws] = None,
+            sp: Optional[ScenarioParams] = None):
         """Roll B fleets for ``n_slots``; returns (final carry, trace).
 
         ``mode="scan"`` runs the compiled episode (CUDA graphs on the
@@ -228,28 +307,55 @@ class RolloutDriver:
         exploration candidates and replay minibatches come from the
         generator (an int seeds the driver's own, on its device) unless
         ``draws`` injects them. ``agent_state`` defaults to a fresh
-        ``adef.init`` from the same generator (see ``init_carry``).
+        ``adef.init`` from the same generator (see ``init_carry``). ``sp``
+        overrides the env's scenario knobs (shared, or [B]-leading with
+        ``per_fleet_scenarios``); another ``sp`` of the same shapes
+        replays the same compiled episode.
         """
         if mode not in ("scan", "loop"):
             raise ValueError(f"unknown mode {mode!r}")
-        gen = self._generator(seed_or_generator)
-        carry = self.init_carry(gen, agent_state=agent_state)
         if draws is not None:
-            want = (n_slots, self.n_fleets)
-            if tuple(draws.rand_cands.shape[:2]) != want or any(
-                    tuple(x.shape[:2]) != want for x in draws.tasks):
-                raise ValueError(f"draws must lead with [T, B] = {want}")
+            self._check_draws(draws, n_slots)
+        gen = self._generator(seed_or_generator)
+        carry = self.init_carry(gen, agent_state=agent_state, sp=sp,
+                                draws=None if draws is None else draws.init)
         if mode == "loop":
-            return self._run_loop(carry, gen, n_slots, draws)
-        key = (n_slots, id(gen), None if draws is None
-               else tuple(x.shape for x in _tensors(draws)))
+            return self._run_loop(carry, gen, n_slots, draws, sp)
+        key = (n_slots, id(gen), _signature(draws), _signature(sp))
         if self._episode is None or self._episode.key != key:
             self._episode = None        # free the old graphs and buffers
             self._episode = _ScanEpisode(self, key, carry, n_slots, draws,
-                                         gen)
-        return self._episode.run(self, carry, draws)
+                                         gen, sp)
+        return self._episode.run(self, carry, draws, sp)
 
-    def _run_loop(self, carry, gen, n_slots, draws):
+    def _check_draws(self, draws: SlotDraws, n_slots: int) -> None:
+        want = (n_slots, self.n_fleets)
+        per_slot = [draws.rand_cands] + _tensors(draws.tasks) + _tensors(
+            draws.workload)
+        if any(tuple(x.shape[:2]) != want for x in per_slot):
+            raise ValueError(f"draws must lead with [T, B] = {want}")
+        if any(x.shape[0] != self.n_fleets for x in _tensors(draws.init)):
+            raise ValueError(f"init draws must lead with [B] = "
+                             f"{self.n_fleets}")
+        if self.workload.kind == "iid" and (draws.workload is not None
+                                            or draws.init is not None):
+            raise ValueError("an iid workload has no state to feed "
+                             "workload or init draws to")
+
+    def sync_agent(self, carry: RolloutCarry) -> None:
+        """Write the learned ``AgentState`` back into the legacy shim.
+
+        Only meaningful when the driver was built from an
+        ``OffloadingAgent``; with an ``AgentDef``, ``carry.agent_state``
+        *is* the result — keep it.
+        """
+        if self._shim is None:
+            raise ValueError(
+                "driver was built from an AgentDef; carry.agent_state is "
+                "the trained state — thread it explicitly")
+        self._shim.state = carry.agent_state
+
+    def _run_loop(self, carry, gen, n_slots, draws, sp):
         no_loss = torch.full((), torch.nan, device=self.device)
         outs, n_train = [], 0
         for t in range(n_slots):
@@ -260,11 +366,12 @@ class RolloutDriver:
                                             self.n_fleets)):
                 take = draws.replay_take[n_train]
                 n_train += 1
-            tasks = rand = None
+            tasks = wdraws = rand = None
             if draws is not None:
-                tasks = SlotTasks(*(x[t] for x in draws.tasks))
+                tasks, wdraws = _at(draws.tasks, t), _at(draws.workload, t)
                 rand = draws.rand_cands[t]
-            carry, out = self._slot(carry, gen, tasks, rand, take, no_loss)
+            carry, out = self._slot(carry, gen, tasks, wdraws, rand, take,
+                                    no_loss, sp)
             outs.append(out)
         trace = RolloutTrace(*(torch.stack(xs) for xs in zip(*outs)))
         return carry, trace
@@ -285,22 +392,26 @@ class RolloutDriver:
         return out, (step, size)
 
     # ------------------------------------------------------------- slot body
-    def _slot(self, carry: RolloutCarry, gen, tasks, rand, take, no_loss):
-        """One slot for all fleets: the slot's injected ``tasks`` and
-        exploration candidates ``rand`` (None: drawn from ``gen``) and, on
-        a train step, its minibatch rows ``take`` (None: drawn)."""
+    def _slot(self, carry: RolloutCarry, gen, tasks, wdraws, rand, take,
+              no_loss, sp):
+        """One slot for all fleets under scenario ``sp``: the slot's
+        injected ``tasks``, or the workload's draw from its state (on the
+        injected uniforms ``wdraws``, or ``gen``'s), exploration candidates
+        ``rand`` (None: drawn from ``gen``) and, on a train step, its
+        minibatch rows ``take`` (None: drawn)."""
+        wl_state = carry.wl_state
         with record_function("sample"):
             if tasks is None:
-                _, tasks = self.workload.sample(None, gen,
-                                                batch=(self.n_fleets,))
+                wl_state, tasks = self.workload.sample(
+                    wl_state, gen, sp, batch=(self.n_fleets,), draws=wdraws)
         agent = carry.agent_state
         with record_function("actor"):
             decision, q_best, graphs = self.adef.decide(
                 agent, carry.env_state, tasks, generator=gen,
-                rand_cands=rand)
+                rand_cands=rand, sp=sp)
         with record_function("env_step"):
             env_state, result = self.env.step(carry.env_state, tasks,
-                                              decision)
+                                              decision, sp)
         loss = no_loss
         if self.train:
             with record_function("train"):
@@ -318,11 +429,12 @@ class RolloutDriver:
                            / float(self.replay_capacity))
             telemetry = telemetry_update(
                 telemetry, decisions=decision, result=result, active=active,
-                deadline_s=self.env.params.deadline_s,
+                deadline_s=self.env._sp(sp).deadline_s,
                 replay_frac=replay_frac, loss=loss, n_exits=self.env.L)
         out = RolloutTrace(decision, result.reward, result.success,
                            result.accuracy, active, q_best, loss)
-        return RolloutCarry(env_state, agent, metrics, telemetry), out
+        return RolloutCarry(env_state, wl_state, agent, metrics,
+                            telemetry), out
 
     def metrics(self, carry: RolloutCarry) -> dict:
         """Host-side §VI-D summary of the carry's running metrics."""
@@ -340,11 +452,14 @@ class _ScanEpisode:
     capture (CUDA forbids destroying a graph while a stream captures)."""
 
     def __init__(self, drv: RolloutDriver, key, carry: RolloutCarry,
-                 n_slots: int, draws: Optional[SlotDraws], gen):
+                 n_slots: int, draws: Optional[SlotDraws], gen,
+                 sp: Optional[ScenarioParams]):
         self.key, self.n_slots, self.gen = key, n_slots, gen
         dev = drv.device
         self.static = _refill(carry, iter(
             [torch.empty_like(x) for x in _tensors(carry)]))
+        self.sp = None if sp is None else _refill(sp, iter(
+            [torch.empty_like(x) for x in _tensors(sp)]))
         self.leaves = _tensors(self.static)
         b, m = drv.n_fleets, drv.env.M
 
@@ -367,18 +482,19 @@ class _ScanEpisode:
         static carry with its host mirrors set), then, with ``write``, the
         new carry copied into the static one, the trace row written at the
         slot counter and the counters advanced."""
-        tasks = rand = take = None
+        tasks = wdraws = rand = take = None
         t = self.t_dev
         if self.draws is not None:
-            tasks = SlotTasks(*(x.index_select(0, t)[0]
-                                for x in self.draws.tasks))
+            tasks = _at(self.draws.tasks, t)
+            wdraws = _at(self.draws.workload, t)
             rand = self.draws.rand_cands.index_select(0, t)[0]
         due = drv.train and drv.adef.train_due(carry.agent_state,
                                                 drv.n_fleets)
         if due and self.draws is not None \
                 and self.draws.replay_take is not None:
             take = self.draws.replay_take.index_select(0, self.n_dev)[0]
-        new, out = drv._slot(carry, gen, tasks, rand, take, self.no_loss)
+        new, out = drv._slot(carry, gen, tasks, wdraws, rand, take,
+                             self.no_loss, self.sp)
         if not write:
             return
         _copy_into(self.leaves, _tensors(new))
@@ -427,10 +543,12 @@ class _ScanEpisode:
         return graphs
 
     def run(self, drv: RolloutDriver, carry: RolloutCarry,
-            draws: Optional[SlotDraws]):
+            draws: Optional[SlotDraws], sp: Optional[ScenarioParams]):
         _copy_into(self.leaves, _tensors(carry))
         if draws is not None:
             _copy_into(_tensors(self.draws), _tensors(draws))
+        if sp is not None:
+            _copy_into(_tensors(self.sp), _tensors(sp))
         self.t_dev.zero_()
         self.n_dev.zero_()
         plan, (step, size) = drv._schedule(carry.agent_state, self.n_slots)

@@ -23,7 +23,8 @@ On top of ``poisson``/``mmpp``: device churn (members leave/join w.p.
 ``churn_prob`` a slot) and AR(1) rates and capacity (coefficient
 ``ar1_rho``, variance matched to the iid uniform draw, clipped to the
 configured ranges). Every knob is read from a ``ScenarioParams`` (``sp``;
-None: the env's own), and churn and AR(1) are branch-free, as in the
+None: the env's own; shared, or with the state's batch axes in front,
+one scenario per fleet), and churn and AR(1) are branch-free, as in the
 reference. Leaves are one network's axes with any leading batch axes.
 
 Every raw draw sits behind a seam: ``init`` and ``sample`` take the
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.mec.config import ScenarioParams
-from repro_torch.mec.env import (MECEnv, SlotUniforms, _scale,
+from repro_torch.mec.env import (MECEnv, SlotUniforms, _knob, _scale,
                                  assemble_slot)
 
 KINDS = ("iid", "poisson", "mmpp")
@@ -118,10 +119,11 @@ class WorkloadGen:
                 torch.rand(batch + (n,), generator=generator, device=dev))
         batch = tuple(draws.capacity.shape[:-1])
         return WorkloadState(
-            rate_true=_scale(draws.rate, sp.rate_mbps[0],
-                             sp.rate_mbps[1]) * 1e6,
-            capacity=_scale(draws.capacity, sp.capacity_range[0],
-                            sp.capacity_range[1]),
+            rate_true=_scale(draws.rate, _knob(sp.rate_mbps[..., 0], 2),
+                             _knob(sp.rate_mbps[..., 1], 2)) * 1e6,
+            capacity=_scale(draws.capacity,
+                            _knob(sp.capacity_range[..., 0], 1),
+                            _knob(sp.capacity_range[..., 1], 1)),
             member=torch.ones(batch + (m,), device=dev),
             burst=torch.zeros(batch, dtype=torch.int32, device=dev))
 
@@ -166,30 +168,35 @@ class WorkloadGen:
         # --- arrival process -> active mask
         if self.kind == "poisson":
             burst = state.burst
-            p_arr = torch.clamp(sp.arrival_rate, 0.0, 1.0)
+            p_arr = _knob(torch.clamp(sp.arrival_rate, 0.0, 1.0), 1)
         else:  # mmpp
             u = draws.burst
-            flip = torch.where(state.burst == 0, u < sp.mmpp_switch[0],
-                               u < sp.mmpp_switch[1])
+            flip = torch.where(state.burst == 0, u < sp.mmpp_switch[..., 0],
+                               u < sp.mmpp_switch[..., 1])
             burst = torch.where(flip, 1 - state.burst, state.burst)
-            p_arr = torch.where(burst == 0, sp.mmpp_rates[0],
-                                sp.mmpp_rates[1])[..., None]
+            p_arr = torch.where(burst == 0, sp.mmpp_rates[..., 0],
+                                sp.mmpp_rates[..., 1])[..., None]
         arrive = draws.arrive < p_arr
 
         # --- device churn (churn_prob=0 never toggles)
-        toggle = draws.churn < torch.clamp(sp.churn_prob, 0.0, 1.0)
+        toggle = draws.churn < _knob(torch.clamp(sp.churn_prob, 0.0, 1.0), 1)
         member = torch.where(toggle, 1.0 - state.member, state.member)
         active = arrive.to(torch.float32) * member
 
         # --- time-correlated channel/capacity (AR(1) when ar1_rho > 0,
         # else fresh uniform as in sample_slot)
-        rate_true = _ar1(draws.rate, state.rate_true, lo=sp.rate_bps[0],
-                         hi=sp.rate_bps[1], mu=sp.ar1_mu_rate,
-                         noise_scale=sp.ar1_noise_rate, rho=sp.ar1_rho)
+        rate_true = _ar1(draws.rate, state.rate_true,
+                         lo=_knob(sp.rate_bps[..., 0], 2),
+                         hi=_knob(sp.rate_bps[..., 1], 2),
+                         mu=_knob(sp.ar1_mu_rate, 2),
+                         noise_scale=_knob(sp.ar1_noise_rate, 2),
+                         rho=_knob(sp.ar1_rho, 2))
         capacity = _ar1(draws.capacity, state.capacity,
-                        lo=sp.capacity_range[0], hi=sp.capacity_range[1],
-                        mu=sp.ar1_mu_cap, noise_scale=sp.ar1_noise_cap,
-                        rho=sp.ar1_rho)
+                        lo=_knob(sp.capacity_range[..., 0], 1),
+                        hi=_knob(sp.capacity_range[..., 1], 1),
+                        mu=_knob(sp.ar1_mu_cap, 1),
+                        noise_scale=_knob(sp.ar1_noise_cap, 1),
+                        rho=_knob(sp.ar1_rho, 1))
 
         new_state = WorkloadState(rate_true=rate_true, capacity=capacity,
                                   member=member, burst=burst)

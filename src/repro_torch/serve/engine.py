@@ -415,18 +415,16 @@ class EdgeServingEngine(_ServingCore):
         every position's input is a device-side select between the next
         prompt column and the token just generated (teacher-forcing while
         inside each prompt), and the generated tokens come back in **one**
-        device->host copy at the end; ``transfers`` counts both.
+        device->host copy at the end; ``transfers`` counts both. A batch
+        that needs more positions than ``cache_len`` decodes over the
+        wrapped cache (``apply_decode`` writes at ``pos % cache_len`` and
+        attends every row), as the reference does.
         """
         dev = self.device
         b = len(requests)
         prompts = [np.asarray(r.tokens, np.int64) for r in requests]
         lens = np.array([len(p) for p in prompts], np.int64)
         total = int(lens.max()) + max(r.max_new for r in requests)
-        if total > self.cache_len:
-            raise ValueError(f"a prompt of {int(lens.max())} tokens and "
-                             f"{total - int(lens.max())} new ones need "
-                             f"{total} cache rows; the engine has "
-                             f"{self.cache_len}")
         cache = self.model.init_cache(self.cfg, b, self.cache_len,
                                       device=dev)
         mat = np.zeros((b, total), np.int64)

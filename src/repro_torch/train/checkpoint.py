@@ -111,7 +111,7 @@ def restore_agent_state(path: str, like: AgentDef, device=None
     """Read a reference ``save_agent_state`` file (or the port's) into an
     ``AgentState`` on ``device`` (default ``like.device``), every name,
     shape and dtype checked against the reference's fields and ``like``'s
-    widths. The stored RNG ``key`` leaf is dropped: the port's draws come
+    actor family and widths. The stored RNG ``key`` leaf is dropped: the port's draws come
     from the caller's generator."""
     flat = restore_checkpoint(path)
     tree = unflatten_dict({k.removeprefix("/"): v for k, v in flat.items()})
@@ -130,9 +130,14 @@ def restore_agent_state(path: str, like: AgentDef, device=None
         raise ValueError(f"{path}: replay entries {sorted(replay)}")
     fields["replay"] = {f: replay[f"__seq{i}"]
                         for i, f in enumerate(REPLAY_FIELDS)}
+    env = like.env
     state = agent_state_from_numpy(
         fields, like.device if device is None else device,
-        hidden=like.hidden)
+        hidden=like.hidden, dims=(env.M, env.N, env.L))
+    if set(state.params) != set(like.param_shapes()):
+        raise ValueError(f"{path}: an actor of layers {sorted(state.params)}"
+                         f", the def's ({like.actor}) has "
+                         f"{sorted(like.param_shapes())}")
     if state.replay.capacity != like.buffer_size or tuple(
             state.replay.adj.shape[1:]) != like.graph_shapes().adj:
         raise ValueError(

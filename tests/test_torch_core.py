@@ -1,5 +1,6 @@
-"""repro_torch graph, quantizer, GCN actor, decision pass and weight
-bridge against the JAX reference, on the same inputs."""
+"""repro_torch graph, quantizers, GCN and MLP actors, decision pass, host
+replay buffer, agent shim and weight bridge against the JAX reference,
+on the same inputs."""
 import os
 import sys
 
@@ -11,15 +12,24 @@ import torch
 
 from repro.core import gcn as jax_gcn
 from repro.core.graph import build_graph as jax_build_graph
+from repro.core.graph import pad_graph as jax_pad_graph
+from repro.core.policy import MLPActor as JaxMLPActor
 from repro.core.policy import agent_def as jax_agent_def
+from repro.core.quantize import \
+    binary_order_preserving as jax_binary_candidates
 from repro.core.quantize import one_hot_candidates as jax_candidates
+from repro.core.replay import ReplayBuffer as JaxReplayBuffer
 from repro.mec import MECEnv as JaxEnv
 from repro.mec import make_scenario as jax_scenario
-from repro_torch.core import (MECGraph, agent_def, agent_state_from_params,
-                              build_graph, one_hot_candidates,
+from repro.nn import MLP as JaxMLP
+from repro_torch.core import (MECGraph, MLPActor, ReplayBuffer,
+                              agent_def, agent_state_from_params,
+                              binary_order_preserving, build_graph,
+                              one_hot_candidates, pad_graph,
                               params_from_numpy)
 from repro_torch.core import gcn
 from repro_torch.mec import MECEnv, MECState, SlotTasks, make_scenario
+from repro_torch.nn import MLP
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -180,3 +190,141 @@ def test_bridge_rejects_mismatch(break_it, error):
     break_it(params)
     with pytest.raises((ValueError, TypeError), match=error):
         params_from_numpy(params, "cpu")
+
+
+# ------------------------------------------------- DROO's MLP actor
+def test_mlp_layer_matches_reference():
+    rng = np.random.default_rng(0)
+    params = JaxMLP.init(jax.random.PRNGKey(2), 9, 17, 5)
+    x = rng.normal(size=(3, 4, 9)).astype(np.float32)
+    want = JaxMLP.apply(params, jnp.asarray(x))
+    got = MLP.apply(jax.tree_util.tree_map(
+        lambda a: torch.tensor(np.asarray(a)), params), torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("name", ["fig8_csi", "dyn_topology"])
+def test_mlp_actor_apply_matches_reference(name):
+    """DROO's actor at M=14 (trunk 56 -> 256 -> 256, head 256 -> 140) on
+    the reference's graphs and its init's params carried over: x̂ and the
+    masked logits within 1e-5, a fleet batch of two graphs."""
+    jenv, _, _, obs = jax_obs(name, seed=4)
+    params = JaxMLPActor.init(jax.random.PRNGKey(5), jenv.M, jenv.N,
+                              jenv.N * jenv.L)
+    g = jax_build_graph(obs, jenv.N, jenv.L)
+    g = jax.tree_util.tree_map(lambda x: jnp.stack([x, x * 0.5]), g)
+    want_x, want_l = jax.jit(JaxMLPActor.apply, static_argnums=2)(
+        params, g, jenv.L)
+    p = params_from_numpy(np_tree(params), "cpu",
+                          dims=(jenv.M, jenv.N, jenv.L))
+    assert tuple(p["trunk"]["fc1"]["w"].shape) == (56, 256)
+    assert tuple(p["head"]["w"].shape) == (256, 140)
+    pg = MECGraph(*(torch.tensor(np.asarray(x)) for x in g))
+    np.testing.assert_allclose(
+        MLPActor.features(pg, jenv.L).numpy(),
+        np.asarray(JaxMLPActor.features(g, jenv.L)), rtol=0, atol=0)
+    got_x, got_l = MLPActor.apply(p, pg, jenv.L)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), **TOL)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **TOL)
+
+
+@pytest.mark.parametrize("method", ["droo", "drooe"])
+@pytest.mark.parametrize("name", ["fig5_baseline", "dyn_topology"])
+def test_mlp_decide_matches_reference(method, name):
+    """DROO/DROOE with the reference's init params and exploration draws
+    injected: the reference's decision and critic value."""
+    jenv = JaxEnv(jax_scenario(name))
+    jdef = jax_agent_def(method, jenv)
+    jst = jdef.init(jax.random.PRNGKey(11))
+    env = MECEnv(make_scenario(name), device="cpu")
+    pdef = agent_def(method, env, device="cpu")
+    st = agent_state_from_params(pdef, np_tree(jst.params),
+                                 np.asarray(jst.exit_mask))
+    decide = jax.jit(jdef.decide_with)
+    for seed in range(3):
+        k_task, k_dec = jax.random.split(jax.random.PRNGKey(seed))
+        tasks = jenv.sample_slot(k_task)
+        state = jenv.reset()._replace(slot=jnp.asarray(seed, jnp.int32))
+        dec, q, g = decide(jst.params, jst.exit_mask, state, tasks, k_dec)
+        allowed = (jst.exit_mask[None, :] > 0.5) & (g.mask > 0.5)
+        gumbel = jax.random.gumbel(k_dec, (jdef.n_random, *allowed.shape))
+        rand = jnp.argmax(jnp.where(allowed[None], gumbel, -jnp.inf), -1)
+        p_dec, p_q, _ = pdef.decide(
+            st, MECState(*(torch.tensor(np.asarray(x)) for x in state)),
+            SlotTasks(*(torch.tensor(np.asarray(x)) for x in tasks)),
+            rand_cands=torch.tensor(np.asarray(rand)))
+        np.testing.assert_array_equal(p_dec.numpy(), np.asarray(dec))
+        np.testing.assert_allclose(float(p_q), float(q), rtol=1e-5)
+
+
+def test_mlp_bridge_checks_shapes():
+    params = np_tree(JaxMLPActor.init(jax.random.PRNGKey(0), 6, 2, 10))
+    p = params_from_numpy(params, "cpu", dims=(6, 2, 5))
+    assert p["trunk"]["fc2"]["w"].shape == (256, 256)
+    with pytest.raises(ValueError, match="dims"):
+        params_from_numpy(params, "cpu")
+    with pytest.raises(ValueError, match="head/w: shape"):
+        params_from_numpy(params, "cpu", dims=(6, 2, 4))
+    params["trunk"].pop("fc2")
+    with pytest.raises(ValueError, match="trunk: leaves"):
+        params_from_numpy(params, "cpu", dims=(6, 2, 5))
+
+
+@pytest.mark.parametrize("shape,n_cand", [((7,), 8), ((7,), 3), ((4, 5), 6),
+                                          ((3, 1), 1)])
+def test_binary_order_preserving_matches_reference(shape, n_cand):
+    """Exact, with ties in |x̂−0.5| and batch rows equal to per-row
+    calls."""
+    rng = np.random.default_rng(sum(shape) + n_cand)
+    x = rng.uniform(size=shape).astype(np.float32)
+    x[..., 0] = 0.5
+    if shape[-1] > 2:
+        x[..., 1] = 0.75
+        x[..., 2] = 0.25                       # a tie with x[..., 1]
+    got = binary_order_preserving(torch.tensor(x), n_cand)
+    assert got.dtype == torch.int32
+    rows = x.reshape(-1, shape[-1])
+    want = np.stack([np.asarray(jax_binary_candidates(jnp.asarray(r), n_cand))
+                     for r in rows])
+    np.testing.assert_array_equal(
+        got.numpy().reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("batch,pad_to", [((), 14), ((3,), 20), ((2, 2), 9)])
+def test_pad_graph_matches_reference(batch, pad_to):
+    jenv, _, _, obs = jax_obs(m=9)
+    g = jax_build_graph(obs, jenv.N, jenv.L)
+    g = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, batch + x.shape) + 0.0, g)
+    want = jax_pad_graph(g, pad_to)
+    got = pad_graph(MECGraph(*(torch.tensor(np.asarray(x)) for x in g)),
+                    pad_to)
+    for f in MECGraph._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    with pytest.raises(ValueError, match="cannot pad"):
+        pad_graph(got, 3)
+
+
+def test_replay_buffer_matches_reference():
+    """The host ring with the same seed: the same sampled entries, in
+    order, before and after it wraps; the batch shrinks to the stored
+    count."""
+    jenv, _, _, obs = jax_obs(m=5)
+    g0 = jax_build_graph(obs, jenv.N, jenv.L)
+    jbuf, buf = JaxReplayBuffer(6, seed=3), ReplayBuffer(6, seed=3)
+    rng = np.random.default_rng(0)
+    for i in range(9):
+        g = jax.tree_util.tree_map(lambda x: x + float(i), g0)
+        dec = rng.integers(0, 10, size=5).astype(np.int32)
+        jbuf.add(g, dec)
+        buf.add(MECGraph(*(torch.tensor(np.asarray(x)) for x in g)),
+                torch.tensor(dec))
+        assert len(buf) == len(jbuf)
+        for n in (4, 8):
+            (jg, jd), (pg, pd) = jbuf.sample(n), buf.sample(n)
+            np.testing.assert_array_equal(pd, jd)
+            for f in MECGraph._fields:
+                np.testing.assert_array_equal(getattr(pg, f),
+                                              np.asarray(getattr(jg, f)))

@@ -320,6 +320,40 @@ def test_scan_captures_while_dropped_graphs_await_collection(cuda):
     assert trace.decisions.shape == (3, 2, env.M)
 
 
+@pytest.mark.parametrize("method", ["grle", "drooe"])
+def test_scan_dynamic_per_fleet_equals_loop(cuda, method):
+    """A poisson workload with one sampled scenario per fleet and training
+    on: scan (CUDA graphs) equals the loop bit for bit on one seed; a
+    swapped ``sp`` of the same shapes replays the same graphs and again
+    equals its loop; the MLP actor launches no actor kernel."""
+    from repro_torch.mec import ScenarioParams, scenario_space
+    env = MECEnv(make_scenario("dyn_churn", n_devices=6), device=cuda)
+    drv = RolloutDriver(agent_def(method, env, device=cuda), 8, train=True,
+                        replay_capacity=32, batch_size=8, train_every=5,
+                        per_fleet_scenarios=True, device=cuda)
+    space = scenario_space("dyn_churn", "dyn_markov_channel", n_devices=6,
+                           device=cuda)
+    sp = space.sample_batch(torch.Generator(cuda).manual_seed(0), 8)
+    sp2 = ScenarioParams(*(x.flip(0) for x in sp))
+
+    def same(a, b):
+        return all(torch.equal(torch.nan_to_num(x, nan=7.0),
+                               torch.nan_to_num(y, nan=7.0))
+                   for x, y in zip(a[1], b[1]))
+
+    ops.reset_launch_counts()
+    loop = drv.run(3, 20, mode="loop", sp=sp)
+    counts = ops.launch_counts()
+    assert (counts["gcn_agg"] > 0) == (method == "grle")
+    scan = drv.run(3, 20, sp=sp)
+    episode = drv._episode
+    assert same(loop, scan)
+    scan2 = drv.run(3, 20, sp=sp2)
+    assert drv._episode is episode
+    assert same(drv.run(3, 20, mode="loop", sp=sp2), scan2)
+    assert int(scan[0].agent_state.loss_count) == 4
+
+
 def test_hist_add_sends_nan_and_inf_where_the_reference_does(cuda):
     """On the card too: -inf underflows, +inf and NaN overflow."""
     h = hist_init([0.0, 1.0, 2.0, 3.0], device=cuda)

@@ -44,6 +44,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.obs, repro_torch.rollout.replay\n"
             "import repro_torch.serve, repro_torch.obs.history\n"
             "import repro_torch.obs.log, repro_torch.launch.serve\n"
+            "import repro_torch.core.agent, repro_torch.core.replay\n"
+            "import repro_torch.mec.scenarios\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

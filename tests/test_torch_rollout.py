@@ -1,12 +1,15 @@
-"""The port's GRLE decision path as a whole, against the JAX driver.
+"""The port's driver as a whole, against the JAX driver.
 
-The JAX ``RolloutDriver(train=False).run(mode="loop")`` draws its tasks
-and exploration candidates from threefry keys; those draws are rebuilt
-from the driver's key schedule (``tools/make_torch_port_golden.py``) and
+The JAX ``RolloutDriver.run(mode="loop")`` draws its tasks and
+exploration candidates from threefry keys; those draws are rebuilt from
+the driver's key schedule (``tools/make_torch_port_golden.py``) and
 injected into the port's driver, which must then make the same decisions.
-``tests/data/torch_port_golden.npz`` carries one such run (fig5_baseline)
-to the GPU machine, where JAX is not installed; the first test here keeps
-it current.
+``tests/data/torch_port_golden.npz`` carries one GRLE run (fig5_baseline)
+and ``tests/data/torch_port_dyn_golden.npz`` three training runs (DROO,
+DROOE on an mmpp workload, GRLE with one scenario per fleet) to the GPU
+machine, where JAX is not installed; tests here keep them current. The
+poisson/mmpp scenarios run against live JAX drivers on their raw
+workload draws; per-fleet scenarios equal one-fleet runs bit for bit.
 """
 import gc
 import os
@@ -17,12 +20,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import agent_def, agent_state_from_params
-from repro_torch.mec import MECEnv, MECState, SlotTasks, make_scenario
+from repro_torch.core import agent_def, agent_state_from_params, make_agent
+from repro_torch.mec import (MECEnv, MECState, ScenarioParams, SlotTasks,
+                             SlotUniforms, make_scenario, scenario_space)
+from repro_torch.nn.pytree import flatten_dict
 from repro_torch.obs import telemetry_host
-from repro_torch.rollout import (RolloutDriver, SlotDraws, carry_metrics,
-                                 carry_telemetry, trace_metrics)
-from repro_torch.rollout.driver import _tensors
+from repro_torch.rollout import (InitDraws, RolloutDriver, SlotDraws,
+                                 WorkloadDraws, carry_metrics,
+                                 carry_telemetry, make_workload,
+                                 trace_metrics)
+from repro_torch.rollout.driver import _at, _refill, _tensors
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -363,3 +370,398 @@ def test_a_dropped_driver_is_freed_at_once():
     finally:
         if collecting:
             gc.enable()
+
+
+# ---------------------------- dynamic workloads, per-fleet scenarios
+@pytest.fixture(scope="module")
+def dyn_golden():
+    with np.load(golden_tool.DYN_GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+def t(x, dtype=None):
+    return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+def dyn_slot_draws(data, take=None):
+    """``SlotDraws`` of one stored run: the tasks (iid), or the workload's
+    init and per-slot raw uniforms (poisson/mmpp)."""
+    rand = t(data["rand_cands"].astype(np.int64))
+    if "init/rate" not in data:
+        return SlotDraws(SlotTasks(*(t(data[f"tasks/{f}"])
+                                     for f in SlotTasks._fields)), rand, take)
+    slot = SlotUniforms(*(t(data[f"wl/slot/{f}"])
+                          for f in SlotUniforms._fields))
+    wl = WorkloadDraws(*(t(data[f"wl/{f}"])
+                         for f in WorkloadDraws._fields[:-1]), slot)
+    return SlotDraws(None, rand, take,
+                     init=InitDraws(t(data["init/rate"]),
+                                    t(data["init/capacity"])),
+                     workload=wl)
+
+
+def stored_sp(data):
+    if "sp/task_kb" not in data:
+        return None
+    return ScenarioParams(*(t(data[f"sp/{f}"])
+                            for f in ScenarioParams._fields))
+
+
+def port_dyn_run(data, mode):
+    """A stored run of ``torch_port_dyn_golden.npz`` through the port's
+    driver: its initial params, draws, minibatch rows and scenarios."""
+    env = MECEnv(make_scenario(str(data["scenario"])), device="cpu")
+    sp = stored_sp(data)
+    drv = RolloutDriver(agent_def(str(data["method"]), env, device="cpu"),
+                        golden_tool.DYN_FLEETS, train=True,
+                        per_fleet_scenarios=sp is not None, device="cpu",
+                        **golden_tool.DYN_KW)
+    st = agent_state_from_params(drv.adef, golden_tool.tree_of(
+        data, "init_params"), data["exit_mask"])
+    carry, trace = drv.run(0, golden_tool.DYN_SLOTS, mode=mode,
+                           agent_state=st, sp=sp,
+                           draws=dyn_slot_draws(data,
+                                                t(data["replay_take"])))
+    return drv, carry, trace
+
+
+@pytest.mark.parametrize("run", list(golden_tool.DYN_RUNS))
+def test_dyn_golden_file_is_current(dyn_golden, run):
+    """Rebuilding each stored run with the JAX package gives the stored
+    arrays: integers exactly, floats to 1e-6."""
+    data = golden_tool.build_dyn_run(run)
+    stored = golden_tool.run_of(dyn_golden, run)
+    assert set(data) == set(stored)
+    for k, v in data.items():
+        want = stored[k]
+        if np.issubdtype(want.dtype, np.floating):
+            np.testing.assert_allclose(v, want, rtol=1e-6, atol=1e-7,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, want, err_msg=k)
+    assert os.path.getsize(golden_tool.DYN_GOLDEN) < 4 << 20
+
+
+NEAR_TIE = 1e-5     # chip_smoke.py's: a flipped decision's recorded margin
+
+
+def check_dyn_replay(drv, carry, trace, data):
+    """``chip_smoke.py`` phase 17's gate on a stored run: decisions equal
+    up to the first slot where one differs, which must be at a recorded
+    near-tie (critic or actor margin <= 1e-5) after the first train step;
+    before it, activity exactly, losses within 1e-5 relative, q_est and
+    rewards within 1e-5; without a flip, also the final params and Adam
+    moments (rtol 1e-4, atol 2e-7) and the §VI-D metrics. Returns the
+    slots compared."""
+    dec, want = trace.decisions.numpy(), data["trace/decisions"]
+    n_slots = want.shape[0]
+    flipped = np.flatnonzero((dec != want).any(-1).any(-1))
+    stop = int(flipped[0]) if flipped.size else n_slots
+    if stop < n_slots:
+        for b in np.flatnonzero((dec[stop] != want[stop]).any(-1)):
+            margin = min(data["q_margin"][stop, b],
+                         data["xhat_margin"][stop, b])
+            assert margin <= NEAR_TIE, (
+                f"slot {stop} fleet {b}: decision differs at margin "
+                f"{margin:.3g}")
+    assert stop > int(data["train_slots"][0]) - 1, (
+        f"a decision flipped at slot {stop}, before the first train step")
+    cut = slice(0, stop)
+    np.testing.assert_array_equal(trace.active.numpy()[cut],
+                                  data["trace/active"][cut])
+    loss, want_loss = trace.loss.numpy()[cut], data["trace/loss"][cut]
+    np.testing.assert_array_equal(np.isnan(loss), np.isnan(want_loss))
+    ok = ~np.isnan(want_loss)
+    np.testing.assert_allclose(loss[ok], want_loss[ok], rtol=1e-5)
+    np.testing.assert_allclose(trace.q_est.numpy()[cut],
+                               data["trace/q_est"][cut], rtol=TOL)
+    np.testing.assert_allclose(trace.reward.numpy()[cut],
+                               data["trace/reward"][cut], rtol=TOL,
+                               atol=1e-7)
+    if stop < n_slots:
+        return stop
+    fin = carry.agent_state
+    for name, tree in (("params", fin.params), ("mu", fin.opt_state["mu"]),
+                       ("nu", fin.opt_state["nu"])):
+        want_t = flatten_dict(golden_tool.tree_of(data, f"final/{name}"))
+        got_t = flatten_dict(tree)
+        assert set(got_t) == set(want_t)
+        for k, w in want_t.items():
+            np.testing.assert_allclose(
+                got_t[k].numpy(), w, err_msg=f"{name}/{k}",
+                **(dict(rtol=1e-4, atol=2e-7) if name != "nu"
+                   else dict(rtol=1e-4, atol=1e-12)))
+    assert int(fin.opt_state["step"]) == int(data["final/opt_step"]) == 12
+    m = drv.metrics(carry)
+    for k in ("ssp", "avg_accuracy", "tasks", "train_steps"):
+        np.testing.assert_allclose(m[k], float(data[f"metrics/{k}"]),
+                                   rtol=1e-6, err_msg=k)
+    return stop
+
+
+@pytest.mark.parametrize("mode", ["loop", "scan"])
+@pytest.mark.parametrize("run", list(golden_tool.DYN_RUNS))
+def test_port_replays_dyn_golden(dyn_golden, run, mode):
+    """DROO on fig8_csi, DROOE on dyn_bursty (mmpp, the workload state fed
+    its raw uniforms) and GRLE with one sampled scenario per fleet on
+    dyn_markov_channel, each B=4, T=64 with 12 train steps, from the JAX
+    run's initial params, through ``check_dyn_replay``. DROO's critic
+    meets exact ties (symmetric assignments score the same up to the
+    summation order, where the reference's own driver and a replay of it
+    disagree on most seeds), so its run is held up to its first tie (and
+    whole by ``test_port_teacher_forced_on_dyn_golden``); the other two
+    run whole."""
+    data = golden_tool.run_of(dyn_golden, run)
+    stop = check_dyn_replay(*port_dyn_run(data, mode), data)
+    if run != "droo_fig8":
+        assert stop == golden_tool.DYN_SLOTS
+
+
+@pytest.mark.parametrize("run", list(golden_tool.DYN_RUNS))
+def test_port_teacher_forced_on_dyn_golden(dyn_golden, run):
+    """Each stored run teacher-forced: every slot the port decides from its
+    own learner on the run's draws (its decision the run's, or different
+    only at a recorded near-tie), then the env and the learner take the
+    run's decision, so DROO's critic ties cannot move the rest of the
+    run: all 12 losses within 1e-5, the final params and Adam moments
+    within rtol 1e-4 / atol 2e-7."""
+    data = golden_tool.run_of(dyn_golden, run)
+    env = MECEnv(make_scenario(str(data["scenario"])), device="cpu")
+    sp = stored_sp(data)
+    adef = RolloutDriver(agent_def(str(data["method"]), env, device="cpu"),
+                         golden_tool.DYN_FLEETS, device="cpu",
+                         **golden_tool.DYN_KW).adef
+    draws = dyn_slot_draws(data, t(data["replay_take"]))
+    gen = make_workload(env)
+    wl = (None if draws.init is None
+          else gen.init(None, sp, draws=draws.init))
+    agent = adef.episode_state(agent_state_from_params(
+        adef, golden_tool.tree_of(data, "init_params"), data["exit_mask"]))
+    env_state = env.reset((golden_tool.DYN_FLEETS,))
+    want = t(data["trace/decisions"])
+    losses, n_train = [], 0
+    for k in range(golden_tool.DYN_SLOTS):
+        if draws.tasks is not None:
+            tasks = SlotTasks(*(x[k] for x in draws.tasks))
+        else:
+            wl, tasks = gen.sample(wl, None, sp, draws=_at(draws.workload, k))
+        dec, _, graphs = adef.decide(agent, env_state, tasks, sp=sp,
+                                     rand_cands=draws.rand_cands[k])
+        for b in np.flatnonzero((dec != want[k]).any(-1).numpy()):
+            assert min(data["q_margin"][k, b],
+                       data["xhat_margin"][k, b]) <= NEAR_TIE, (k, b)
+        take = None
+        if adef.train_due(agent, golden_tool.DYN_FLEETS):
+            take, n_train = draws.replay_take[n_train], n_train + 1
+        env_state, _ = env.step(env_state, tasks, want[k], sp)
+        agent, loss = adef.absorb(agent, graphs, want[k], take=take)
+        losses.append(float(loss))
+    loss, want_loss = np.asarray(losses), data["trace/loss"]
+    np.testing.assert_array_equal(np.isnan(loss), np.isnan(want_loss))
+    ok = ~np.isnan(want_loss)
+    assert n_train == ok.sum() == 12
+    np.testing.assert_allclose(loss[ok], want_loss[ok], rtol=1e-5)
+    for name, tree in (("params", agent.params),
+                       ("mu", agent.opt_state["mu"]),
+                       ("nu", agent.opt_state["nu"])):
+        want_t = flatten_dict(golden_tool.tree_of(data, f"final/{name}"))
+        got_t = flatten_dict(tree)
+        assert set(got_t) == set(want_t)
+        for key, w in want_t.items():
+            np.testing.assert_allclose(
+                got_t[key].numpy(), w, err_msg=f"{name}/{key}",
+                **(dict(rtol=1e-4, atol=2e-7) if name != "nu"
+                   else dict(rtol=1e-4, atol=1e-12)))
+
+
+def jax_dyn_run(scenario, golden, seed, n_fleets=4, n_slots=16):
+    """A live JAX ``train=False`` run of GRLE with the golden's trained
+    params on a poisson/mmpp scenario, its raw draws rebuilt, and the
+    critic's and actor's margins of a replay on them."""
+    import jax
+    from repro.core.policy import agent_def as jax_agent_def
+    from repro.mec import MECEnv as JaxEnv
+    from repro.mec import make_scenario as jax_scenario
+    from repro.rollout import RolloutDriver as JaxDriver
+    jdef = jax_agent_def("grle", JaxEnv(jax_scenario(scenario)))
+    st = golden_tool.agent_state(jdef, golden["params"], golden["exit_mask"])
+    _, trace = JaxDriver(jdef, n_fleets=n_fleets, train=False).run(
+        jax.random.PRNGKey(seed), n_slots, mode="loop", agent_state=st)
+    init, wl, tasks, rand = golden_tool.dyn_draws(
+        jdef, golden["exit_mask"], seed, n_fleets, n_slots)
+    ref = golden_tool.reference_episode(jdef, golden["params"],
+                                        golden["exit_mask"], tasks, rand)
+    want = {k: np.asarray(v) for k, v in trace._asdict().items()}
+    np.testing.assert_array_equal(ref["decisions"], want["decisions"])
+    return want, {**init, **wl, "rand_cands": rand}, ref
+
+
+def first_flip(got, want, q_margin, xhat_margin):
+    """The first slot where a decision differs (T if none); every fleet
+    that differs there must sit at a recorded near-tie."""
+    flipped = np.flatnonzero((got != want).any(-1).any(-1))
+    if not flipped.size:
+        return got.shape[0]
+    t = int(flipped[0])
+    for b in np.flatnonzero((got[t] != want[t]).any(-1)):
+        margin = min(q_margin[t, b], xhat_margin[t, b])
+        assert margin <= NEAR_TIE, (f"slot {t} fleet {b}: decision differs "
+                                    f"at margin {margin:.3g}")
+    return t
+
+
+@pytest.mark.parametrize("scenario", ["dyn_poisson", "dyn_bursty",
+                                      "dyn_churn", "dyn_markov_channel"])
+def test_driver_on_dynamic_scenarios_equals_jax(golden, scenario):
+    """Every poisson/mmpp scenario, B=4 fleets, T=16, the trained GRLE:
+    the port's driver fed the JAX driver's raw workload draws (its own
+    workload state advancing on them) makes the JAX decisions, or differs
+    first at a recorded near-tie (<= 1e-5), and up to there the same
+    activity, rewards and q_est within 1e-5."""
+    want, draws, ref = jax_dyn_run(scenario, golden, seed=12)
+    env = MECEnv(make_scenario(scenario), device="cpu")
+    drv = RolloutDriver(agent_def("grle", env, device="cpu"), 4,
+                        train=False, device="cpu")
+    st = agent_state_from_params(drv.adef, golden["params"],
+                                 golden["exit_mask"])
+    _, trace = drv.run(0, 16, mode="loop", agent_state=st,
+                       draws=dyn_slot_draws(draws))
+    stop = first_flip(trace.decisions.numpy(), want["decisions"],
+                      ref["q_margin"], ref["xhat_margin"])
+    assert stop >= 12
+    cut = slice(0, stop)
+    np.testing.assert_array_equal(trace.active.numpy()[cut],
+                                  want["active"][cut])
+    assert 0 < want["active"].mean() < 1
+    np.testing.assert_allclose(trace.reward.numpy()[cut],
+                               want["reward"][cut], rtol=TOL, atol=1e-7)
+    np.testing.assert_allclose(trace.q_est.numpy()[cut], want["q_est"][cut],
+                               rtol=TOL)
+
+
+def dyn_driver(b, per_fleet, method="grle", scenario="dyn_churn"):
+    env = MECEnv(make_scenario(scenario, n_devices=5), device="cpu")
+    adef = agent_def(method, env, device="cpu", hidden=(16, 8))
+    return RolloutDriver(adef, b, train=False, per_fleet_scenarios=per_fleet,
+                         device="cpu")
+
+
+def space_sp(b, seed=0):
+    return scenario_space("dyn_churn", "dyn_markov_channel", n_devices=5,
+                          device="cpu").sample_batch(
+        torch.Generator().manual_seed(seed), b)
+
+
+@pytest.mark.parametrize("method", ["grle", "droo"])
+def test_per_fleet_run_equals_one_fleet_runs(method):
+    """A B=3 run with one scenario per fleet equals, fleet by fleet, runs
+    each under one fleet's scenario, on the same draws: bit for bit the
+    B=3 runs with that scenario shared (one batch shape, so one summation
+    order), and one-fleet runs with equal decisions and activity, the
+    rest within 1e-6. This is the check that every knob is read per
+    fleet, not as the first fleet's."""
+    b, n_slots = 3, 12
+    sp = space_sp(b)
+    drv = dyn_driver(b, True, method)
+    st = drv.adef.init(torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    k, m, n, l = drv.adef.n_random, 5, drv.env.N, drv.env.L
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen)
+
+    slot = SlotUniforms(u(n_slots, b, m), u(n_slots, b, m, n),
+                        u(n_slots, b, n, l), u(n_slots, b, m, n))
+    wl = WorkloadDraws(u(n_slots, b), u(n_slots, b, m), u(n_slots, b, m),
+                       u(n_slots, b, m, n), u(n_slots, b, n), slot)
+    init = InitDraws(u(b, m, n), u(b, n))
+    rand = torch.randint(0, n * l, (n_slots, b, k, m), generator=gen)
+    draws = SlotDraws(None, rand, init=init, workload=wl)
+    assert len({float(x) for x in sp.arrival_rate}) == b
+    _, whole = drv.run(0, n_slots, mode="loop", agent_state=st, sp=sp,
+                       draws=draws)
+    shared, one = dyn_driver(b, False, method), dyn_driver(1, True, method)
+    for i in range(b):
+        sp_i = ScenarioParams(*(x[i] for x in sp))
+        _, same_shape = shared.run(0, n_slots, mode="loop", agent_state=st,
+                                   sp=sp_i, draws=draws)
+        d_i = SlotDraws(
+            None, rand[:, i:i + 1],
+            init=InitDraws(*(x[i:i + 1] for x in init)),
+            workload=_refill(wl, (x[:, i:i + 1] for x in _tensors(wl))))
+        _, alone = one.run(0, n_slots, mode="loop", agent_state=st,
+                           sp=ScenarioParams(*(x[i:i + 1] for x in sp)),
+                           draws=d_i)
+        for name, x, y, z in zip(whole._fields, whole, same_shape, alone):
+            if x.dim() < 2:                   # the loss, NaN: no training
+                continue
+            assert torch.equal(x[:, i], y[:, i]), (i, name)
+            if x.dtype in (torch.float32,):
+                np.testing.assert_allclose(z[:, 0].numpy(), x[:, i].numpy(),
+                                           rtol=1e-6, atol=1e-7,
+                                           err_msg=f"{i} {name}")
+            else:
+                assert torch.equal(x[:, i], z[:, 0]), (i, name)
+
+
+def test_scan_equals_loop_dynamic_per_fleet():
+    """dyn_churn with one scenario per fleet, training on: scan and loop
+    bit for bit on one seed of the driver's own generator; a swapped
+    ``sp`` of the same shapes replays the same compiled episode."""
+    env = MECEnv(make_scenario("dyn_churn", n_devices=4), device="cpu")
+    adef = agent_def("drooe", env, device="cpu")
+    drv = RolloutDriver(adef, 3, train=True, replay_capacity=32,
+                        batch_size=8, train_every=5, telemetry=True,
+                        per_fleet_scenarios=True, device="cpu")
+    sp = scenario_space("dyn_churn", "dyn_markov_channel", n_devices=4,
+                        device="cpu").sample_batch(
+        torch.Generator().manual_seed(0), 3)
+    loop = drv.run(5, 25, mode="loop", sp=sp)
+    scan = drv.run(5, 25, mode="scan", sp=sp)
+    assert_same_run(loop, scan)
+    assert int(scan[0].agent_state.loss_count) == 5
+    episode = drv._episode
+    sp2 = ScenarioParams(*(x.flip(0) for x in sp))
+    scan2 = drv.run(5, 25, sp=sp2)
+    assert drv._episode is episode
+    assert_same_run(drv.run(5, 25, mode="loop", sp=sp2), scan2)
+    assert not torch.equal(scan2[1].reward, scan[1].reward)
+    with pytest.raises(ValueError, match="leading"):
+        drv.run(5, 25, sp=ScenarioParams(*(x[0] for x in sp)))
+
+
+def test_driver_refuses_mismatched_draws_and_sp():
+    drv = dyn_driver(2, False)
+    with pytest.raises(ValueError, match="sp.task_kb"):
+        drv.run(0, 3, sp=space_sp(2))
+    iid = small_driver(train=False)
+    init = InitDraws(torch.zeros(2, 4, 2), torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="iid"):
+        iid.run(0, 3, draws=SlotDraws(None, torch.zeros(
+            3, 2, 16, 4, dtype=torch.int64), init=init))
+
+
+def test_agent_shim_through_the_driver_equals_agent_def():
+    """``make_agent`` (the deprecated ``OffloadingAgent``) drives the
+    driver as its ``AgentDef`` and state do; ``sync_agent`` writes the
+    result back into it."""
+    env = MECEnv(make_scenario("dyn_bursty", n_devices=4), device="cpu")
+    with pytest.warns(DeprecationWarning):
+        shim = make_agent("droo", env, 3, buffer_size=32, batch_size=8,
+                          train_every=5)
+    assert shim.adef.actor == "mlp" and not shim.early_exit
+    drv = RolloutDriver(shim, 2, device="cpu")
+    adef = agent_def("droo", env, device="cpu", buffer_size=32,
+                     batch_size=8, train_every=5)
+    st = adef.init(torch.Generator().manual_seed(3))
+    for a, b in zip(_tensors(st.params), _tensors(shim.state.params)):
+        assert torch.equal(a, b)
+    via_shim = drv.run(4, 20)
+    direct = RolloutDriver(adef, 2, device="cpu").run(4, 20, agent_state=st)
+    assert_same_run(via_shim, direct)
+    drv.sync_agent(via_shim[0])
+    assert shim.state is via_shim[0].agent_state
+    with pytest.raises(ValueError, match="AgentDef"):
+        RolloutDriver(adef, 2, device="cpu").sync_agent(direct[0])
+    dec, info = shim.act(env.reset(), env.sample_slot(shim.generator))
+    assert dec.shape == (4,) and "q_est" in info

@@ -10,12 +10,15 @@
 * ``llm_exit_profile`` with the reference's roofline constants and
   ``RunningMetrics`` on the same results: equal to JAX at 1e-6 relative.
 * ``EdgeServingEngine`` against a JAX engine (reduced ``qwen1_5_0_5b``,
-  f32, 12 slots with decoding and one train step, GRLE and GRL) with the
-  JAX run's LM params, initial ``AgentState`` and draws injected
-  (``tools/make_torch_port_golden.py``): assignments, texts, telemetry
-  counts, tokens served and the latency ring equal; rewards, the §VI-D
-  summary and losses within 1e-5 relative; final params within rtol 1e-4
-  / atol 2e-7. ``tests/data/torch_serve_golden.npz`` is that GRLE run.
+  f32, 12 slots with decoding and one train step; GRLE, GRL, DROOE and
+  DROO) with the JAX run's LM params, initial ``AgentState`` and draws
+  injected (``tools/make_torch_port_golden.py``): assignments, texts,
+  telemetry counts, tokens served and the latency ring equal; rewards,
+  the §VI-D summary and losses within 1e-5 relative; final params within
+  rtol 1e-4 / atol 2e-7. ``tests/data/torch_serve_golden.npz`` is that
+  GRLE run.
+* A request longer than the engine's 256-row cache decodes over the
+  wrapped cache to the JAX engine's tokens.
 * ``ContinuousServingEngine`` against JAX on a JAX trace, both hold
   policies: every step report equal; the counter law exact.
 * Port-only, on the port's own generator: the reference's
@@ -49,16 +52,18 @@ from repro_torch.core.bridge import (agent_state_from_numpy,
 from repro_torch.mec import (MECEnv, RunningMetrics, SlotTasks, SlotUniforms,
                              llm_exit_profile, make_scenario)
 from repro_torch.mec.profiles import H100_HBM_BW, H100_PEAK_BF16_FLOPS
+from repro_torch.nn.pytree import flatten_dict
 from repro_torch.obs import HistoryStore
 from repro_torch.rollout import (InitDraws, WorkloadDraws, WorkloadState,
                                  make_workload)
 from repro_torch.serve import (AgentPool, ContinuousServingEngine,
-                               EdgeServingEngine, Replica, ServeDraws,
-                               ServeRequest, VirtualClock, WallClock,
-                               batch_init, batch_occupancy, batch_release,
-                               make_trace, queue_depth, queue_expire,
-                               queue_init, queue_pop, queue_push,
-                               queue_requeue, sched_evict, sched_tick)
+                               EdgeServingEngine, Replica, Request,
+                               ServeDraws, ServeRequest, VirtualClock,
+                               WallClock, batch_init, batch_occupancy,
+                               batch_release, make_trace, queue_depth,
+                               queue_expire, queue_init, queue_pop,
+                               queue_push, queue_requeue, sched_evict,
+                               sched_tick)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -537,12 +542,12 @@ def check_sync(data, eng, out):
         np.testing.assert_allclose(summary[k], data[f"summary/{k}"],
                                    rtol=RTOL, err_msg=k)
     assert eng.tokens_served == int(data["tokens_served"])
-    final = golden_tool.tree_of(data, "final/params")
-    for layer, leaves in final.items():
-        for name, want in leaves.items():
-            np.testing.assert_allclose(
-                eng.agent_state.params[layer][name].numpy(), want,
-                err_msg=f"{layer}/{name}", **PARAM_TOL)
+    final = flatten_dict(golden_tool.tree_of(data, "final/params"))
+    got = flatten_dict(eng.agent_state.params)
+    assert set(got) == set(final)
+    for path, want in final.items():
+        np.testing.assert_allclose(got[path].numpy(), want, err_msg=path,
+                                   **PARAM_TOL)
 
 
 @pytest.mark.parametrize("method", ["grle", "grl"])
@@ -719,8 +724,15 @@ class TestSyncAsyncEquivalence:
 
     @pytest.mark.parametrize("method", ["droo", "drooe"])
     def test_mlp_schedulers_raise(self, method):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _engine(method=method)
+        """(Named for the refusal it pinned until DROO's MLP actor was
+        ported.) The sync engine behind DROO/DROOE equals the JAX engine's
+        12-slot run with decoding and a train step, from its initial
+        ``AgentState`` with its draws injected, as GRLE's does
+        (``check_sync``)."""
+        data, extra = golden_tool.serve_run(method)
+        eng, out = port_sync(data, state=extra["state0"])
+        assert eng.agent_def.actor == "mlp"
+        check_sync(data, eng, out)
 
 
 class TestHotSwapUnderLoad:
@@ -844,7 +856,10 @@ class TestTokenAccounting:
 
 def test_static_scheduler_and_decode_transfers():
     """``scheduler=None``: final exit, replicas round-robin; decoding
-    makes one upload and one download per exit group."""
+    makes one upload and one download per exit group. A request longer
+    than the 256-row cache (a 250-token prompt with 8 and with 40 new
+    tokens) decodes over the wrapped cache as the JAX engine does: the
+    same tokens, from ``lm_params_numpy`` weights on both sides."""
     eng = EdgeServingEngine(_arch(), _replicas(), scheduler=None,
                             batch_slots=4, seed=0, device="cpu")
     reqs = [eng.make_request(prompt_len=p, max_new=3) for p in (3, 5, 4)]
@@ -852,9 +867,20 @@ def test_static_scheduler_and_decode_transfers():
     assert assignments == [("a", 2), ("b", 2), ("a", 2)]
     assert [len(t) for t in info["texts"]] == [3, 3, 3]
     assert eng.transfers["decode_h2d"] == eng.transfers["decode_d2h"] == 1
-    with pytest.raises(ValueError, match="cache rows"):
-        eng.serve_slot([eng.make_request(prompt_len=250, max_new=8)],
-                       decode=True)
+    cfg = _arch()
+    eng.params = lm_params_from_numpy(lm_params_numpy(cfg, 0), cfg, "cpu")
+    jeng = golden_tool.serve_engine(None)
+    assert jeng.cache_len == eng.cache_len == 256
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab, 250).astype(
+        np.int32)
+    for max_new in (8, 40):
+        want = jeng.serve_slot([jax_engine.Request(
+            tokens=tokens, deadline_s=1.0, max_new=max_new)],
+            decode=True)[1]["texts"]
+        got = eng.serve_slot([Request(tokens=tokens, deadline_s=1.0,
+                                      max_new=max_new)], decode=True)[1]
+        assert len(got["texts"][0]) == max_new
+        assert got["texts"] == [list(map(int, t)) for t in want]
 
 
 def test_device_none_needs_a_gpu(monkeypatch):

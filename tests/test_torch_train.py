@@ -1,6 +1,7 @@
 """The port's training slice against the JAX package: the actor kernels'
 gradients, Adam, the replay ring, the Eq-16 loss, a train step, the train
-gate, a ``train=True`` episode and the checkpoint format.
+gate, a ``train=True`` episode and the checkpoint format, for the GCN
+actor and for DROO's MLP actor.
 
 Random draws cannot be shared bit for bit (threefry against torch's
 generators), so the reference's exploration candidates and replay rows
@@ -749,3 +750,108 @@ def test_checkpoint_readers_refuse_what_they_cannot_read(
         agent_state_from_numpy(bad, "cpu")
     with pytest.raises(ValueError, match="fields"):
         agent_state_from_numpy(np_tree(st)._asdict() | {"extra": 1}, "cpu")
+
+
+# ------------------------------------------- DROO's MLP actor
+@pytest.fixture(scope="module")
+def mlp_defs():
+    jenv = JaxEnv(jax_scenario("fig5_baseline"))
+    env = MECEnv(make_scenario("fig5_baseline"), device="cpu")
+    return {m: (jax_agent_def(m, jenv), agent_def(m, env, device="cpu"))
+            for m in ("droo", "drooe")}
+
+
+def filled_mlp_state(jdef, n_slots, seed):
+    """A reference DROO(E) state from its own init with ``n_slots`` of 4
+    fleets' pairs in its ring."""
+    st = jdef.init(jax.random.PRNGKey(seed))
+    for i in range(n_slots):
+        g, dec = jax_graphs(jdef.env, (4 * i + seed) % 252, 4)
+        st = st._replace(replay=jax_replay_add(st.replay, g, dec),
+                         step=st.step + 1)
+    return st
+
+
+@pytest.mark.parametrize("method", ["droo", "drooe"])
+def test_mlp_loss_and_grads_match_reference(mlp_defs, method):
+    """Eq 16 through DROO's MLP on a 64-graph minibatch: the loss and
+    every param's gradient against ``jax.value_and_grad`` (1e-5)."""
+    jdef, pdef = mlp_defs[method]
+    jst = jdef.init(jax.random.PRNGKey(3))
+    g, dec = jax_graphs(jdef.env, 7, 64)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jdef.loss))(
+        jst.params, g, dec, jst.exit_mask)
+    params = t_tree(jst.params)
+    leaves = [p.requires_grad_() for p in flatten_dict(params).values()]
+    loss = pdef.loss(params, port_graph(g), torch.tensor(np.asarray(dec)),
+                     torch.tensor(np.asarray(jst.exit_mask)))
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    want = flatten_dict(np_tree(want_grads))
+    assert set(want) == set(flatten_dict(params))
+    for (k, _), gr in zip(flatten_dict(params).items(), grads):
+        scale = np.abs(want[k]).max()
+        np.testing.assert_allclose(gr.numpy(), want[k], rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("method,n_slots", [("droo", 20), ("drooe", 40)])
+def test_mlp_train_step_matches_reference(mlp_defs, method, n_slots):
+    """Two Eq-16 + Adam steps of DROO(E) on the reference's minibatch rows
+    from its init (the second from nonzero moments): loss (1e-5), params
+    and first moments (rtol 1e-4, atol 2e-7), second moments, step and
+    loss stats."""
+    jdef, pdef = mlp_defs[method]
+    j_st = filled_mlp_state(jdef, n_slots, seed=n_slots)
+    t_st = agent_state_from_numpy(np_tree(j_st), "cpu")
+    assert set(t_st.params) == {"trunk", "head"}
+    train_step = jax.jit(jdef.train_step)
+    for _ in range(2):
+        take = jax_take(j_st.replay, jax.random.split(j_st.key)[1],
+                        jdef.batch_size)
+        j_st, j_loss = train_step(j_st)
+        t_st, t_loss = pdef.train_step(t_st, take=torch.tensor(take))
+        np.testing.assert_allclose(float(t_loss), float(j_loss),
+                                   rtol=LOSS_RTOL)
+        tol = dict(rtol=1e-4, atol=2e-7)
+        assert_tree_close(t_st.params, j_st.params, **tol)
+        assert_tree_close(t_st.opt_state["mu"], j_st.opt_state["mu"], **tol)
+        assert_tree_close(t_st.opt_state["nu"], j_st.opt_state["nu"],
+                          rtol=1e-4, atol=1e-12)
+    assert int(t_st.opt_state["step"]) == int(j_st.opt_state["step"]) == 2
+    assert int(t_st.loss_count) == int(j_st.loss_count) == 2
+    np.testing.assert_allclose(float(t_st.loss_sum), float(j_st.loss_sum),
+                               rtol=LOSS_RTOL)
+
+
+def test_mlp_checkpoint_both_ways(mlp_defs, tmp_path):
+    """A reference ``save_agent_state`` file of a trained DROO agent
+    restores into the port leaf for leaf, the port's file restores in the
+    reference, and a GCN def refuses the MLP file."""
+    jdef, pdef = mlp_defs["droo"]
+    st = filled_mlp_state(jdef, 20, seed=1)
+    st, _ = jax.jit(jdef.train_step)(st)
+    path = str(tmp_path / "droo.ckpt")
+    jax_ckpt.save_agent_state(path, st)
+    got = restore_agent_state(path, pdef, device="cpu")
+    want = np_tree(st)
+    assert_tree_close(got.params, want.params, rtol=0, atol=0)
+    assert_tree_close(got.opt_state["mu"], want.opt_state["mu"], rtol=0,
+                      atol=0)
+    assert_tree_close(got.opt_state["nu"], want.opt_state["nu"], rtol=0,
+                      atol=0)
+    for f in want.replay._fields:
+        np.testing.assert_array_equal(getattr(got.replay, f).numpy(),
+                                      getattr(want.replay, f), err_msg=f)
+    assert got.host_step == int(want.step) == 20
+    out = str(tmp_path / "port.ckpt")
+    save_agent_state(out, got)
+    back = jax_ckpt.restore_agent_state(out, jdef)
+    for (kp, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(back),
+                               jax.tree_util.tree_leaves_with_path(st)):
+        if "key" not in jax.tree_util.keystr(kp):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=jax.tree_util.keystr(kp))
+    grle = agent_def("grle", pdef.env, device="cpu")
+    with pytest.raises(ValueError, match="actor"):
+        restore_agent_state(path, grle)

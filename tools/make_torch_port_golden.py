@@ -1,12 +1,13 @@
 """Write ``tests/data/torch_port_golden.npz``,
-``tests/data/torch_port_train_golden.npz`` and
-``tests/data/torch_serve_golden.npz``: JAX GRLE traces with the random
+``tests/data/torch_port_train_golden.npz``,
+``tests/data/torch_serve_golden.npz`` and
+``tests/data/torch_port_dyn_golden.npz``: JAX traces with the random
 draws that produced them, for holding the PyTorch port (``repro_torch``)
 against the JAX package where JAX is not installed.
 
     PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
-        [--train-out PATH] [--serve-out PATH]
-        [--only decision|train|serve]
+        [--train-out PATH] [--serve-out PATH] [--dyn-out PATH]
+        [--only decision|train|serve|dyn]
 
 Runs on the CPU with JAX only. The decision file:
 
@@ -48,6 +49,18 @@ the draws, the exit table's roofline figures, and per slot the
 assignments, reward, loss and generated tokens, with the final params
 and the §VI-D summary. ``tests/test_torch_serve.py`` checks that a
 rebuild equals it.
+
+The dynamic and baseline file (``build_dyn``): the three runs of
+``DYN_RUNS``, each a ``RolloutDriver(train=True).run(mode="loop")``
+episode (B=4, T=64, ring 32, minibatch 8, a train step every 5 slots:
+12 steps) from the driver's own fresh params: DROO on fig8_csi (iid: the
+tasks injected), DROOE on dyn_bursty (mmpp) and GRLE with
+``per_fleet_scenarios=True`` on dyn_markov_channel under one
+``scenario_space("fig5_baseline", "fig8_csi").sample_batch`` draw per
+fleet (the poisson runs inject the workload's raw uniforms,
+``dyn_draws``, so the port advances its own workload state; the
+per-fleet ``sp`` is stored). Each run keeps what the training file keeps,
+under ``<run>/``.
 """
 from __future__ import annotations
 
@@ -63,9 +76,9 @@ from repro.core.devreplay import replay_sample
 from repro.core.graph import build_graph
 from repro.core.policy import agent_def
 from repro.core.quantize import one_hot_candidates
-from repro.mec import MECEnv, make_scenario
+from repro.mec import MECEnv, make_scenario, scenario_space
 from repro.mec.env import SlotTasks
-from repro.rollout import RolloutDriver
+from repro.rollout import RolloutDriver, make_workload
 from repro.rollout.metrics import metrics_finalize
 from repro.rollout.vecenv import VecMECEnv
 
@@ -88,6 +101,21 @@ SUMMARY_KEYS = ("ssp", "avg_accuracy", "throughput_tps", "avg_reward",
                 "tasks")
 TASK_FIELDS = ("size_bits", "deadline_s", "rate_true", "rate_est", "capacity",
                "cmp_true", "cmp_est", "connect", "active")
+DYN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_dyn_golden.npz")
+DYN_FLEETS, DYN_SLOTS = 4, 64
+DYN_KW = dict(replay_capacity=32, batch_size=8, train_every=5)
+# run -> (method, scenario, seed, scenario space of per-fleet draws or None).
+# DROO's seed is the first from 0 on which the reference's own driver and
+# its jitted replay (``reference_episode``) make the same decisions: DROO
+# meets exact critic ties, which the two programs break differently on
+# seeds 0-8.
+DYN_RUNS = {
+    "droo_fig8": ("droo", "fig8_csi", 9, None),
+    "drooe_bursty": ("drooe", "dyn_bursty", 4, None),
+    "grle_space": ("grle", "dyn_markov_channel", 5,
+                   ("fig5_baseline", "fig8_csi")),
+}
+DYN_SPACE_SEED = 6
 
 
 def grle(scenario: str):
@@ -159,7 +187,7 @@ def driver_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int):
 
 
 def reference_episode(adef, params, exit_mask, tasks, rand_cands,
-                      state=None):
+                      state=None, sp=None, sp_axis=None):
     """Replay the JAX decision path on injected draws, fleet-batched.
 
     Returns decisions, q_est, reward, the ``MECState`` before every slot
@@ -172,22 +200,23 @@ def reference_episode(adef, params, exit_mask, tasks, rand_cands,
     actor's params are the state's, and after every slot the learner
     absorbs the B fleets' (graph, decision) pairs as
     ``RolloutDriver(train=True)`` does; then the per-slot ``loss`` [T]
-    and the final ``agent_state`` are returned too.
+    and the final ``agent_state`` are returned too. ``sp`` is the run's
+    scenario, shared (``sp_axis=None``) or per fleet (``sp_axis=0``).
     """
     env = adef.env
     mask = jnp.asarray(exit_mask)
 
-    def fleet(state, t, rand, params):
-        g = build_graph(env.observe(state, t), env.N, env.L)
+    def fleet(state, t, rand, params, s):
+        g = build_graph(env.observe(state, t, s), env.N, env.L)
         x_hat, _ = adef.scores(params, g, mask)
         cands = jnp.concatenate(
             [one_hot_candidates(x_hat, adef.n_candidates), rand], axis=0)
-        q = env.evaluate(state, t, cands)
+        q = env.evaluate(state, t, cands, s)
         best = jnp.argmax(q)
-        new_state, res = env.step(state, t, cands[best])
+        new_state, res = env.step(state, t, cands[best], s)
         return new_state, res.reward, cands, q, best, x_hat, g
 
-    step = jax.jit(jax.vmap(fleet, in_axes=(0, 0, 0, None)))
+    step = jax.jit(jax.vmap(fleet, in_axes=(0, 0, 0, None, sp_axis)))
     absorb = jax.jit(adef.absorb)
     n_slots, n_fleets = rand_cands.shape[:2]
     env_state = VecMECEnv(env, n_fleets).reset()
@@ -201,7 +230,7 @@ def reference_episode(adef, params, exit_mask, tasks, rand_cands,
                                for f in TASK_FIELDS})
         env_state, reward, cands, q, best, x_hat, g = step(
             env_state, t_tasks, jnp.asarray(rand_cands[t], jnp.int32),
-            params)
+            params, sp)
         states.append(env_state)
         cands, q, best = map(np.asarray, (cands, q, best))
         x_hat = np.sort(np.asarray(x_hat), axis=-1)
@@ -308,13 +337,27 @@ def build_train(seed: int = TRAIN_EP_SEED):
 
 
 def tree_of(data: dict, prefix: str) -> dict:
-    """The ``{layer: {name: array}}`` tree stored under ``prefix/``."""
+    """The nested ``{layer: ... {name: array}}`` tree stored under
+    ``prefix/``."""
     tree = {}
     for k in data:
         if k.startswith(prefix + "/"):
-            layer, name = k[len(prefix) + 1:].split("/")
-            tree.setdefault(layer, {})[name] = data[k]
+            *heads, name = k[len(prefix) + 1:].split("/")
+            node = tree
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[name] = data[k]
     return tree
+
+
+def flat_tree(prefix: str, tree) -> dict:
+    """``{prefix/path: array}`` of a nested tree of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(f"{prefix}/{k}", v))
+        return out
+    return {prefix: np.asarray(tree)}
 
 
 def build(seed: int = EVAL_SEED, params=None):
@@ -349,6 +392,163 @@ def load(path: str = GOLDEN) -> dict:
     data = {k: v for k, v in data.items() if not k.startswith("params/")}
     data["params"] = params
     return data
+
+
+# ------------------------------------------------- dynamic and baselines
+def wl_uniforms(key, m: int, n: int, l: int) -> dict:
+    """The raw uniforms of one poisson/mmpp ``WorkloadGen.sample`` (one key
+    split nine ways), by ``WorkloadDraws`` field; the slot's four under
+    ``slot/``."""
+    ks = jax.random.split(key, 9)
+    u = jax.random.uniform
+    return {"burst": u(ks[0], ()), "arrive": u(ks[1], (m,)),
+            "churn": u(ks[2], (m,)), "rate": u(ks[3], (m, n)),
+            "capacity": u(ks[5], (n,)), "slot/size": u(ks[7], (m,)),
+            "slot/csi": u(ks[4], (m, n)), "slot/jitter": u(ks[6], (n, l)),
+            "slot/connect": u(ks[8], (m, n))}
+
+
+def dyn_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int,
+              sp=None, sp_axis=None):
+    """The draws ``RolloutDriver.run(PRNGKey(seed), sp=sp)`` makes on a
+    poisson/mmpp workload, rebuilt from its key schedule (``driver.py``
+    init_carry/_slot, ``workloads.py`` init/sample): the workload init's
+    uniforms [B, ...] (``init/rate``, ``init/capacity``), each slot's raw
+    workload uniforms [T, B, ...] (``wl/...``), the tasks they give
+    [T, B, ...] and the exploration candidates [T, B, K, M] (which depend
+    on the tasks' links)."""
+    env = adef.env
+    m, n, l = env.M, env.N, env.L
+    gen = make_workload(env)
+    vec = VecMECEnv(env, n_fleets)
+    k_task, k_dec, _, k_wl = jax.random.split(jax.random.PRNGKey(seed), 4)
+    wl_keys = vec.fleet_keys(k_wl)
+
+    def init_u(k):
+        kr, kc = jax.random.split(k)
+        return {"init/rate": jax.random.uniform(kr, (m, n)),
+                "init/capacity": jax.random.uniform(kc, (n,))}
+
+    init = {k: np.asarray(v) for k, v in jax.vmap(init_u)(wl_keys).items()}
+    wl_state = jax.vmap(gen.init, in_axes=(0, sp_axis))(wl_keys, sp)
+    task_keys, dec_keys = vec.fleet_keys(k_task), vec.fleet_keys(k_dec)
+    mask = jnp.asarray(exit_mask)
+
+    @jax.jit
+    def slot(wl_state, task_keys, dec_keys, sp):
+        task_keys, task_subs = VecMECEnv.split_keys(task_keys)
+        dec_keys, dec_subs = VecMECEnv.split_keys(dec_keys)
+        wl_state, tasks = jax.vmap(gen.sample, in_axes=(0, 0, sp_axis))(
+            wl_state, task_subs, sp)
+        u = jax.vmap(lambda k: wl_uniforms(k, m, n, l))(task_subs)
+
+        def rand(dk, connect):
+            g_mask = jnp.repeat(connect, l, axis=-1)
+            allowed = (mask[None, :] > 0.5) & (g_mask > 0.5)
+            gumbel = jax.random.gumbel(dk, (adef.n_random, *allowed.shape))
+            return jnp.argmax(jnp.where(allowed[None], gumbel, -jnp.inf),
+                              axis=-1).astype(jnp.int32)
+
+        return (wl_state, task_keys, dec_keys, tasks, u,
+                jax.vmap(rand)(dec_subs, tasks.connect))
+
+    tasks, us, rands = [], [], []
+    for _ in range(n_slots):
+        wl_state, task_keys, dec_keys, t, u, r = slot(wl_state, task_keys,
+                                                      dec_keys, sp)
+        tasks.append(t)
+        us.append(u)
+        rands.append(r)
+    tasks = {f: np.stack([np.asarray(getattr(t, f)) for t in tasks])
+             for f in TASK_FIELDS}
+    wl = {f"wl/{k}": np.stack([np.asarray(u[k]) for u in us])
+          for k in us[0]}
+    return init, wl, tasks, np.stack([np.asarray(r) for r in rands])
+
+
+def dyn_space_sp(space, n_fleets: int):
+    """The per-fleet scenarios of a run with a space: one
+    ``sample_batch`` draw per fleet from ``PRNGKey(DYN_SPACE_SEED)``."""
+    lo, hi = space
+    return scenario_space(lo, hi).sample_batch(
+        jax.random.PRNGKey(DYN_SPACE_SEED), n_fleets)
+
+
+def build_dyn_run(run: str) -> dict:
+    """One run of ``DYN_RUNS`` as a flat dict (keys without the run
+    prefix)."""
+    method, scenario, seed, space = DYN_RUNS[run]
+    jdef = agent_def(method, MECEnv(make_scenario(scenario)))
+    exit_mask = np.asarray(jdef.exit_mask())
+    sp = None if space is None else dyn_space_sp(space, DYN_FLEETS)
+    sp_axis = None if space is None else 0
+    drv = RolloutDriver(jdef, n_fleets=DYN_FLEETS, train=True,
+                        per_fleet_scenarios=space is not None, **DYN_KW)
+    carry, trace = drv.run(jax.random.PRNGKey(seed), DYN_SLOTS, mode="loop",
+                           sp=sp)
+    trace = {k: np.asarray(v) for k, v in trace._asdict().items()}
+    metrics = {k: np.asarray(v) for k, v in metrics_finalize(
+        carry.metrics, slot_s=jdef.env.cfg.slot_s,
+        n_fleets=DYN_FLEETS).items()}
+    k_init, k_episode = episode_keys(seed)
+    adef = drv.adef
+    state0 = adef.episode_state(adef.init(k_init), k_episode)
+    data = {"method": np.asarray(method), "scenario": np.asarray(scenario),
+            "seed": np.asarray(seed), "exit_mask": exit_mask}
+    if jdef.env.cfg.workload == "iid":
+        tasks, rand = driver_draws(adef, exit_mask, seed, DYN_FLEETS,
+                                   DYN_SLOTS)
+        data.update({f"tasks/{k}": v for k, v in tasks.items()})
+    else:
+        init, wl, tasks, rand = dyn_draws(adef, exit_mask, seed, DYN_FLEETS,
+                                          DYN_SLOTS, sp, sp_axis)
+        data.update(init)
+        data.update(wl)
+    if sp is not None:
+        data.update({f"sp/{k}": np.asarray(v)
+                     for k, v in sp._asdict().items()})
+    ref = reference_episode(adef, None, exit_mask, tasks, rand, state0,
+                            sp=sp, sp_axis=sp_axis)
+    # the replay on injected draws is the driver's own run
+    np.testing.assert_array_equal(ref["decisions"], trace["decisions"])
+    np.testing.assert_array_equal(np.isnan(ref["loss"]),
+                                  np.isnan(trace["loss"]))
+    np.testing.assert_allclose(ref["loss"], trace["loss"], rtol=1e-6)
+    slots = train_slots(adef, DYN_FLEETS, DYN_SLOTS)
+    np.testing.assert_array_equal(
+        np.flatnonzero(~np.isnan(trace["loss"])) + 1, slots)
+    takes = train_takes(adef, k_episode,
+                        [min(s * DYN_FLEETS, adef.buffer_size)
+                         for s in slots])
+    final = carry.agent_state
+    data.update({"rand_cands": rand.astype(np.int8),
+                 "train_slots": np.asarray(slots, np.int32),
+                 "replay_take": takes.astype(np.int32),
+                 "final/opt_step": np.asarray(final.opt_state["step"])})
+    for prefix, tree in (("init_params", state0.params),
+                         ("final/params", final.params),
+                         ("final/mu", final.opt_state["mu"]),
+                         ("final/nu", final.opt_state["nu"])):
+        data.update(flat_tree(prefix, jax.tree_util.tree_map(np.asarray,
+                                                             tree)))
+    data.update({f"trace/{k}": v for k, v in trace.items()})
+    data.update({f"metrics/{k}": v for k, v in metrics.items()})
+    for k in ("q_margin", "xhat_margin"):
+        data[k] = ref[k]
+    return data
+
+
+def build_dyn() -> dict:
+    """Everything the dynamic and baseline golden file holds, as a flat
+    dict, each run under ``<run>/``."""
+    return {f"{run}/{k}": v for run in DYN_RUNS
+            for k, v in build_dyn_run(run).items()}
+
+
+def run_of(data: dict, run: str) -> dict:
+    """One run's entries of the dynamic golden file, prefix stripped."""
+    return {k[len(run) + 1:]: v for k, v in data.items()
+            if k.startswith(run + "/")}
 
 
 # ------------------------------------------------------------------ serving
@@ -469,9 +669,7 @@ def serve_run(scheduler: str = "grle") -> dict:
     final = jax.tree_util.tree_map(np.asarray, eng.agent_state.params)
     for prefix, tree in (("init_params", state0.params),
                          ("final/params", final)):
-        for layer, leaves in tree.items():
-            for name, x in leaves.items():
-                data[f"{prefix}/{layer}/{name}"] = np.asarray(x)
+        data.update(flat_tree(prefix, tree))
     extra = {"state0": state0, "telemetry": eng.telemetry_snapshot(),
              "latency_ring": np.asarray(eng._latency_ring, np.float64)}
     return data, extra
@@ -487,11 +685,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=GOLDEN)
     ap.add_argument("--train-out", default=TRAIN_GOLDEN)
     ap.add_argument("--serve-out", default=SERVE_GOLDEN)
-    ap.add_argument("--only", choices=("decision", "train", "serve"))
+    ap.add_argument("--dyn-out", default=DYN_GOLDEN)
+    ap.add_argument("--only", choices=("decision", "train", "serve", "dyn"))
     args = ap.parse_args(argv)
     jobs = {"decision": (build, args.out),
             "train": (build_train, args.train_out),
-            "serve": (build_serve, args.serve_out)}
+            "serve": (build_serve, args.serve_out),
+            "dyn": (build_dyn, args.dyn_out)}
     for name, (fn, out) in jobs.items():
         if args.only not in (None, name):
             continue
