@@ -1,6 +1,7 @@
 """Drive repro_torch's GRLE decision and training paths, the paper's
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
-GQA and RWKV-6) and its serving engines on one NVIDIA GPU and check them.
+GQA and RWKV-6), its serving engines and its experiment sweep on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -205,7 +206,29 @@ order, each fatal on failure:
    GCN run and none per MLP run; per scenario one greedy_decision on a
    fresh slot and GRLE's q_best over the oracle's value (Fig 4's
    normalization); the phase's wall seconds;
-24. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+24. the paper's results grid through ``repro_torch.sweep``: ``run_sweep``
+   on a store under ``build/`` over fig5_baseline, fig6_capacity,
+   fig7_jitter, fig8_csi, dyn_poisson, dyn_churn, dyn_markov_channel,
+   dyn_bursty and four ``SweepSpec.from_space("fig5_baseline",
+   "fig8_csi", 4)`` draws, the four methods, seeds 0 and 1, at the
+   ``SweepSpec`` defaults (M=14, T=300, B=1, ring 128, minibatch 64,
+   omega 10), telemetry on: 96 cells in 6 packs (iid 32, poisson 12,
+   mmpp 4, per actor family). Fatal: a ``CompileTracker`` reads one
+   episode built and two graphs captured per pack; ``run_cell`` on every
+   seed-0 cell of the iid GCN pack and the poisson MLP pack gives its
+   packed row bit for bit (every field, the telemetry too); the
+   profiler's device records over one GRLE cell's replays inside its
+   pack count 4 x (T + train steps) gcn_agg and T + train steps
+   edge_score, over one DROO cell none; one stored cell of the iid GCN
+   pack deleted, a rerun runs that pack alone and rewrites the file byte
+   for byte, every other file untouched, and a third run executes
+   nothing; every GCN cell's final loss finite. Prints per pack its
+   cells, wall seconds, first cell's seconds (build and capture
+   included), capture seconds and ms a slot per cell after it; packed
+   and sequential cells/s; the report's markdown and the telemetry table
+   (not gated: random initial weights and 24 train steps reproduce no
+   paper ratio); the phase's wall seconds;
+25. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -216,6 +239,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -327,6 +351,13 @@ DYN_KW = dict(replay_capacity=32, batch_size=8, train_every=5)
 # the paper's four methods (§VI-C) and phase 23's scenarios
 METHODS = ("grle", "grl", "drooe", "droo")
 SPACE = ("fig5_baseline", "fig8_csi")
+# phase 24's grid: the paper's figures and the dynamic scenarios, with
+# four space draws, at the SweepSpec defaults; its store lives under build/
+SWEEP_SCENARIOS = ("fig5_baseline", "fig6_capacity", "fig7_jitter",
+                   "fig8_csi", "dyn_poisson", "dyn_churn",
+                   "dyn_markov_channel", "dyn_bursty")
+SWEEP_DRAWS, SWEEP_SEEDS = 4, (0, 1)
+SWEEP_STORE = os.path.join(ROOT, "build", "chip_smoke_sweep")
 
 
 def phase(n, title):
@@ -2215,6 +2246,195 @@ def methods_phase(dev):
     print(f"phase 23 wall {time.perf_counter() - t0:.2f} s")
 
 
+# ------------------------------------------------------------- the sweep
+RAN = re.compile(r"\[sweep\] (.+): ran (\d+) cells in ([\d.]+) s \(first "
+                 r"([\d.]+) s with its build(?:, then ([\d.]+) ms a slot "
+                 r"per cell)?\)")
+
+
+def profiled_call(fn):
+    """``fn()`` under torch.profiler, the window open ``PROFILER_TAIL_S``
+    after its closing synchronize: (result, device records of the two
+    actor kernels, cudaGraphLaunch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_TAIL_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    ours = {"gcn_agg": 0, "edge_score": 0}
+    graphs = 0
+    for e in prof.events():
+        if e.name == "cudaGraphLaunch":
+            graphs += 1
+        elif e.device_type == cuda:
+            for k in ours:
+                ours[k] += f"{k}_kernel" in e.name
+    return out, ours, graphs
+
+
+def sweep_phase(dev):
+    """24. ``run_sweep`` over the paper's figures, the dynamic scenarios
+    and four space draws, four methods, two seeds, at the SweepSpec
+    defaults (see the module docstring): captures per pack, sequential
+    rows equal to packed ones, launches per cell, resume, finite losses;
+    per-pack walls and cells/s packed against sequential."""
+    import shutil
+    from repro_torch.obs import CompileTracker
+    from repro_torch.sweep import (PackProgram, SweepSpec, SweepStore,
+                                   build_report, format_markdown,
+                                   format_telemetry, pack_cells, run_cell,
+                                   run_sweep)
+    from repro_torch.sweep.packer import cell_config
+    t0 = time.perf_counter()
+    spec = SweepSpec(scenarios=SWEEP_SCENARIOS + SweepSpec.from_space(
+        *SPACE, SWEEP_DRAWS).scenarios, seeds=SWEEP_SEEDS)
+    cells = spec.expand()
+    packs = pack_cells(cells)
+    kind = {p.label(): (p.family, cell_config(p.cells[0]).workload)
+            for p in packs}
+    pack_of = {kind[p.label()]: p for p in packs}
+    print(f"{len(spec.scenarios)} scenarios x {len(spec.methods)} methods x "
+          f"{len(spec.seeds)} seeds = {len(cells)} cells, M={spec.n_devices}"
+          f" T={spec.n_slots} B={spec.n_fleets} ring {spec.replay_capacity} "
+          f"minibatch {spec.batch_size} omega {spec.train_every}; "
+          f"{len(packs)} packs: "
+          + ", ".join(f"{f}/{w} {len(p.cells)}"
+                      for p, (f, w) in zip(packs, kind.values())))
+    if len(cells) != 96 or sorted(len(p.cells) for p in packs) != [
+            4, 4, 12, 12, 32, 32]:
+        raise SystemExit("sweep: the grid does not pack as 32 + 12 + 4 per "
+                         "actor family")
+    shutil.rmtree(SWEEP_STORE, ignore_errors=True)
+    store = SweepStore(SWEEP_STORE)
+    logs = []
+
+    def log(msg):
+        logs.append(msg)
+        print(msg, flush=True)
+
+    try:
+        # the packed grid
+        with CompileTracker() as ct:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = run_sweep(spec, store=store, log=log, telemetry=True,
+                             device=dev)
+            packed_s = time.perf_counter() - t1
+        built = ct.by_label()
+        print(f"packed: {len(rows)} cells in {packed_s:.3f} s, "
+              f"{len(rows) / packed_s:.3f} cells/s; {ct.summary()}")
+        print("pack | cells | wall s | first cell s (build + capture) | "
+              "capture s | ms a slot per cell after it")
+        for msg in logs:
+            m = RAN.search(msg)
+            if m:
+                label, n, wall, first, ms = m.groups()
+                print(f"  {label} | {n} | {wall} | {first} | "
+                      f"{built[label]['seconds']:.4f} | {ms}")
+        for p in packs:
+            got = built.get(p.label(), {})
+            if (got.get("episodes"), got.get("graphs")) != (1, 2):
+                raise SystemExit(f"sweep {p.label()}: {got}, expected one "
+                                 f"episode built and two graphs captured")
+        if (ct.n_backend_compiles, ct.n_graphs_captured) != (6, 12):
+            raise SystemExit(f"sweep: {ct.summary()}, expected 6 episodes "
+                             f"and 12 graphs")
+        row_of = dict(zip(cells, rows))
+        for c, r in row_of.items():
+            if r["backend"] != f"torch-{dev.type}" or (
+                    r["method"] in ("grle", "grl")
+                    and (r["final_loss"] is None
+                         or not math.isfinite(r["final_loss"]))) or (
+                    r["train_steps"] != 24 or not 0.0 < r["ssp"] <= 1.0):
+                raise SystemExit(f"sweep {c.label()}: row malformed: "
+                                 f"{ {k: r[k] for k in ('backend', 'ssp', 'train_steps', 'final_loss')} }")
+
+        # sequential rows equal packed ones
+        seq = [c for key in (("gcn", "iid"), ("mlp", "poisson"))
+               for c in pack_of[key].cells if c.seed == 0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for c in seq:
+            r = run_cell(c, telemetry=True, device=dev)
+            if r != row_of[c]:
+                diff = sorted(k for k in r if r[k] != row_of[c].get(k))
+                raise SystemExit(f"sweep {c.label()}: run_cell differs from "
+                                 f"its packed row in {diff}")
+        seq_s = time.perf_counter() - t1
+        print(f"sequential: run_cell on {len(seq)} cells (seed 0 of the iid "
+              f"GCN and poisson MLP packs) in {seq_s:.3f} s, "
+              f"{len(seq) / seq_s:.3f} cells/s, every row equal to its "
+              f"packed row bit for bit; packed/sequential cells/s "
+              f"{(len(rows) / packed_s) / (len(seq) / seq_s):.3f}")
+
+        # launches over one cell's replays inside its pack
+        for key, method in ((("gcn", "iid"), "grle"), (("mlp", "iid"),
+                                                      "droo")):
+            pack = pack_of[key]
+            prog = PackProgram(pack, telemetry=True, device=dev)
+            prog.run_one(0)                        # builds and captures
+            i = next(j for j, c in enumerate(pack.cells)
+                     if c.method == method and c.scenario == "fig8_csi")
+            row, ours, graphs = profiled_call(lambda: prog.run_one(i))
+            c = pack.cells[i]
+            n = c.n_slots + row["train_steps"]
+            want = ({"gcn_agg": 4 * n, "edge_score": n} if method == "grle"
+                    else {"gcn_agg": 0, "edge_score": 0})
+            print(f"  {c.label()} replayed inside {pack.label()}: actor "
+                  f"kernels {ours} (expected {want}), {graphs} graph "
+                  f"launches, row equal to the packed one: "
+                  f"{row == row_of[c]}")
+            if ours != want or graphs != c.n_slots or row != row_of[c]:
+                raise SystemExit(f"sweep {c.label()}: launches {ours}, "
+                                 f"expected {want}; {graphs} graph launches;"
+                                 f" or its row differs from the packed one")
+            del prog
+
+        # resume: one cell of the iid GCN pack lost
+        files = sorted(os.listdir(SWEEP_STORE))
+        before = {f: (open(os.path.join(SWEEP_STORE, f), "rb").read(),
+                      os.stat(os.path.join(SWEEP_STORE, f)).st_mtime_ns)
+                  for f in files}
+        gcn_iid = pack_of[("gcn", "iid")]
+        victim = gcn_iid.cells[5]
+        os.unlink(store.path(victim))
+        logs.clear()
+        t1 = time.perf_counter()
+        resumed = run_sweep(spec, store=store, log=log, telemetry=True,
+                            device=dev)
+        resume_s = time.perf_counter() - t1
+        after = {f: (open(os.path.join(SWEEP_STORE, f), "rb").read(),
+                     os.stat(os.path.join(SWEEP_STORE, f)).st_mtime_ns)
+                 for f in sorted(os.listdir(SWEEP_STORE))}
+        name = os.path.basename(store.path(victim))
+        ran = [m for m in logs if ": running" in m]
+        if (len(ran) != 1 or gcn_iid.label() not in ran[0]
+                or set(after) != set(before)
+                or after[name][0] != before[name][0]
+                or any(after[f] != before[f] for f in before if f != name)
+                or resumed != rows):
+            raise SystemExit(f"sweep resume: ran {ran}; the rewritten file "
+                             f"or another one differs")
+        with CompileTracker() as ct:
+            logs.clear()
+            run_sweep(spec, store=store, log=log, device=dev)
+        if ct.n_backend_compiles or any(": running" in m for m in logs):
+            raise SystemExit("sweep: a fully cached run executed a pack")
+        print(f"resume: {victim.label()} deleted; the rerun ran "
+              f"{gcn_iid.label()} alone in {resume_s:.3f} s and rewrote "
+              f"{name} byte for byte, {len(before) - 1} other files "
+              f"untouched; a third run executed nothing")
+        report = build_report(rows)
+        print(format_markdown(report))
+        print(format_telemetry(rows))
+    finally:
+        shutil.rmtree(SWEEP_STORE, ignore_errors=True)
+    print(f"phase 24 wall {time.perf_counter() - t0:.2f} s")
+
+
 # ------------------------------------------------------------- serving
 def serve_engine_from(data, dev):
     """The port's EdgeServingEngine as tests/data/torch_serve_golden.npz
@@ -2707,7 +2927,10 @@ def main() -> int:
               "dyn_bursty, a domain-randomized fleet")
     methods_phase(dev)
 
-    phase(24, "summary")
+    phase(24, "the paper's results grid through repro_torch.sweep")
+    sweep_phase(dev)
+
+    phase(25, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",

@@ -1,9 +1,10 @@
 """Observability (PyTorch port): the device-resident telemetry registry,
-JSONL run logs and the run-history store.
+JSONL run logs, the run-history store, compile (episode build and graph
+capture) counting and regression verdicts.
 
-Counterparts of ``repro/obs/telemetry.py``, ``log.py`` and
-``history.py``. The rest of the reference's ``obs/`` (compile tracking,
-profiler hooks, regression verdicts, cost attribution) is not ported yet.
+Counterparts of ``repro/obs/telemetry.py``, ``log.py``, ``history.py``,
+``compile.py`` and ``regress.py``. The rest of the reference's ``obs/``
+(profiler hooks, cost attribution) is not ported yet (ROADMAP item 7).
 """
 from repro_torch.obs.telemetry import (
     LATENCY_BINS,
@@ -31,6 +32,9 @@ from repro_torch.obs.telemetry import (
 from repro_torch.obs.log import RunLog, json_safe, read_events, run_manifest
 from repro_torch.obs.history import (HistoryStore, default_store,
                                      history_manifest)
+from repro_torch.obs.compile import CompileTracker
+from repro_torch.obs.regress import (check_history, metric_direction,
+                                     regression_verdict, summarize_verdicts)
 
 __all__ = [
     "Histogram", "Telemetry",
@@ -43,4 +47,7 @@ __all__ = [
     "QUEUE_DEPTH_EDGES", "LATENCY_BINS", "LOSS_EMA_BETA",
     "RunLog", "json_safe", "read_events", "run_manifest",
     "HistoryStore", "default_store", "history_manifest",
+    "CompileTracker",
+    "check_history", "metric_direction", "regression_verdict",
+    "summarize_verdicts",
 ]

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/obs/history.py``. ``HistoryStore`` keeps one
 ``records.jsonl`` under
-``results/history/`` (override with ``REPRO_HISTORY``; set it to the
+``results/torch_history/`` (override with ``REPRO_HISTORY``; set it to the
 empty string to disable appends entirely), strictly append-only, one
 JSON object per line.
 
@@ -19,10 +19,13 @@ Record schema (``schema: 1``)::
 The manifest is what makes records comparable: only records sharing
 ``backend``, ``n_devices`` and ``use_pallas`` compare, and the port's
 manifests carry ``torch_version`` and a ``backend`` of ``"cuda"`` or
-``"cpu"``, so they never compare with the reference's. Producer here:
+``"cpu"``. A reference record on the CPU also says ``"cpu"``, so the port
+keeps its own default root, and its records never meet the reference's
+unless ``REPRO_HISTORY`` points both at one store. Producers here:
 ``EdgeServingEngine.telemetry_snapshot(history=...)``, one ``serve``
-record per snapshot (``use_pallas`` is whether the actor kernels run
-hand-written, i.e. on the card).
+record per snapshot, and ``sweep.run_sweep(history=...)``, one ``sweep``
+record per executed cell (``use_pallas`` is whether the actor kernels run
+hand-written, i.e. on the card). ``launch/history.py`` renders them.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.obs.log import json_safe, run_manifest
 HISTORY_SCHEMA = 1
 HISTORY_KINDS = ("bench", "sweep", "serve", "pop")
 HISTORY_ENV = "REPRO_HISTORY"
-DEFAULT_ROOT = os.path.join("results", "history")
+DEFAULT_ROOT = os.path.join("results", "torch_history")
 # Manifest keys two records must share to be compared by the sentinel.
 COMPARABLE_KEYS = ("backend", "n_devices", "use_pallas")
 

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import time
 from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
@@ -63,6 +64,8 @@ from repro_torch.core.policy import AgentDef, AgentState
 from repro_torch.device import resolve_device
 from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECState, SlotTasks
+from repro_torch.obs.compile import (CAPTURE_EVENT, EPISODE_EVENT,
+                                     record_build)
 from repro_torch.obs.telemetry import (Telemetry, rollout_telemetry,
                                        telemetry_host, telemetry_summary,
                                        telemetry_update)
@@ -193,6 +196,12 @@ class RolloutDriver:
     run's result back into it). With ``per_fleet_scenarios=True`` an
     ``sp`` given to ``run``/``init_carry`` has a leading [B] on every leaf,
     one scenario per fleet; otherwise it is shared.
+
+    ``episodes_built`` counts the scan episodes this driver built (one per
+    episode shape, the port's "compile") and ``graphs_captured`` the CUDA
+    graphs captured for them. Each build is also reported, with its
+    seconds and under ``label`` (None, or a name its owner sets), to the
+    active ``obs.compile.CompileTracker``s.
     """
 
     def __init__(self, agent, n_fleets: int = 1, *,
@@ -234,6 +243,9 @@ class RolloutDriver:
                 f"slot's {n_fleets} fleet transitions")
         self._seeded: Optional[torch.Generator] = None
         self._episode: Optional[_ScanEpisode] = None
+        self.label: Optional[str] = None
+        self.episodes_built = 0
+        self.graphs_captured = 0
 
     def _generator(self, seed_or_generator: Union[int, torch.Generator]
                   ) -> torch.Generator:
@@ -324,8 +336,12 @@ class RolloutDriver:
         key = (n_slots, id(gen), _signature(draws), _signature(sp))
         if self._episode is None or self._episode.key != key:
             self._episode = None        # free the old graphs and buffers
+            t0 = time.perf_counter()
             self._episode = _ScanEpisode(self, key, carry, n_slots, draws,
                                          gen, sp)
+            self.episodes_built += 1
+            record_build(self.label, EPISODE_EVENT,
+                         time.perf_counter() - t0)
         return self._episode.run(self, carry, draws, sp)
 
     def _check_draws(self, draws: SlotDraws, n_slots: int) -> None:
@@ -557,7 +573,11 @@ class _ScanEpisode:
                 kinds = {}
                 for due, s, z in plan:
                     kinds.setdefault(due, _with_mirrors(self.static, s, z))
+                t0 = time.perf_counter()
                 self.graphs = self._capture(drv, kinds)
+                drv.graphs_captured += len(self.graphs)
+                record_build(drv.label, CAPTURE_EVENT,
+                             time.perf_counter() - t0, len(self.graphs))
             for due, _, _ in plan:
                 self.graphs[due].replay()
         else:

@@ -354,6 +354,31 @@ def test_scan_dynamic_per_fleet_equals_loop(cuda, method):
     assert int(scan[0].agent_state.loss_count) == 4
 
 
+def test_sweep_pack_replays_one_capture_per_pack(cuda):
+    """A mixed iid pack (two named scenarios, one space draw) and a
+    poisson pack, GRLE/GRL and DROOE/DROO, on the card: one episode built
+    and two graphs captured per pack, every cell's row equal to
+    ``run_cell``'s (its own driver and capture) bit for bit."""
+    from repro_torch.obs import CompileTracker
+    from repro_torch.sweep import SweepSpec, pack_cells, run_cell, run_sweep
+    spec = SweepSpec(scenarios=("fig5_baseline", "fig8_csi",
+                                "space:fig5_baseline:fig8_csi:0:0",
+                                "dyn_poisson", "dyn_churn"),
+                     seeds=(0,), n_devices=6, n_slots=30, replay_capacity=16,
+                     batch_size=4, train_every=5)
+    with CompileTracker() as ct:
+        rows = run_sweep(spec, telemetry=True, device=cuda,
+                         log=lambda *_: None)
+    packs = pack_cells(spec.expand())
+    assert {k: (v["episodes"], v["graphs"])
+            for k, v in ct.by_label().items()} == {
+        p.label(): (1, 2) for p in packs}
+    for cell, row in zip(spec.expand(), rows):
+        assert row["backend"] == "torch-cuda"
+        assert run_cell(cell, telemetry=True, device=cuda) == row, \
+            cell.label()
+
+
 def test_hist_add_sends_nan_and_inf_where_the_reference_does(cuda):
     """On the card too: -inf underflows, +inf and NaN overflow."""
     h = hist_init([0.0, 1.0, 2.0, 3.0], device=cuda)

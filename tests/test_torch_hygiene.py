@@ -46,6 +46,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.obs.log, repro_torch.launch.serve\n"
             "import repro_torch.core.agent, repro_torch.core.replay\n"
             "import repro_torch.mec.scenarios\n"
+            "import repro_torch.sweep, repro_torch.sharding\n"
+            "import repro_torch.sweep.runner, repro_torch.sharding.fleet\n"
+            "import repro_torch.launch.sweep, repro_torch.launch.history\n"
+            "import repro_torch.obs.compile, repro_torch.obs.regress\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

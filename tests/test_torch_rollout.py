@@ -354,6 +354,30 @@ def test_driver_surface():
         assert getattr(rollout, name) is getattr(core_replay, name)
 
 
+def test_build_counters_count_episodes_not_runs():
+    """``episodes_built`` counts scan episodes, one per episode shape: a
+    second run of the same shapes (another seed, another ``sp`` of the same
+    shapes, a fresh agent state) builds nothing new; the loop builds none;
+    another length builds one more. No graphs are captured on the CPU,
+    and a ``CompileTracker`` files the builds under the driver's label."""
+    from repro_torch.obs import CompileTracker
+    drv = small_driver()
+    assert (drv.episodes_built, drv.graphs_captured, drv.label) == (
+        0, 0, None)
+    drv.label = "small"
+    sp = drv.env.params
+    with CompileTracker() as ct:
+        drv.run(0, 6, sp=sp)
+        drv.run(1, 6, sp=ScenarioParams(*(x.clone() for x in sp)),
+                agent_state=drv.adef.init(torch.Generator().manual_seed(3)))
+        drv.run(2, 6, mode="loop")
+        assert drv.episodes_built == 1
+        drv.run(0, 7, sp=sp)
+    assert (drv.episodes_built, drv.graphs_captured) == (2, 0)
+    assert ct.by_label()["small"]["episodes"] == 2
+    assert ct.n_graphs_captured == 0
+
+
 def test_a_dropped_driver_is_freed_at_once():
     """The compiled episode holds no reference back to its driver: a driver
     its caller drops is freed by reference counting, never by a later pass
@@ -383,21 +407,9 @@ def t(x, dtype=None):
     return torch.tensor(np.asarray(x), dtype=dtype)
 
 
-def dyn_slot_draws(data, take=None):
-    """``SlotDraws`` of one stored run: the tasks (iid), or the workload's
-    init and per-slot raw uniforms (poisson/mmpp)."""
-    rand = t(data["rand_cands"].astype(np.int64))
-    if "init/rate" not in data:
-        return SlotDraws(SlotTasks(*(t(data[f"tasks/{f}"])
-                                     for f in SlotTasks._fields)), rand, take)
-    slot = SlotUniforms(*(t(data[f"wl/slot/{f}"])
-                          for f in SlotUniforms._fields))
-    wl = WorkloadDraws(*(t(data[f"wl/{f}"])
-                         for f in WorkloadDraws._fields[:-1]), slot)
-    return SlotDraws(None, rand, take,
-                     init=InitDraws(t(data["init/rate"]),
-                                    t(data["init/capacity"])),
-                     workload=wl)
+# ``SlotDraws`` of one stored run: the tasks (iid), or the workload's init
+# and per-slot raw uniforms (poisson/mmpp), and its replay rows if stored
+dyn_slot_draws = golden_tool.port_slot_draws
 
 
 def stored_sp(data):
@@ -420,8 +432,7 @@ def port_dyn_run(data, mode):
         data, "init_params"), data["exit_mask"])
     carry, trace = drv.run(0, golden_tool.DYN_SLOTS, mode=mode,
                            agent_state=st, sp=sp,
-                           draws=dyn_slot_draws(data,
-                                                t(data["replay_take"])))
+                           draws=dyn_slot_draws(data))
     return drv, carry, trace
 
 
@@ -531,7 +542,7 @@ def test_port_teacher_forced_on_dyn_golden(dyn_golden, run):
     adef = RolloutDriver(agent_def(str(data["method"]), env, device="cpu"),
                          golden_tool.DYN_FLEETS, device="cpu",
                          **golden_tool.DYN_KW).adef
-    draws = dyn_slot_draws(data, t(data["replay_take"]))
+    draws = dyn_slot_draws(data)
     gen = make_workload(env)
     wl = (None if draws.init is None
           else gen.init(None, sp, draws=draws.init))

@@ -61,6 +61,10 @@ fleet (the poisson runs inject the workload's raw uniforms,
 ``dyn_draws``, so the port advances its own workload state; the
 per-fleet ``sp`` is stored). Each run keeps what the training file keeps,
 under ``<run>/``.
+
+For the sweep (no file): ``sweep_cell_reference`` rebuilds the initial
+params and draws the reference's ``sweep.run_cell`` uses for a cell, and
+``port_slot_draws`` turns them into the port's ``SlotDraws``.
 """
 from __future__ import annotations
 
@@ -147,16 +151,24 @@ def driver_trace(adef, state, seed: int, n_fleets: int, n_slots: int):
     return {k: np.asarray(v) for k, v in trace._asdict().items()}, metrics
 
 
-def driver_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int):
-    """The draws ``RolloutDriver.run(PRNGKey(seed))`` makes, rebuilt from
-    its key schedule (``driver.py`` init_carry/_slot, ``policy.py``
-    decide_with): ``SlotTasks`` leaves [T, B, ...] and the exploration
-    candidates [T, B, K, M]. The candidates are an argmax over Gumbel
-    noise restricted to allowed options, which depends on the tasks'
-    links but not on the actor."""
+def as_key(seed_or_key):
+    """``PRNGKey(seed)`` for an int seed; a key as it is."""
+    if isinstance(seed_or_key, (int, np.integer)):
+        return jax.random.PRNGKey(int(seed_or_key))
+    return seed_or_key
+
+
+def driver_draws(adef, exit_mask, seed, n_fleets: int, n_slots: int):
+    """The draws ``RolloutDriver.run(key)`` makes (``seed``: a key, or an
+    int for ``PRNGKey(seed)``), rebuilt from its key schedule
+    (``driver.py`` init_carry/_slot, ``policy.py`` decide_with):
+    ``SlotTasks`` leaves [T, B, ...] and the exploration candidates
+    [T, B, K, M]. The candidates are an argmax over Gumbel noise
+    restricted to allowed options, which depends on the tasks' links but
+    not on the actor."""
     env = adef.env
     vec = VecMECEnv(env, n_fleets)
-    k_task, k_dec, _, _ = jax.random.split(jax.random.PRNGKey(seed), 4)
+    k_task, k_dec, _, _ = jax.random.split(as_key(seed), 4)
     task_keys, dec_keys = vec.fleet_keys(k_task), vec.fleet_keys(k_dec)
     mask = jnp.asarray(exit_mask)
 
@@ -255,10 +267,11 @@ def reference_episode(adef, params, exit_mask, tasks, rand_cands,
     return out
 
 
-def episode_keys(seed: int):
-    """(k_init, k_episode) of ``RolloutDriver.init_carry(PRNGKey(seed))``:
-    the key a fresh ``adef.init`` gets and the episode's agent key."""
-    _, _, k_agent, _ = jax.random.split(jax.random.PRNGKey(seed), 4)
+def episode_keys(seed):
+    """(k_init, k_episode) of ``RolloutDriver.init_carry(key)`` (``seed``:
+    a key, or an int for ``PRNGKey(seed)``): the key a fresh ``adef.init``
+    gets and the episode's agent key."""
+    _, _, k_agent, _ = jax.random.split(as_key(seed), 4)
     return jax.random.split(k_agent)
 
 
@@ -408,10 +421,11 @@ def wl_uniforms(key, m: int, n: int, l: int) -> dict:
             "slot/connect": u(ks[8], (m, n))}
 
 
-def dyn_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int,
+def dyn_draws(adef, exit_mask, seed, n_fleets: int, n_slots: int,
               sp=None, sp_axis=None):
-    """The draws ``RolloutDriver.run(PRNGKey(seed), sp=sp)`` makes on a
-    poisson/mmpp workload, rebuilt from its key schedule (``driver.py``
+    """The draws ``RolloutDriver.run(key, sp=sp)`` makes on a poisson/mmpp
+    workload (``seed``: a key, or an int for ``PRNGKey(seed)``), rebuilt
+    from its key schedule (``driver.py``
     init_carry/_slot, ``workloads.py`` init/sample): the workload init's
     uniforms [B, ...] (``init/rate``, ``init/capacity``), each slot's raw
     workload uniforms [T, B, ...] (``wl/...``), the tasks they give
@@ -421,7 +435,7 @@ def dyn_draws(adef, exit_mask, seed: int, n_fleets: int, n_slots: int,
     m, n, l = env.M, env.N, env.L
     gen = make_workload(env)
     vec = VecMECEnv(env, n_fleets)
-    k_task, k_dec, _, k_wl = jax.random.split(jax.random.PRNGKey(seed), 4)
+    k_task, k_dec, _, k_wl = jax.random.split(as_key(seed), 4)
     wl_keys = vec.fleet_keys(k_wl)
 
     def init_u(k):
@@ -549,6 +563,90 @@ def run_of(data: dict, run: str) -> dict:
     """One run's entries of the dynamic golden file, prefix stripped."""
     return {k[len(run) + 1:]: v for k, v in data.items()
             if k.startswith(run + "/")}
+
+
+# ------------------------------------------------------------- sweep cells
+def sweep_cell_reference(cell, *, replay: bool = False) -> dict:
+    """What the reference's ``sweep.run_cell`` runs for a sweep ``Cell``
+    (the port's, or any tuple of its fields), as a flat dict of numpy
+    arrays in the dynamic golden file's layout: the initial params
+    ``adef.init(cell_keys(cell)[0])`` (``init_params/...``), the exit mask,
+    and the draws of ``RolloutDriver.run(cell_keys(cell)[1])``: the tasks
+    (iid: ``tasks/...``) or the workload's raw uniforms (poisson/mmpp:
+    ``init/...``, ``wl/...``), the exploration candidates and each train
+    step's replay rows. Named scenarios only (``sp`` None). With
+    ``replay``, also a replay of the reference's decision path and learner
+    on the draws (``reference_episode``: ``replay/decisions``,
+    ``replay/reward``, ``replay/q_est``, equal to the reference driver's
+    run up to its first exact critic tie, where the two may part) and its
+    critic's and actor's margins (``q_margin``, ``xhat_margin``)."""
+    from repro.sweep import Cell, cell_keys
+    from repro.sweep.runner import _cell_def, _resolve_cell
+
+    jcell = Cell(*cell)
+    pkey, rkey = cell_keys(jcell)
+    env, sp = _resolve_cell(jcell)
+    if sp is not None:
+        raise ValueError(f"{jcell.scenario}: named scenarios only")
+    adef = _cell_def(jcell, env)
+    mask = np.asarray(adef.exit_mask())
+    n_fleets, n_slots = jcell.n_fleets, jcell.n_slots
+    state0 = adef.init(pkey)
+    _, k_episode = episode_keys(rkey)
+    data = {"exit_mask": mask}
+    data.update(flat_tree("init_params", jax.tree_util.tree_map(
+        np.asarray, state0.params)))
+    if env.cfg.workload == "iid":
+        tasks, rand = driver_draws(adef, mask, rkey, n_fleets, n_slots)
+        data.update({f"tasks/{k}": v for k, v in tasks.items()})
+    else:
+        init, wl, tasks, rand = dyn_draws(adef, mask, rkey, n_fleets,
+                                          n_slots)
+        data.update(init)
+        data.update(wl)
+    sizes = [min(s * n_fleets, adef.buffer_size)
+             for s in train_slots(adef, n_fleets, n_slots)]
+    data["rand_cands"] = rand.astype(np.int8)
+    data["replay_take"] = (
+        train_takes(adef, k_episode, sizes).astype(np.int32) if sizes
+        else np.zeros((0, adef.batch_size), np.int32))
+    if replay:
+        ref = reference_episode(adef, None, mask, tasks, rand,
+                                adef.episode_state(state0, k_episode))
+        for k in ("decisions", "reward", "q_est"):
+            data[f"replay/{k}"] = ref[k]
+        data["q_margin"], data["xhat_margin"] = (ref["q_margin"],
+                                                 ref["xhat_margin"])
+    return data
+
+
+def port_slot_draws(data: dict):
+    """The port's ``SlotDraws`` (CPU tensors) of a run stored in the
+    dynamic golden layout (``build_dyn_run``, ``sweep_cell_reference``):
+    its tasks (iid), or its workload's init and per-slot raw uniforms
+    (poisson/mmpp), its exploration candidates and replay rows (None
+    without ``replay_take``)."""
+    import torch
+    from repro_torch.mec import SlotTasks, SlotUniforms
+    from repro_torch.rollout import (InitDraws, SlotDraws, WorkloadDraws)
+
+    def t(x):
+        return torch.tensor(np.asarray(x))
+
+    rand = t(data["rand_cands"].astype(np.int64))
+    take = (t(data["replay_take"].astype(np.int64))
+            if "replay_take" in data else None)
+    if "init/rate" not in data:
+        return SlotDraws(SlotTasks(*(t(data[f"tasks/{f}"])
+                                     for f in SlotTasks._fields)), rand, take)
+    slot = SlotUniforms(*(t(data[f"wl/slot/{f}"])
+                          for f in SlotUniforms._fields))
+    wl = WorkloadDraws(*(t(data[f"wl/{f}"])
+                         for f in WorkloadDraws._fields[:-1]), slot)
+    return SlotDraws(None, rand, take,
+                     init=InitDraws(t(data["init/rate"]),
+                                    t(data["init/capacity"])),
+                     workload=wl)
 
 
 # ------------------------------------------------------------------ serving
