@@ -1,7 +1,8 @@
 """Drive repro_torch's GRLE decision and training paths, the paper's
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
-GQA and RWKV-6), its serving engines and its experiment sweep on one
-NVIDIA GPU and check them.
+GQA and RWKV-6), its serving engines, its experiment sweep, its
+population training and its profiler and cost hooks on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -228,7 +229,42 @@ order, each fatal on failure:
    and sequential cells/s; the report's markdown and the telemetry table
    (not gated: random initial weights and 24 train steps reproduce no
    paper ratio); the phase's wall seconds;
-25. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
+25. population golden replay: ``tests/data/torch_pop_golden.npz`` (a JAX
+   ``PopulationTrainer`` run: GRLE, P=4 members with sampled lr /
+   explore_gain / exit_tau, B=2, T=15, M=5, 2 generations, PBT every
+   generation, with every draw: hyperparameter uniforms, curriculum
+   regions and offsets, each member's tasks, Gumbel exploration noise and
+   replay rows, PBT's coin and jitters) through the port's trainer on the
+   card: every decision equal, or a flip only at a recorded near-tie (<=
+   1e-5: critic, actor or exploration-noise margin), after which the
+   comparison stops; per member avg_reward / ssp / avg_accuracy within
+   1e-5; PBT's src, copied and ranks exact; hypers and the curriculum
+   state within 1e-6; region visits and telemetry counters equal; the
+   final params within TRAIN_PARAM_TOL;
+26. population training at the paper's width: ``PopulationTrainer`` with
+   GRLE (M=14, N=2, L=5, hidden (128, 64), edge 64), the fig5_baseline..
+   fig8_csi curriculum in 6 regions, P=16 members of 1 fleet, 80 slots,
+   ring 64, minibatch 16, omega 5 (``launch/pop.py``'s defaults at M=14),
+   3 generations, then ``evaluate`` at t in {0.8, 0.9, 1.0}. Fatal: a
+   ``CompileTracker`` reads one episode built and two graphs captured for
+   the training driver over all 48 member-episodes, one and one for the
+   evaluation driver; the profiler's device records over one
+   member-episode count 4 x (80 + 13 train steps) ``gcn_agg`` and 80 + 13
+   ``edge_score``; generation 0, ``save_population``,
+   ``restore_population`` into a fresh trainer and generation 1 equal two
+   uninterrupted generations bit for bit on every leaf; every member's
+   final loss finite; a DROOE population (P=4, one generation) launches
+   no actor kernel. Prints each generation's wall seconds and report,
+   member-slots/s, ms a slot per member, the first generation's build and
+   capture seconds, the evaluation's seconds and rewards;
+27. observability: ``python -m repro_torch.launch.profile --devices 14
+   --episodes 2 --trace`` on the card: its run log holds manifest,
+   episode, episode, compile, the compile event one episode and two
+   graphs, and its trace file ``gcn_agg`` kernel records and the
+   ``obs/<phase>`` spans; ``obs.cost.hot_program_costs(quick=True)`` on
+   the card and on the CPU give equal FLOPs per program (the cost table is
+   printed);
+28. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -250,6 +286,10 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.kernels.cost import (  # noqa: E402
+    decode_cost, edge_score_cost, flash_cost, gcn_agg_cost, ssm_cost)
+from repro_torch.obs.profile import PHASE_SPANS  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
@@ -358,6 +398,19 @@ SWEEP_SCENARIOS = ("fig5_baseline", "fig6_capacity", "fig7_jitter",
                    "dyn_markov_channel", "dyn_bursty")
 SWEEP_DRAWS, SWEEP_SEEDS = 4, (0, 1)
 SWEEP_STORE = os.path.join(ROOT, "build", "chip_smoke_sweep")
+POP_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_pop_golden.npz")
+# tools/make_torch_port_golden.py::POP, the golden run's configuration
+POP_GOLDEN_CONFIG = dict(method="grle", space=("fig5_baseline", "fig8_csi"),
+                         n_devices=5, members=4, fleets=2, slots=15,
+                         regions=4, generations=2, seed=0, replay=16,
+                         batch=4, train_every=5)
+POP_METRIC_TOL = 1e-5    # avg_reward / ssp / avg_accuracy per member
+POP_HYPER_TOL = 1e-6     # hypers and the curriculum state
+# the population at the paper's width: the CLI's defaults at M=14
+POP_FULL = dict(POP_GOLDEN_CONFIG, n_devices=14, members=16, fleets=1,
+                slots=80, regions=6, replay=64, batch=16, train_every=5)
+POP_GENERATIONS = 3
+POP_EVAL_POINTS = (0.8, 0.9, 1.0)
 
 
 def phase(n, title):
@@ -442,58 +495,9 @@ def eager_ms(fn, *, n=200) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def numel(*ts) -> int:
-    return sum(t.numel() for t in ts)
-
-
-def gcn_agg_cost(adj, hs, hn, ws, wn, b):
-    """(bytes, flops) the function needs: each input read once, the output
-    written once; adj@hn, deg, the divide, both products, bias, relu."""
-    bsz, m, o = adj.shape
-    fs, fn, h = hs.shape[-1], hn.shape[-1], ws.shape[-1]
-    out = bsz * m * h
-    nbytes = 4 * (numel(adj, hs, hn, ws, wn, b) + out)
-    flops = bsz * m * (2 * o * fn + o + fn) + out * (2 * fs + 2 * fn + 3)
-    return nbytes, flops
-
-
-def edge_score_cost(hs, hd, ef, ws, bs, wd, wf, wo, bo):
-    bsz, m, o = ef.shape
-    h, e = ws.shape
-    nbytes = 4 * (numel(hs, hd, ef, ws, bs, wd, wf, wo, bo) + bsz * m * o)
-    flops = (bsz * m * e * (2 * h + 1) + bsz * o * e * 2 * h
-             + bsz * m * o * (6 * e + 1))
-    return nbytes, flops
-
-
 def bound(nbytes, flops, peak_flops=PEAK_F32):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def causal_pairs(s, window):
-    """(query, key) pairs a causal mask keeps, with an optional window."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
-def flash_cost(q, k, window):
-    """Each of q, k, v read once, the output written once; QK^T and PV
-    over the kept (causal) pairs only."""
-    b, s, h, d = q.shape
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return nbytes, 4 * b * h * d * causal_pairs(s, window)
-
-
-def decode_cost(q, k, lengths):
-    """q and the output once, the K/V rows below each length once (the
-    kernel reads no others), the lengths; QK^T and PV over those rows."""
-    b, h, d = q.shape
-    rows = int(lengths.clamp(max=k.shape[1]).sum())
-    nbytes = (q.element_size() * (2 * q.numel() + 2 * rows * k.shape[2] * d)
-              + 4 * b)
-    return nbytes, 4 * h * d * rows
 
 
 def flash_emu_err(got, emu):
@@ -987,22 +991,6 @@ def consistency_phase(dev, cfg, params, gen):
 
 
 # ------------------------------------------------------------- SSM phases
-def ssm_cost(q, v, log_w, u, s0):
-    """(bytes, flops) the function needs: q, k, v, log_w, u and the initial
-    state read once, y and the final state written once; per token and
-    head the recurrence's decay (dk·dv), update (2·dk·dv) and read-out
-    (2·dk·dv), plus RWKV's bonus term (3·dk + 2·dv). The kernel's chunked
-    form does more; that is its cost, not the function's."""
-    b, t, h, dk = q.shape
-    dv = v.shape[-1]
-    es = q.element_size()
-    nbytes = (es * (2 * q.numel() + 2 * v.numel()) + 4 * log_w.numel()
-              + 4 * b * h * dk * dv
-              + sum(4 * x.numel() for x in (u, s0) if x is not None))
-    per_token = 5 * dk * dv + (3 * dk + 2 * dv if u is not None else 0)
-    return nbytes, b * t * h * per_token
-
-
 def scan_err(got, want, state=False):
     """Max over elements of |got - want| / (1 + the largest |want| of the
     same (sequence, head)), for y [B,T,H,dv] or a state [B,H,dk,dv]. The
@@ -1820,7 +1808,9 @@ def train_path_phase(dev, adef):
 
 
 # ------------------------------------------------- the compiled episode
-SPANS = ("sample", "actor", "env_step", "train")
+# the driver's phase spans (obs.profile.phase), which the profiler also
+# records on the device: not kernels
+SPANS = PHASE_SPANS
 
 
 def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED, **run_kw):
@@ -2739,6 +2729,317 @@ def serve_path_phase(dev):
 
 
 # ------------------------------------------------------------------ phases
+# --------------------------------------------------------------- population
+def pop_trainer(dev, data=None, **kw):
+    """The port's ``PopulationTrainer`` of ``tests/data/
+    torch_pop_golden.npz`` (its ``POP`` config), or with ``kw`` another
+    one on fig5_baseline..fig8_csi."""
+    from repro_torch.core import agent_def
+    from repro_torch.mec import MECEnv, make_scenario
+    from repro_torch.mec.scenarios import scenario_space
+    from repro_torch.pop import Curriculum, PopulationTrainer
+    c = dict(POP_GOLDEN_CONFIG, **kw)
+    env = MECEnv(make_scenario(c["space"][0], n_devices=c["n_devices"]),
+                 device=dev)
+    adef = agent_def(c["method"], env, device=dev)
+    space = scenario_space(*c["space"], n_devices=c["n_devices"], device=dev)
+    tr = PopulationTrainer(
+        adef, Curriculum(space.lo, space.hi, n_regions=c["regions"]),
+        n_members=c["members"], n_fleets=c["fleets"], n_slots=c["slots"],
+        seed=c["seed"], replay_capacity=c["replay"], batch_size=c["batch"],
+        train_every=c["train_every"], telemetry=c.get("telemetry", True))
+    return tr, space
+
+
+def pop_golden_draws(gold, g, dev):
+    """Generation ``g``'s draws of the population golden file, as the
+    trainer takes them."""
+    from repro_torch.mec import SlotTasks
+    from repro_torch.pop.pbt import PBTDraws
+    from repro_torch.pop.trainer import GenerationDraws
+    from repro_torch.rollout import SlotDraws
+
+    def t(x, dtype=None):
+        return torch.tensor(np.asarray(x), device=dev, dtype=dtype)
+
+    pre = f"gen{g}"
+    members = [SlotDraws(
+        SlotTasks(*(t(gold[f"{pre}/m{i}/tasks/{f}"])
+                    for f in SlotTasks._fields)), None,
+        t(gold[f"{pre}/m{i}/replay_take"], torch.int64),
+        gumbel=t(gold[f"{pre}/m{i}/gumbel"]))
+        for i in range(POP_GOLDEN_CONFIG["members"])]
+    return GenerationDraws(
+        region=t(gold[f"{pre}/region"]), offset=t(gold[f"{pre}/offset"]),
+        members=members, pbt=PBTDraws(*(t(gold[f"{pre}/pbt/{k}"])
+                                        for k in ("up", "gain", "tau"))))
+
+
+def pop_golden_phase(dev):
+    """25. ``tests/data/torch_pop_golden.npz`` (a JAX ``PopulationTrainer``
+    run with its draws) through the port's trainer on the card."""
+    from repro_torch.nn.pytree import flatten_dict
+    from repro_torch.obs.telemetry import telemetry_host
+    from repro_torch.pop import MemberHypers
+    t0 = time.perf_counter()
+    with np.load(POP_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    c = POP_GOLDEN_CONFIG
+    tr, _ = pop_trainer(dev)
+    ts = tr.init_state()
+    init = tree_of(gold, "init/params")
+    params = {layer: {leaf: torch.tensor(init[layer][leaf], device=dev)
+                      for leaf in leaves}
+              for layer, leaves in ts.pop.agents.params.items()}
+    hyp = MemberHypers(*(torch.tensor(gold[f"init/hypers/{f}"], device=dev)
+                         for f in MemberHypers._fields))
+    ts = ts._replace(pop=ts.pop._replace(
+        agents=ts.pop.agents._replace(params=params), hypers=hyp))
+    print(f"P={c['members']} B={c['fleets']} T={c['slots']} M="
+          f"{c['n_devices']} regions {c['regions']}, {c['generations']} "
+          f"generations, PBT every generation")
+    for g in range(c["generations"]):
+        pre = f"gen{g}"
+        ts, rep, det = tr.generation(ts, draws=pop_golden_draws(gold, g, dev),
+                                     detail=True)
+        for i, trace in enumerate(det.traces):
+            dec = trace.decisions.cpu().numpy()
+            diff = np.argwhere((dec != gold[f"{pre}/m{i}/decisions"])
+                               .any(-1))
+            for t, b in diff:
+                margin = min(float(gold[f"{pre}/m{i}/{k}"][t, b])
+                             for k in ("q_margin", "xhat_margin"))
+                margin = min(margin, float(gold[f"{pre}/m{i}/cand_margin"]
+                                           [t, b]))
+                print(f"  gen {g} member {i} slot {t} fleet {b}: margin "
+                      f"{margin:.3e}")
+                if margin > NEAR_TIE:
+                    raise SystemExit(f"pop golden: gen {g} member {i} "
+                                     f"decision differs at slot {t}, not at "
+                                     f"a near-tie")
+            if diff.size:
+                print(f"pop golden: a near-tie flip in gen {g} member {i}: "
+                      f"the comparison stops")
+                return
+        errs = {k: float(np.abs(det.metrics[k].cpu().numpy()
+                                - gold[f"{pre}/mets/{k}"]).max())
+                for k in ("avg_reward", "ssp", "avg_accuracy")}
+        stats = {k: getattr(det.stats, k).cpu().numpy()
+                 for k in ("src", "copied", "ranks")}
+        hyp_err = max(float(np.abs(getattr(ts.pop.hypers, f).cpu().numpy()
+                                   - gold[f"{pre}/hypers/{f}"]).max())
+                      for f in MemberHypers._fields)
+        cur_err = max(float(np.abs(getattr(ts.cur, f).cpu().numpy()
+                                   - gold[f"{pre}/cur/{f}"]).max())
+                      for f in ("score", "visits"))
+        print(f"gen {g}: decisions {c['members']} x {c['slots']} x "
+              f"{c['fleets']} equal; metric errors {errs}; src "
+              f"{stats['src'].tolist()} ranks {stats['ranks'].tolist()}; "
+              f"hypers error {hyp_err:.3e}; curriculum error {cur_err:.3e}; "
+              f"region visits {rep['region_visits']}")
+        if (max(errs.values()) > POP_METRIC_TOL
+                or any((stats[k] != gold[f"{pre}/stats/{k}"]).any()
+                       for k in stats)
+                or hyp_err > POP_HYPER_TOL or cur_err > POP_HYPER_TOL
+                or rep["region_visits"]
+                != gold[f"{pre}/report/region_visits"].tolist()):
+            raise SystemExit(f"pop golden: generation {g} differs")
+    want = flatten_dict(tree_of(gold, "final/params"))
+    got = flatten_dict(ts.pop.agents.params)
+    excess = max(close_excess(got[k].cpu(), torch.tensor(w),
+                              *TRAIN_PARAM_TOL) for k, w in want.items())
+    err = max(float((got[k].cpu() - torch.tensor(w)).abs().max())
+              for k, w in want.items())
+    counters = telemetry_host(tr.telemetry)["counters"]
+    print(f"final params: max abs error {err:.3e} (rtol "
+          f"{TRAIN_PARAM_TOL[0]} atol {TRAIN_PARAM_TOL[1]}); telemetry "
+          f"{counters}")
+    if not excess <= 0 or any(counters[k] != float(gold[f"telemetry/{k}"])
+                              for k in counters):
+        raise SystemExit("pop golden: final params or telemetry differ")
+    print(f"phase 25 wall {time.perf_counter() - t0:.2f} s")
+
+
+def same_leaves(a, b) -> bool:
+    """Every tensor of two trees equal bit for bit (NaN equal to NaN)."""
+    from repro_torch.rollout.driver import _tensors
+    xs, ys = _tensors(a), _tensors(b)
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(((x == y) | (x != x) & (y != y)).all())
+        for x, y in zip(xs, ys))
+
+
+def pop_phase(dev):
+    """26. ``PopulationTrainer`` at the paper's width: builds, launches per
+    member-episode, resume, losses, DROOE; generation times."""
+    from repro_torch.mec.scenarios import interpolate_params
+    from repro_torch.obs import CompileTracker
+    from repro_torch.pop.population import (exit_mask_from_tau, hypers_row,
+                                            member_seed, member_state)
+    from repro_torch.train import restore_population, save_population
+    t_phase = time.perf_counter()
+    c = POP_FULL
+    tr, space = pop_trainer(dev, **c)
+    drv = tr.driver.drv
+    print(f"GRLE M={c['n_devices']} N=2 L=5 hidden {drv.adef.hidden}, "
+          f"{c['space'][0]}..{c['space'][1]} in {c['regions']} regions, "
+          f"P={c['members']} x {c['fleets']} fleet x {c['slots']} slots, "
+          f"ring {c['replay']} minibatch {c['batch']} omega "
+          f"{c['train_every']}, {POP_GENERATIONS} generations")
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_pop.ckpt")
+    states, walls = [], []
+    with CompileTracker() as ct:
+        ts = tr.init_state()
+        for g in range(POP_GENERATIONS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, rep = tr.generation(ts)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            states.append(ts)
+            m = rep["metrics"]
+            print(f"  gen {g}: {walls[-1]:.4f} s, reward mean "
+                  f"{m['mean_reward']:.4f} best {m['best_reward']:.4f} "
+                  f"(member {rep['best_member']}) ssp {m['mean_ssp']:.4f} "
+                  f"accuracy {m['mean_accuracy']:.4f} exploits "
+                  f"{int(m['exploits'])} regions {rep['region_visits']}",
+                  flush=True)
+            if g == 0:
+                save_population(ckpt, ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evals = []
+        for i, t in enumerate(POP_EVAL_POINTS):
+            mets = tr.evaluate(ts.pop, (c["seed"], i),
+                               interpolate_params(space.lo, space.hi, t))
+            evals.append(float(mets["avg_reward"].mean()))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    built = ct.by_label()
+    n_ep = c["members"] * POP_GENERATIONS
+    print(f"CompileTracker: {ct.summary()}; by label {built}")
+    if ((built.get("pop_episode", {}).get("episodes"),
+         built.get("pop_episode", {}).get("graphs")) != (1, 2)
+            or (built.get("pop_eval", {}).get("episodes"),
+                built.get("pop_eval", {}).get("graphs")) != (1, 1)):
+        raise SystemExit(f"pop: {built}, expected one episode and two "
+                         f"graphs for pop_episode over {n_ep} "
+                         f"member-episodes, one and one for pop_eval")
+    slots = c["members"] * c["slots"]
+    for g, w in enumerate(walls):
+        print(f"  gen {g}: {w:.4f} s, {slots / w:.1f} member-slots/s, "
+              f"{w / slots * 1e3:.4f} ms a slot per member")
+    print(f"first generation's build and capture: "
+          f"{built['pop_episode']['seconds']:.4f} s; evaluation at t = "
+          f"{list(POP_EVAL_POINTS)}: {eval_s:.4f} s (its build and capture "
+          f"{built['pop_eval']['seconds']:.4f} s), mean rewards "
+          f"{[round(e, 6) for e in evals]}")
+
+    # launches over one member-episode's replays
+    pop = ts.pop
+    agent = member_state(pop.agents, 0)._replace(
+        exit_mask=exit_mask_from_tau(tr.adef, pop.hypers.exit_tau[0]))
+    sp = interpolate_params(space.lo, space.hi, 0.5)
+    plan, _ = drv._schedule(drv.adef.episode_state(agent), c["slots"])
+    n_train = sum(due for due, _, _ in plan)
+    (_, _), ours, graphs = profiled_call(lambda: drv.run(
+        member_seed((c["seed"], 9), 0), c["slots"], agent_state=agent,
+        sp=sp, hypers=hypers_row(pop.hypers, 0)))
+    n = c["slots"] + n_train
+    want = {"gcn_agg": 4 * n, "edge_score": n}
+    print(f"one member-episode: actor kernels {ours} (expected {want}: "
+          f"{c['slots']} slots + {n_train} train steps), {graphs} graph "
+          f"launches")
+    if ours != want or graphs != c["slots"] or drv.episodes_built != 1:
+        raise SystemExit(f"pop: launches {ours}, expected {want}")
+
+    # resume: generation 0, checkpoint, restore into a fresh trainer, one
+    # more generation == two uninterrupted ones
+    fresh, _ = pop_trainer(dev, **c)
+    restored = restore_population(ckpt, like=fresh.init_state())
+    if not same_leaves(restored, states[0]):
+        raise SystemExit("pop: the restored checkpoint differs from the "
+                         "state it saved")
+    resumed, _ = fresh.generation(restored)
+    if not same_leaves(resumed, states[1]):
+        raise SystemExit("pop: a resumed generation differs from the "
+                         "uninterrupted run")
+    print("resume: generation 0, save_population, restore_population into a "
+          "fresh trainer, generation 1: every leaf equal to the "
+          "uninterrupted run's bit for bit")
+    del fresh, restored, resumed
+
+    loss = ts.pop.agents.last_loss.cpu().numpy()
+    print(f"final losses {np.round(loss, 6).tolist()}")
+    if not np.isfinite(loss).all():
+        raise SystemExit("pop: a member's final loss is not finite")
+
+    # DROOE: the MLP actor launches no actor kernel
+    droo, _ = pop_trainer(dev, **dict(c, method="drooe", members=4))
+    (_, rep), ours, _ = profiled_call(
+        lambda: droo.generation(droo.init_state()))
+    print(f"DROOE P=4, one generation: actor kernels {ours}, reward mean "
+          f"{rep['metrics']['mean_reward']:.4f}")
+    if ours != {"gcn_agg": 0, "edge_score": 0}:
+        raise SystemExit(f"pop DROOE: launches {ours}, expected none")
+    print(f"phase 26 wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def obs_phase(dev):
+    """27. The profile CLI's trace and run log; hot program costs, card and
+    CPU."""
+    import shutil
+    from repro_torch.obs import hot_program_costs, read_events
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "chip_smoke_profile")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.profile", "--devices",
+           "14", "--episodes", "2", "--trace", "--out", out]
+    p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=600)
+    print(p.stdout.strip())
+    if p.returncode:
+        print(p.stderr[-4000:])
+        raise SystemExit(f"profile CLI exited {p.returncode}")
+    events = read_events(os.path.join(out, "events.jsonl"))
+    kinds = [e["event"] for e in events]
+    compile_ev = events[-1]
+    with open(os.path.join(out, "trace", "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in trace if e.get("cat") == "kernel"
+                  and "gcn_agg_kernel" in e.get("name", ""))
+    spans = sorted({e["name"] for e in trace
+                    if str(e.get("name", "")).startswith("obs/")})
+    print(f"run log events {kinds}; compile "
+          f"{compile_ev.get('n_backend_compiles')} episodes, "
+          f"{compile_ev.get('n_graphs_captured')} graphs; trace "
+          f"{len(trace)} events, {kernels} gcn_agg kernel records, spans "
+          f"{spans}")
+    if (kinds != ["manifest", "episode", "episode", "compile"]
+            or (compile_ev.get("n_backend_compiles"),
+                compile_ev.get("n_graphs_captured")) != (1, 2)
+            or not kernels or not spans):
+        raise SystemExit("profile CLI: run log or trace malformed")
+    shutil.rmtree(out, ignore_errors=True)
+
+    card = hot_program_costs(quick=True, device=dev)
+    cpu = hot_program_costs(quick=True, device="cpu")
+    print("program | flops card | flops cpu | bytes card | bytes cpu | "
+          "intensity | argument bytes | output bytes | temp bytes (card)")
+    for name in card:
+        a, b = card[name], cpu[name]
+        print(f"  {name} | {a['flops']:.0f} | {b['flops']:.0f} | "
+              f"{a['bytes_accessed']:.0f} | {b['bytes_accessed']:.0f} | "
+              f"{a['arithmetic_intensity']} | {a['argument_bytes']} | "
+              f"{a['output_bytes']} | {a['temp_bytes']}  ({a['derived']})")
+        if a["flops"] != b["flops"] or not a["flops"] > 0:
+            raise SystemExit(f"cost {name}: flops on the card {a['flops']} "
+                             f"!= on the CPU {b['flops']}")
+    print(f"phase 27 wall {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2930,7 +3231,17 @@ def main() -> int:
     phase(24, "the paper's results grid through repro_torch.sweep")
     sweep_phase(dev)
 
-    phase(25, "summary")
+    phase(25, "population: golden replay of a JAX PopulationTrainer run")
+    pop_golden_phase(dev)
+
+    phase(26, "population training at full width: GRLE, P=16, PBT and "
+              "curriculum")
+    pop_phase(dev)
+
+    phase(27, "observability: the profile CLI's trace, hot program costs")
+    obs_phase(dev)
+
+    phase(28, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",

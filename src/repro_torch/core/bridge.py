@@ -7,7 +7,8 @@ neither JAX nor anything of ``repro``. Names, shapes and dtypes are
 checked against the port's layout (``core.gcn.param_shapes`` for the GCN
 actor, ``MLPActor.param_shapes`` for DROO's MLP, ``DecoderLM.param_shapes``
 for a decoder LM, the reference's ``AgentState`` and ``DeviceReplay``
-fields for an agent state) and any mismatch raises.
+fields for an agent state, with a leading [P] in a population) and any
+mismatch raises.
 """
 from __future__ import annotations
 
@@ -176,6 +177,50 @@ def agent_state_from_numpy(state, device, *, hidden=(128, 64),
         step=t(st["step"]), exit_mask=t(st["exit_mask"]),
         last_loss=t(st["last_loss"]), loss_sum=t(st["loss_sum"]),
         loss_count=t(st["loss_count"]), host_step=int(st["step"]))
+
+
+def population_from_numpy(pop, device, *, hidden=(128, 64),
+                          edge_hidden: int = 64, dims=None):
+    """The reference's ``Population`` (a NamedTuple or mapping of
+    ``agents``, ``hypers``, ``generation``, numpy leaves; every agent leaf
+    with a leading [P], as ``jax.vmap(adef.init)`` stacks them) -> the
+    port's ``repro_torch.pop.Population`` on ``device``. Each member goes
+    through ``agent_state_from_numpy`` (every name, shape and dtype
+    checked; its RNG key dropped); ``hypers`` are [P] float32 ``lr``,
+    ``explore_gain``, ``exit_tau``; ``generation`` a 0-d int32."""
+    from repro_torch.pop.population import (MemberHypers, Population,
+                                            stack_states)
+
+    device = resolve_device(device)
+    top = _fields(pop, ("agents", "hypers", "generation"), "Population")
+    agents = _fields(top["agents"], STATE_FIELDS, "agents")
+    hyp = _fields(top["hypers"], MemberHypers._fields, "hypers")
+    n = _array("hypers/lr", hyp["lr"], np.float32, (None,)).shape[0]
+    for name in MemberHypers._fields:
+        _array(f"hypers/{name}", hyp[name], np.float32, (n,))
+    _array("generation", top["generation"], np.int32, ())
+
+    def member(tree, i):
+        if isinstance(tree, dict) or hasattr(tree, "_asdict"):
+            d = tree._asdict() if hasattr(tree, "_asdict") else tree
+            return {k: member(v, i) for k, v in d.items()}
+        x = np.asarray(tree)
+        if x.ndim == 0 or x.shape[0] != n:
+            raise ValueError(f"agents: a leaf of shape {x.shape}, expected "
+                             f"a leading [{n}] members")
+        return np.array(x[i])
+
+    states = [agent_state_from_numpy(member(agents, i), device,
+                                     hidden=hidden, edge_hidden=edge_hidden,
+                                     dims=dims) for i in range(n)]
+    if len({(s.host_step, s.replay.host_size) for s in states}) > 1:
+        raise ValueError("agents: members at different slot counts or ring "
+                         "sizes; a population shares one schedule")
+    return Population(
+        agents=stack_states(states),
+        hypers=MemberHypers(*(torch.tensor(hyp[f], device=device)
+                              for f in MemberHypers._fields)),
+        generation=torch.tensor(top["generation"], device=device))
 
 
 def agent_state_from_params(adef: AgentDef, params: dict,

@@ -263,15 +263,23 @@ class AgentDef:
                     mec_state: MECState, tasks: SlotTasks, *,
                     generator: Optional[torch.Generator] = None,
                     rand_cands: Optional[torch.Tensor] = None,
-                    sp: Optional[ScenarioParams] = None):
+                    sp: Optional[ScenarioParams] = None,
+                    explore_gain: Optional[torch.Tensor] = None,
+                    gumbel: Optional[torch.Tensor] = None):
         """Fused actor + critic pass for ``batch`` networks (the leading
         axes of ``mec_state``'s leaves); ``sp`` overrides the env's
         scenario knobs in observe and evaluate (None: the env's own).
 
         The K = ``n_random`` exploration candidates are ``rand_cands``
         (``batch + (K, M)``, injected — the tests feed the reference's
-        draws through it) or, without it, uniform over each device's
-        allowed options by Gumbel-max on noise from ``generator``.
+        draws through it) or, without it, a Gumbel-max draw over each
+        device's allowed options: uniform, or with ``explore_gain`` (a 0-d
+        tensor, the population's per-member knob) over ``x_hat * gain +
+        gumbel``, so that larger gains lean toward the actor's own scores
+        (gain 0 is the uniform draw bit for bit). The Gumbel noise is
+        ``gumbel`` (``batch + (K, M, O)``, injected: with a gain the
+        candidates depend on the actor, so only the noise can carry the
+        reference's draws) or drawn from ``generator``.
         Returns (decision ``batch + (M,)`` int32, q_best ``batch``, graph).
         """
         env = self.env
@@ -282,7 +290,12 @@ class AgentDef:
         if self.n_random:
             want = cands.shape[:-2] + (self.n_random, env.M)
             if rand_cands is None:
-                rand_cands = self._random_candidates(exit_mask, g, generator)
+                rand_cands = self._random_candidates(
+                    exit_mask, g, generator, x_hat, explore_gain, gumbel)
+            elif gumbel is not None or explore_gain is not None:
+                raise ValueError("rand_cands are the candidates themselves; "
+                                 "pass gumbel= to inject the noise under an "
+                                 "explore_gain")
             elif tuple(rand_cands.shape) != want:
                 raise ValueError(f"rand_cands shape {tuple(rand_cands.shape)}"
                                  f", expected {want}")
@@ -293,25 +306,35 @@ class AgentDef:
         return decision, q.gather(-1, best)[..., 0], g
 
     def _random_candidates(self, exit_mask, g: MECGraph,
-                           generator: Optional[torch.Generator]):
-        if generator is None:
-            raise ValueError("decide_with needs a generator or rand_cands "
-                             "for its exploration candidates")
+                           generator: Optional[torch.Generator],
+                           x_hat=None, gain=None, gumbel=None):
         allowed = (exit_mask > 0.5) & (g.mask > 0.5)            # [..., M, O]
         shape = allowed.shape[:-2] + (self.n_random,) + allowed.shape[-2:]
-        u = torch.rand(shape, generator=generator, device=allowed.device)
-        tiny = torch.finfo(u.dtype).tiny
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        noise = torch.where(allowed[..., None, :, :], gumbel, -torch.inf)
+        if gumbel is None:
+            if generator is None:
+                raise ValueError("decide_with needs a generator or rand_cands "
+                                 "(or gumbel) for its exploration "
+                                 "candidates")
+            u = torch.rand(shape, generator=generator, device=allowed.device)
+            tiny = torch.finfo(u.dtype).tiny
+            gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+        elif tuple(gumbel.shape) != shape:
+            raise ValueError(f"gumbel shape {tuple(gumbel.shape)}, expected "
+                             f"{shape}")
+        noise = (gumbel if gain is None
+                 else x_hat[..., None, :, :] * gain + gumbel)
+        noise = torch.where(allowed[..., None, :, :], noise, -torch.inf)
         return torch.argmax(noise, dim=-1).to(torch.int32)
 
     def decide(self, state: AgentState, mec_state: MECState,
                tasks: SlotTasks, *, generator=None, rand_cands=None,
-               sp: Optional[ScenarioParams] = None):
+               sp: Optional[ScenarioParams] = None, explore_gain=None,
+               gumbel=None):
         """One slot's decision from the agent's own params and exit mask."""
         return self.decide_with(state.params, state.exit_mask, mec_state,
                                 tasks, generator=generator,
-                                rand_cands=rand_cands, sp=sp)
+                                rand_cands=rand_cands, sp=sp,
+                                explore_gain=explore_gain, gumbel=gumbel)
 
 
     # ----------------------------------------------------------------- loss

@@ -16,11 +16,20 @@ JAX package's VJPs are jnp too, ``repro/kernels/ops.py:85-105,
 141-171``). Otherwise they call the kernel directly and build no graph.
 The TPU attention and scan kernels have no backward: an input of theirs
 that requires grad raises, so a missing gradient cannot go unnoticed.
+
+While a cost counter (``obs.cost``) is active, each call is counted as one
+operation whose FLOPs come from its formula in ``kernels/cost.py``, and
+the PyTorch operations inside it (its plain version's, on the CPU) are not
+counted, so that a program costs the same on the CPU and on the card.
 """
 from __future__ import annotations
 
+import functools
+import inspect
+
 import torch
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import edge_score as _edge
 from repro_torch.kernels import flash_attention as _flash
@@ -31,6 +40,41 @@ from repro_torch.kernels import ssm_scan as _ssm
 _MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
             "flash_attention": _flash, "decode_attention": _decode,
             "ssm_scan": _ssm}
+
+
+# the active cost counters, innermost last; each has ``kernel(flops, fn,
+# args, kwargs)``, which counts one call and runs it uncounted
+_COST_COUNTERS: list = []
+
+# name -> the call's FLOPs from the op's bound arguments
+_FLOPS = {
+    "gcn_agg": lambda a: _cost.gcn_agg_cost(*a.values())[1],
+    "edge_score": lambda a: _cost.edge_score_cost(*a.values())[1],
+    "flash_attention": lambda a: _cost.flash_cost(a["q"], a["k"],
+                                                  a["window"])[1],
+    "decode_attention": lambda a: _cost.decode_cost(a["q"], a["k"],
+                                                    a["lengths"])[1],
+    "ssm_scan": lambda a: _cost.ssm_cost(a["q"], a["v"], a["log_w"],
+                                         a["bonus_u"],
+                                         a["initial_state"])[1],
+}
+
+
+def _counted(fn):
+    """``fn`` (a public op of this module), counted as one operation by the
+    innermost active cost counter, if any."""
+    name, sig = fn.__name__, inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        if not _COST_COUNTERS:
+            return fn(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        return _COST_COUNTERS[-1].kernel(_FLOPS[name](bound.arguments), fn,
+                                         args, kwargs)
+
+    return op
 
 
 def _forward_only(op: str, *tensors) -> None:
@@ -77,6 +121,7 @@ class _EdgeScore(torch.autograd.Function):
                                    needs=ctx.needs_input_grad)
 
 
+@_counted
 def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     """Eq-12 message passing: relu(self @ w_self + agg @ w_nbr + bias).
 
@@ -89,6 +134,7 @@ def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     return _gcn.gcn_agg(*args)
 
 
+@_counted
 def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
                b_out):
     """Eq-13/14 fused edge scorer: per-edge MLP logits [B, M, O].
@@ -100,6 +146,7 @@ def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
     return _edge.edge_score(*args)
 
 
+@_counted
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Causal GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] ->
     [B,S,H,d], keys j <= i with i - j < ``window``."""
@@ -107,6 +154,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
+@_counted
 def decode_attention(q, k, v, lengths):
     """One query token per sequence against a KV cache: q [B,H,d],
     k/v [B,S,KVH,d], keys j < lengths[b] -> [B,H,d]."""
@@ -114,6 +162,7 @@ def decode_attention(q, k, v, lengths):
     return _decode.decode_attention(q, k, v, lengths)
 
 
+@_counted
 def ssm_scan(q, k, v, log_w, bonus_u=None, *, chunk: int,
              initial_state=None):
     """The gated linear recurrence in chunks of ``chunk`` rows: q, k,

@@ -1,10 +1,13 @@
 """Observability (PyTorch port): the device-resident telemetry registry,
 JSONL run logs, the run-history store, compile (episode build and graph
-capture) counting and regression verdicts.
+capture) counting, regression verdicts, profiler hooks and cost
+attribution.
 
 Counterparts of ``repro/obs/telemetry.py``, ``log.py``, ``history.py``,
-``compile.py`` and ``regress.py``. The rest of the reference's ``obs/``
-(profiler hooks, cost attribution) is not ported yet (ROADMAP item 7).
+``compile.py``, ``regress.py``, ``profile.py`` (``torch.profiler`` trace
+capture, ``obs/<phase>`` spans) and ``cost.py`` (FLOPs and bytes of a
+program run eagerly under a dispatch mode, the hand-written kernels by
+their formulas).
 """
 from repro_torch.obs.telemetry import (
     LATENCY_BINS,
@@ -35,6 +38,10 @@ from repro_torch.obs.history import (HistoryStore, default_store,
 from repro_torch.obs.compile import CompileTracker
 from repro_torch.obs.regress import (check_history, metric_direction,
                                      regression_verdict, summarize_verdicts)
+from repro_torch.obs.profile import PHASES, phase, span, trace_capture
+from repro_torch.obs.cost import (HOT_PROGRAMS, driver_step_cost,
+                                  hot_program_costs, pack_program_cost,
+                                  program_cost, serve_decode_cost)
 
 __all__ = [
     "Histogram", "Telemetry",
@@ -50,4 +57,7 @@ __all__ = [
     "CompileTracker",
     "check_history", "metric_direction", "regression_verdict",
     "summarize_verdicts",
+    "PHASES", "phase", "span", "trace_capture",
+    "HOT_PROGRAMS", "program_cost", "driver_step_cost",
+    "pack_program_cost", "serve_decode_cost", "hot_program_costs",
 ]

@@ -45,9 +45,18 @@ Both modes run the same slot body, ``_slot``:
   caller asks for with ``device="cpu"``) scan runs the same static-buffer
   episode without capture, so it equals the loop bit for bit.
 
-Phases are wrapped in ``torch.profiler.record_function`` (``sample``,
-``actor``, ``env_step``, ``train``) as the reference wraps them in
-``phase()``; inside a graph they appear once, at capture.
+Per-episode hyperparameters enter as ``hypers`` on ``run`` (anything
+with 0-d tensor attributes ``lr`` and ``explore_gain``: the population's
+``MemberHypers`` row): ``lr`` rescales each train step's Adam updates and
+``explore_gain`` leans the exploration draw toward the actor's scores
+(``AgentDef.decide_with``). The scan episode keeps them in static buffers
+beside ``sp``, so members of one population replay the same graphs;
+``hypers=None`` is the def's own settings, the path as it was.
+
+Phases are wrapped in ``obs.profile.phase`` (``obs/sample``,
+``obs/actor``, ``obs/env_step``, ``obs/train``: ``torch.profiler.
+record_function`` spans), as the reference wraps them in ``phase()``;
+inside a graph they appear once, at capture.
 """
 from __future__ import annotations
 
@@ -58,7 +67,6 @@ from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.policy import AgentDef, AgentState
 from repro_torch.device import resolve_device
@@ -66,6 +74,7 @@ from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECState, SlotTasks
 from repro_torch.obs.compile import (CAPTURE_EVENT, EPISODE_EVENT,
                                      record_build)
+from repro_torch.obs.profile import phase
 from repro_torch.obs.telemetry import (Telemetry, rollout_telemetry,
                                        telemetry_host, telemetry_summary,
                                        telemetry_update)
@@ -83,13 +92,17 @@ class SlotDraws(NamedTuple):
     workload state is then not advanced), or from the workload's own
     state fed its raw uniforms (``workload``, a ``poisson``/``mmpp``
     ``WorkloadDraws`` with leaves [T, B, ...]; ``init`` [B, ...] seeds the
-    state), or, both None, from the generator."""
+    state), or, both None, from the generator. The exploration
+    candidates come ready-made (``rand_cands``) or from the Gumbel noise
+    that picks them (``gumbel``, which an ``explore_gain`` needs: its
+    candidates depend on the actor), or, both None, from the generator."""
     tasks: Optional[SlotTasks]  # leaves [T, B, ...], or None
-    rand_cands: torch.Tensor    # [T, B, K, M] exploration candidates
+    rand_cands: Optional[torch.Tensor]  # [T, B, K, M] exploration candidates
     # [n_train, batch_size] replay rows of each train step, in order
     replay_take: Optional[torch.Tensor] = None
     init: Optional[InitDraws] = None          # leaves [B, ...]
     workload: Optional[WorkloadDraws] = None  # leaves [T, B, ...]
+    gumbel: Optional[torch.Tensor] = None     # [T, B, K, M, O] their noise
 
 
 class RolloutCarry(NamedTuple):
@@ -311,7 +324,7 @@ class RolloutDriver:
             n_slots: int, *, mode: str = "scan",
             agent_state: Optional[AgentState] = None,
             draws: Optional[SlotDraws] = None,
-            sp: Optional[ScenarioParams] = None):
+            sp: Optional[ScenarioParams] = None, hypers=None):
         """Roll B fleets for ``n_slots``; returns (final carry, trace).
 
         ``mode="scan"`` runs the compiled episode (CUDA graphs on the
@@ -322,7 +335,8 @@ class RolloutDriver:
         ``adef.init`` from the same generator (see ``init_carry``). ``sp``
         overrides the env's scenario knobs (shared, or [B]-leading with
         ``per_fleet_scenarios``); another ``sp`` of the same shapes
-        replays the same compiled episode.
+        replays the same compiled episode, and so do other ``hypers``
+        (0-d ``lr`` and ``explore_gain``; None: the def's own).
         """
         if mode not in ("scan", "loop"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -332,22 +346,26 @@ class RolloutDriver:
         carry = self.init_carry(gen, agent_state=agent_state, sp=sp,
                                 draws=None if draws is None else draws.init)
         if mode == "loop":
-            return self._run_loop(carry, gen, n_slots, draws, sp)
-        key = (n_slots, id(gen), _signature(draws), _signature(sp))
+            return self._run_loop(carry, gen, n_slots, draws, sp, hypers)
+        key = (n_slots, id(gen), _signature(draws), _signature(sp),
+               _signature(hypers))
         if self._episode is None or self._episode.key != key:
             self._episode = None        # free the old graphs and buffers
             t0 = time.perf_counter()
             self._episode = _ScanEpisode(self, key, carry, n_slots, draws,
-                                         gen, sp)
+                                         gen, sp, hypers)
             self.episodes_built += 1
             record_build(self.label, EPISODE_EVENT,
                          time.perf_counter() - t0)
-        return self._episode.run(self, carry, draws, sp)
+        return self._episode.run(self, carry, draws, sp, hypers)
 
     def _check_draws(self, draws: SlotDraws, n_slots: int) -> None:
         want = (n_slots, self.n_fleets)
-        per_slot = [draws.rand_cands] + _tensors(draws.tasks) + _tensors(
-            draws.workload)
+        if draws.rand_cands is not None and draws.gumbel is not None:
+            raise ValueError("draws carry rand_cands or the gumbel noise "
+                             "that picks them, not both")
+        per_slot = _tensors((draws.rand_cands, draws.gumbel)) + _tensors(
+            draws.tasks) + _tensors(draws.workload)
         if any(tuple(x.shape[:2]) != want for x in per_slot):
             raise ValueError(f"draws must lead with [T, B] = {want}")
         if any(x.shape[0] != self.n_fleets for x in _tensors(draws.init)):
@@ -371,7 +389,7 @@ class RolloutDriver:
                 "the trained state — thread it explicitly")
         self._shim.state = carry.agent_state
 
-    def _run_loop(self, carry, gen, n_slots, draws, sp):
+    def _run_loop(self, carry, gen, n_slots, draws, sp, hypers=None):
         no_loss = torch.full((), torch.nan, device=self.device)
         outs, n_train = [], 0
         for t in range(n_slots):
@@ -382,12 +400,12 @@ class RolloutDriver:
                                             self.n_fleets)):
                 take = draws.replay_take[n_train]
                 n_train += 1
-            tasks = wdraws = rand = None
+            tasks = wdraws = rand = gumbel = None
             if draws is not None:
                 tasks, wdraws = _at(draws.tasks, t), _at(draws.workload, t)
-                rand = draws.rand_cands[t]
+                rand, gumbel = _at((draws.rand_cands, draws.gumbel), t)
             carry, out = self._slot(carry, gen, tasks, wdraws, rand, take,
-                                    no_loss, sp)
+                                    no_loss, sp, hypers, gumbel)
             outs.append(out)
         trace = RolloutTrace(*(torch.stack(xs) for xs in zip(*outs)))
         return carry, trace
@@ -409,30 +427,34 @@ class RolloutDriver:
 
     # ------------------------------------------------------------- slot body
     def _slot(self, carry: RolloutCarry, gen, tasks, wdraws, rand, take,
-              no_loss, sp):
-        """One slot for all fleets under scenario ``sp``: the slot's
-        injected ``tasks``, or the workload's draw from its state (on the
-        injected uniforms ``wdraws``, or ``gen``'s), exploration candidates
-        ``rand`` (None: drawn from ``gen``) and, on a train step, its
-        minibatch rows ``take`` (None: drawn)."""
+              no_loss, sp, hypers=None, gumbel=None):
+        """One slot for all fleets under scenario ``sp`` and ``hypers``:
+        the slot's injected ``tasks``, or the workload's draw from its
+        state (on the injected uniforms ``wdraws``, or ``gen``'s),
+        exploration candidates ``rand`` (None: picked by the Gumbel noise
+        ``gumbel``, or by noise drawn from ``gen``) and, on a train step,
+        its minibatch rows ``take`` (None: drawn)."""
         wl_state = carry.wl_state
-        with record_function("sample"):
+        with phase("sample"):
             if tasks is None:
                 wl_state, tasks = self.workload.sample(
                     wl_state, gen, sp, batch=(self.n_fleets,), draws=wdraws)
         agent = carry.agent_state
-        with record_function("actor"):
+        with phase("actor"):
             decision, q_best, graphs = self.adef.decide(
                 agent, carry.env_state, tasks, generator=gen,
-                rand_cands=rand, sp=sp)
-        with record_function("env_step"):
+                rand_cands=rand, sp=sp, gumbel=gumbel,
+                explore_gain=None if hypers is None else hypers.explore_gain)
+        with phase("env_step"):
             env_state, result = self.env.step(carry.env_state, tasks,
                                               decision, sp)
         loss = no_loss
         if self.train:
-            with record_function("train"):
-                agent, loss = self.adef.absorb(agent, graphs, decision,
-                                               generator=gen, take=take)
+            with phase("train"):
+                agent, loss = self.adef.absorb(
+                    agent, graphs, decision,
+                    None if hypers is None else hypers.lr, generator=gen,
+                    take=take)
         decision = decision.to(torch.int32)
         active = tasks.active.to(torch.float32)
         metrics = metrics_update(carry.metrics, reward=result.reward,
@@ -469,13 +491,13 @@ class _ScanEpisode:
 
     def __init__(self, drv: RolloutDriver, key, carry: RolloutCarry,
                  n_slots: int, draws: Optional[SlotDraws], gen,
-                 sp: Optional[ScenarioParams]):
+                 sp: Optional[ScenarioParams], hypers):
         self.key, self.n_slots, self.gen = key, n_slots, gen
         dev = drv.device
         self.static = _refill(carry, iter(
             [torch.empty_like(x) for x in _tensors(carry)]))
-        self.sp = None if sp is None else _refill(sp, iter(
-            [torch.empty_like(x) for x in _tensors(sp)]))
+        self.sp, self.hypers = (None if x is None else _refill(x, iter(
+            [torch.empty_like(y) for y in _tensors(x)])) for x in (sp, hypers))
         self.leaves = _tensors(self.static)
         b, m = drv.n_fleets, drv.env.M
 
@@ -498,19 +520,19 @@ class _ScanEpisode:
         static carry with its host mirrors set), then, with ``write``, the
         new carry copied into the static one, the trace row written at the
         slot counter and the counters advanced."""
-        tasks = wdraws = rand = take = None
+        tasks = wdraws = rand = gumbel = take = None
         t = self.t_dev
         if self.draws is not None:
             tasks = _at(self.draws.tasks, t)
             wdraws = _at(self.draws.workload, t)
-            rand = self.draws.rand_cands.index_select(0, t)[0]
+            rand, gumbel = _at((self.draws.rand_cands, self.draws.gumbel), t)
         due = drv.train and drv.adef.train_due(carry.agent_state,
                                                 drv.n_fleets)
         if due and self.draws is not None \
                 and self.draws.replay_take is not None:
             take = self.draws.replay_take.index_select(0, self.n_dev)[0]
         new, out = drv._slot(carry, gen, tasks, wdraws, rand, take,
-                             self.no_loss, self.sp)
+                             self.no_loss, self.sp, self.hypers, gumbel)
         if not write:
             return
         _copy_into(self.leaves, _tensors(new))
@@ -559,12 +581,13 @@ class _ScanEpisode:
         return graphs
 
     def run(self, drv: RolloutDriver, carry: RolloutCarry,
-            draws: Optional[SlotDraws], sp: Optional[ScenarioParams]):
+            draws: Optional[SlotDraws], sp: Optional[ScenarioParams],
+            hypers):
         _copy_into(self.leaves, _tensors(carry))
-        if draws is not None:
-            _copy_into(_tensors(self.draws), _tensors(draws))
-        if sp is not None:
-            _copy_into(_tensors(self.sp), _tensors(sp))
+        for static, given in ((self.draws, draws), (self.sp, sp),
+                              (self.hypers, hypers)):
+            if given is not None:
+                _copy_into(_tensors(static), _tensors(given))
         self.t_dev.zero_()
         self.n_dev.zero_()
         plan, (step, size) = drv._schedule(carry.agent_state, self.n_slots)

@@ -109,14 +109,18 @@ class PackProgram:
     ``label`` is the pack's) and the cells it runs.
 
     ``run()`` executes every cell in pack order, ``run_one(i)`` cell ``i``
-    alone. The first cell builds the scan episode (on the card: warm-up
-    and capture of its two graphs); every later one, and a second
-    ``run()``, replays them. ``cell_s`` holds the seconds of each cell run
-    so far (host clock; each ends in the metrics' host copy).
+    alone, in ``mode`` (``"loop"`` for a cost count: a graph replay
+    dispatches nothing). In scan mode the first cell builds the episode
+    (on the card: warm-up and capture of its two graphs); every later
+    one, and a second ``run()``, replays them. ``cell_s`` holds the
+    seconds of each cell run so far (host clock; each ends in the
+    metrics' host copy).
     """
 
-    def __init__(self, pack: Pack, *, telemetry: bool = False, device=None):
+    def __init__(self, pack: Pack, *, telemetry: bool = False, device=None,
+                 mode: str = "scan"):
         self.pack = pack
+        self.mode = mode
         ref = pack.cells[0]
         self.device = resolve_device(device)
         env = MECEnv(_resolve_cell(ref, self.device)[0], device=self.device)
@@ -148,7 +152,7 @@ class PackProgram:
             exit_mask=self._exit_masks[cell.method.lower()])
         # always an sp (the draw, or the config's own knobs): the episode
         # is keyed by sp's shapes, so every cell replays the same graphs
-        carry, _ = drv.run(run_seed, cell.n_slots, mode="scan",
+        carry, _ = drv.run(run_seed, cell.n_slots, mode=self.mode,
                            agent_state=state,
                            sp=cfg.scenario_params(self.device)
                            if sp is None else sp)

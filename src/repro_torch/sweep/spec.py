@@ -59,8 +59,15 @@ class Cell(NamedTuple):
         return f"{self.scenario}/{self.method}/s{self.seed}"
 
 
-def _seed63(entropy) -> int:
-    state = np.random.SeedSequence(entropy).generate_state(2)
+def seed_of(entropy) -> int:
+    """A 63-bit torch seed from an int or a sequence of ints, by
+    ``numpy.random.SeedSequence``: the port's derivation of every
+    sub-stream (cells here, population members and generations in
+    ``pop/``), where the reference folds keys."""
+    if isinstance(entropy, (int, np.integer)):
+        entropy = [int(entropy)]
+    state = np.random.SeedSequence([int(e) for e in entropy]
+                                   ).generate_state(2)
     return (int(state[0]) | int(state[1]) << 32) & (2 ** 63 - 1)
 
 
@@ -74,7 +81,7 @@ def cell_seeds(cell: Cell):
     per-cell, resumed vs fresh). Methods share the same pair per seed
     (paired-seed comparisons, as in the paper's per-figure ablations).
     """
-    return _seed63([int(cell.seed), 1]), _seed63([int(cell.seed), 2])
+    return seed_of([int(cell.seed), 1]), seed_of([int(cell.seed), 2])
 
 
 # the reference's name for the derivation (its keys are threefry keys)

@@ -91,11 +91,47 @@ def restore_checkpoint(path: str) -> dict:
 
 def _reference_tree(state: AgentState):
     """``state`` in the reference's field order, its key the bits of
-    ``PRNGKey(0)`` (the port has none)."""
-    fields = dict(state._asdict(), key=np.zeros(2, np.uint32),
+    ``PRNGKey(0)`` (the port has none); a stacked state's key is one such
+    per member."""
+    lead = tuple(state.step.shape)
+    fields = dict(state._asdict(), key=np.zeros(lead + (2,), np.uint32),
                   replay=tuple(getattr(state.replay, f)
                                for f in REPLAY_FIELDS))
     return tuple(fields[f] for f in STATE_FIELDS)
+
+
+def _state_fields(tree: dict, path: str) -> dict:
+    """An ``AgentState``'s ``__seq`` entries of a read file -> its fields by
+    name (the replay ring's too), every entry present and none extra."""
+    fields = {}
+    for i, name in enumerate(STATE_FIELDS):
+        node = tree.get(f"__seq{i}")
+        if node is None:
+            raise ValueError(f"{path}: no AgentState field {name} "
+                             f"(__seq{i})")
+        fields[name] = node
+    extra = sorted(set(tree) - {f"__seq{i}" for i in range(len(STATE_FIELDS))})
+    if extra:
+        raise ValueError(f"{path}: unexpected entries {extra}")
+    replay = fields["replay"]
+    if set(replay) != {f"__seq{i}" for i in range(len(REPLAY_FIELDS))}:
+        raise ValueError(f"{path}: replay entries {sorted(replay)}")
+    fields["replay"] = {f: replay[f"__seq{i}"]
+                        for i, f in enumerate(REPLAY_FIELDS)}
+    return fields
+
+
+def _check_against(state: AgentState, like: AgentDef, path: str) -> None:
+    """``state``'s actor family and ring against the def's."""
+    if set(state.params) != set(like.param_shapes()):
+        raise ValueError(f"{path}: an actor of layers {sorted(state.params)}"
+                         f", the def's ({like.actor}) has "
+                         f"{sorted(like.param_shapes())}")
+    if state.replay.capacity != like.buffer_size or tuple(
+            state.replay.adj.shape[1:]) != like.graph_shapes().adj:
+        raise ValueError(
+            f"{path}: a ring of {tuple(state.replay.adj.shape)}, the def "
+            f"wants {like.buffer_size} graphs of {like.graph_shapes().adj}")
 
 
 def save_agent_state(path: str, state: AgentState, *, level: int = 3
@@ -113,34 +149,92 @@ def restore_agent_state(path: str, like: AgentDef, device=None
     shape and dtype checked against the reference's fields and ``like``'s
     actor family and widths. The stored RNG ``key`` leaf is dropped: the port's draws come
     from the caller's generator."""
-    flat = restore_checkpoint(path)
-    tree = unflatten_dict({k.removeprefix("/"): v for k, v in flat.items()})
-    fields = {}
-    for i, name in enumerate(STATE_FIELDS):
-        node = tree.get(f"__seq{i}")
-        if node is None:
-            raise ValueError(f"{path}: no AgentState field {name} "
-                             f"(__seq{i})")
-        fields[name] = node
-    extra = sorted(set(tree) - {f"__seq{i}" for i in range(len(STATE_FIELDS))})
-    if extra:
-        raise ValueError(f"{path}: unexpected entries {extra}")
-    replay = fields["replay"]
-    if set(replay) != {f"__seq{i}" for i in range(len(REPLAY_FIELDS))}:
-        raise ValueError(f"{path}: replay entries {sorted(replay)}")
-    fields["replay"] = {f: replay[f"__seq{i}"]
-                        for i, f in enumerate(REPLAY_FIELDS)}
+    tree = _read_tree(path)
     env = like.env
     state = agent_state_from_numpy(
-        fields, like.device if device is None else device,
+        _state_fields(tree, path), like.device if device is None else device,
         hidden=like.hidden, dims=(env.M, env.N, env.L))
-    if set(state.params) != set(like.param_shapes()):
-        raise ValueError(f"{path}: an actor of layers {sorted(state.params)}"
-                         f", the def's ({like.actor}) has "
-                         f"{sorted(like.param_shapes())}")
-    if state.replay.capacity != like.buffer_size or tuple(
-            state.replay.adj.shape[1:]) != like.graph_shapes().adj:
-        raise ValueError(
-            f"{path}: a ring of {tuple(state.replay.adj.shape)}, the def "
-            f"wants {like.buffer_size} graphs of {like.graph_shapes().adj}")
+    _check_against(state, like, path)
     return state
+
+
+def _read_tree(path: str) -> dict:
+    """The file as nested dicts keyed by path segment (``__seq{i}`` for a
+    sequence's items)."""
+    flat = restore_checkpoint(path)
+    return unflatten_dict({k.removeprefix("/"): v for k, v in flat.items()})
+
+
+# -------------------------------------------------------------- populations
+def _population_tree(pop):
+    """A ``Population`` in the reference's layout: (agents, hypers,
+    generation)."""
+    return (_reference_tree(pop.agents), tuple(pop.hypers), pop.generation)
+
+
+def save_population(path: str, pop, *, level: int = 3) -> None:
+    """Write a ``repro_torch.pop`` ``Population``, or a trainer's
+    ``PopTrainState`` (population + curriculum state), in the reference's
+    ``save_population`` layout: the stacked per-member ``AgentState``
+    leaves (its ``key`` leaf written as zeros, [P, 2]), the
+    ``MemberHypers`` arrays and the generation counter, which
+    ``repro.train.checkpoint.restore_population`` reads."""
+    if hasattr(pop, "cur"):
+        tree = (_population_tree(pop.pop), tuple(pop.cur))
+    else:
+        tree = _population_tree(pop)
+    save_checkpoint(path, tree, level=level)
+
+
+def restore_population(path: str, like, device=None):
+    """Read a population file of the reference's (or the port's) into the
+    structure of ``like``: a ``Population`` or a ``PopTrainState``, whose
+    def-side shapes (members, actor widths, ring) the file must match. On
+    ``device`` (default ``like``'s). The stored RNG keys are dropped. A
+    mid-PBT restore continues bit for bit."""
+    from repro_torch.core.bridge import population_from_numpy
+    from repro_torch.pop.curriculum import CurriculumState
+    from repro_torch.pop.trainer import PopTrainState
+
+    tree = _read_tree(path)
+    train_state = hasattr(like, "cur")
+    like_pop = like.pop if train_state else like
+    node = tree
+    if train_state:
+        if set(tree) != {"__seq0", "__seq1"}:
+            raise ValueError(f"{path}: entries {sorted(tree)}, expected a "
+                             f"population and a curriculum state")
+        node = tree["__seq0"]
+    if set(node) != {"__seq0", "__seq1", "__seq2"}:
+        raise ValueError(f"{path}: entries {sorted(node)}, expected agents, "
+                         f"hypers and a generation")
+    hyp = node["__seq1"]
+    if set(hyp) != {"__seq0", "__seq1", "__seq2"}:
+        raise ValueError(f"{path}: hypers entries {sorted(hyp)}")
+    dev = like_pop.generation.device if device is None else device
+    params = like_pop.agents.params
+    hidden = tuple(params[k]["w"].shape[-1] for k in ("dev1", "dev2")) \
+        if "dev1" in params else (128, 64)
+    ring = like_pop.agents.replay
+    m, o = ring.decisions.shape[-1], ring.adj.shape[-1]
+    pop = population_from_numpy(
+        {"agents": _state_fields(node["__seq0"], path),
+         "hypers": {"lr": hyp["__seq0"], "explore_gain": hyp["__seq1"],
+                    "exit_tau": hyp["__seq2"]},
+         "generation": node["__seq2"]}, dev, hidden=hidden)
+    want = tuple(like_pop.hypers.lr.shape)
+    if tuple(pop.hypers.lr.shape) != want or tuple(
+            pop.agents.replay.adj.shape) != tuple(ring.adj.shape) or set(
+            pop.agents.params) != set(params):
+        raise ValueError(
+            f"{path}: {tuple(pop.hypers.lr.shape)} members, actor layers "
+            f"{sorted(pop.agents.params)}, rings "
+            f"{tuple(pop.agents.replay.adj.shape)}; the template has {want}, "
+            f"{sorted(params)}, {tuple(ring.adj.shape)} (M={m}, O={o})")
+    if not train_state:
+        return pop
+    cur = tree["__seq1"]
+    if set(cur) != {"__seq0", "__seq1"}:
+        raise ValueError(f"{path}: curriculum entries {sorted(cur)}")
+    return PopTrainState(pop=pop, cur=CurriculumState(
+        *(torch.tensor(cur[f"__seq{i}"], device=dev) for i in range(2))))

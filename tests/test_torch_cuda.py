@@ -379,6 +379,39 @@ def test_sweep_pack_replays_one_capture_per_pack(cuda):
             cell.label()
 
 
+def test_population_driver_replays_one_capture(cuda):
+    """Two PBT generations of four GRLE members with distinct hypers, and
+    an evaluation, on the card: one episode built and two graphs captured
+    for the training driver, one and one for the evaluation driver; a
+    generation's scan run equals its loop run bit for bit."""
+    from repro_torch.mec.scenarios import scenario_space
+    from repro_torch.obs import CompileTracker
+    from repro_torch.pop import Curriculum, PopulationTrainer
+    from repro_torch.rollout.driver import _tensors
+
+    env = MECEnv(make_scenario("fig5_baseline", n_devices=6), device=cuda)
+    space = scenario_space(n_devices=6, device=cuda)
+    with CompileTracker() as ct:
+        tr = PopulationTrainer(
+            agent_def("grle", env, device=cuda),
+            Curriculum(space.lo, space.hi, n_regions=4), n_members=4,
+            n_slots=20, replay_capacity=16, batch_size=4, train_every=5)
+        ts, _ = tr.train(tr.init_state(), 2)
+        tr.evaluate(ts.pop, 7, space.lo)
+    assert {k: (v["episodes"], v["graphs"])
+            for k, v in ct.by_label().items()} == {
+        "pop_episode": (1, 2), "pop_eval": (1, 1)}
+    _, sps = tr.curriculum.resample(ts.cur, None, 4,
+                                    region=torch.arange(4),
+                                    offset=torch.full((4,), 0.5))
+    runs = [tr.driver.run_generation(ts.pop, 3, sps, mode=mode)
+            for mode in ("scan", "loop")]
+    xs, ys = _tensors(runs[0]), _tensors(runs[1])
+    assert len(xs) == len(ys) and all(
+        bool(((x == y) | (x.isnan() & y.isnan())).all())
+        for x, y in zip(xs, ys))
+
+
 def test_hist_add_sends_nan_and_inf_where_the_reference_does(cuda):
     """On the card too: -inf underflows, +inf and NaN overflow."""
     h = hist_init([0.0, 1.0, 2.0, 3.0], device=cuda)

@@ -50,6 +50,11 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.sweep.runner, repro_torch.sharding.fleet\n"
             "import repro_torch.launch.sweep, repro_torch.launch.history\n"
             "import repro_torch.obs.compile, repro_torch.obs.regress\n"
+            "import repro_torch.pop, repro_torch.pop.population\n"
+            "import repro_torch.pop.pbt, repro_torch.pop.curriculum\n"
+            "import repro_torch.pop.trainer, repro_torch.launch.pop\n"
+            "import repro_torch.obs.profile, repro_torch.obs.cost\n"
+            "import repro_torch.launch.profile, repro_torch.kernels.cost\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

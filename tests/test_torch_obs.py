@@ -1,8 +1,12 @@
 """The port's telemetry registry (``repro_torch.obs.telemetry``) against the
 JAX package's (``repro.obs.telemetry``): the same numpy-seeded inputs
 through both, histogram counts exactly, counters that are counts exactly
-and float32 sums within 1e-6 relative (the two sum in other orders)."""
+and float32 sums within 1e-6 relative (the two sum in other orders). Then
+the profiler hooks and cost attribution (``obs/profile.py``,
+``obs/cost.py``, ``launch/profile.py``) against the reference's surface,
+keys and run-log events."""
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +229,101 @@ def test_host_view_and_summary_match_reference(n_slots):
         else:
             np.testing.assert_allclose(sp[k], v, rtol=1e-5, err_msg=k)
     json.dumps(hp | {"summary": sp} if n_slots else sp, allow_nan=False)
+
+
+# ------------------------------------------------------ profile and cost
+def test_obs_surface_matches_reference():
+    import repro.obs as jobs
+    import repro_torch.obs as pobs
+    from repro_torch.obs import profile
+    assert set(jobs.__all__) <= set(pobs.__all__)
+    assert pobs.PHASES == jobs.PHASES
+    assert pobs.HOT_PROGRAMS == jobs.HOT_PROGRAMS
+    assert profile.PHASE_SPANS == tuple(f"obs/{p}" for p in jobs.PHASES)
+
+
+def test_trace_capture_writes_a_trace_on_the_cpu(tmp_path):
+    """A phase span and a span land in the trace file; ``enabled=False``
+    yields None and writes nothing."""
+    from repro_torch.obs import phase, span, trace_capture
+    out = str(tmp_path / "trace")
+    with trace_capture(out) as cap:
+        assert cap.started and not cap
+        with span("host_work"), phase("actor"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert cap and os.path.exists(cap.path)
+    with open(cap.path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"obs/actor", "host_work"} <= names
+    with trace_capture(str(tmp_path / "off"), enabled=False) as off:
+        assert off is None
+    assert not os.path.exists(str(tmp_path / "off"))
+
+
+def test_program_cost_keys_and_sizes_match_reference():
+    import jax.numpy as jnp
+    from repro.obs import program_cost as jax_program_cost
+    from repro_torch.obs import program_cost
+    want = jax_program_cost(lambda x: (x @ x.T).sum(),
+                            jnp.ones((32, 32), jnp.float32))
+    got = program_cost(lambda x: (x @ x.T).sum(),
+                       torch.ones(32, 32, dtype=torch.float32))
+    assert set(got) == set(want)
+    assert got["argument_bytes"] == 32 * 32 * 4
+    assert got["flops"] == 2 * 32 ** 3            # the product; sum counts 0
+    assert got["output_bytes"] == 4 and got["temp_bytes"] is None
+    # the product's operands and result, then the sum's
+    assert got["bytes_accessed"] == (3 * 32 * 32 + 32 * 32 + 1) * 4
+    json.dumps(got, allow_nan=False)
+
+
+def test_driver_step_cost_counts_the_kernels_by_their_formulas():
+    """One GRLE slot body on the CPU: its FLOPs are exactly the four
+    gcn_agg and one edge_score calls by their formulas (the plain
+    versions' matmuls uncounted, nothing else in the slot a product)."""
+    from repro_torch.kernels.cost import edge_score_cost, gcn_agg_cost
+    from repro_torch.obs import driver_step_cost
+    m, n, l, b, h1, h2, e = 6, 2, 5, 2, 128, 64, 64
+    o = n * l
+
+    def z(*shape):
+        return torch.zeros(shape)
+
+    flops = sum(gcn_agg_cost(z(b, rows, cols), z(b, rows, fs),
+                             z(b, cols, fn), z(fs, h), z(fn, h), z(h))[1]
+                for rows, cols, fs, fn, h in (
+                    (m, o, 7, 4, h1), (o, m, 4, 7, h1),
+                    (m, o, h1, h1, h2), (o, m, h1, h1, h2)))
+    flops += edge_score_cost(z(b, m, h2), z(b, o, h2), z(b, m, o),
+                             z(h2, e), z(e), z(h2, e), z(e), z(e),
+                             z(1))[1]
+    cost = driver_step_cost(n_devices=m, n_fleets=b, device="cpu")
+    assert cost["flops"] == flops
+    assert cost["bytes_accessed"] > 0 and cost["argument_bytes"] > 0
+    assert "slot body" in cost["derived"]
+    json.dumps(cost, allow_nan=False)
+
+
+def test_profile_cli_events_match_reference(tmp_path):
+    """The port's profile launcher (``--device cpu``) writes the
+    reference's run-log events in its order (manifest, one per episode,
+    compile), its trace with the slot's phase spans."""
+    from repro.launch.profile import main as jax_main
+    from repro.obs import read_events as jax_read_events
+    from repro_torch.launch.profile import main
+    from repro_torch.obs import read_events
+    args = ["--slots", "6", "--devices", "3", "--fleets", "1", "--replay",
+            "8", "--batch", "4", "--train-every", "3", "--episodes", "2"]
+    jax_main(args + ["--out", str(tmp_path / "ref")])
+    summary = main(args + ["--device", "cpu", "--trace", "--out",
+                           str(tmp_path / "port")])
+    want = jax_read_events(str(tmp_path / "ref" / "events.jsonl"))
+    got = read_events(str(tmp_path / "port" / "events.jsonl"))
+    assert [e["event"] for e in got] == [e["event"] for e in want] == [
+        "manifest", "episode", "episode", "compile"]
+    assert set(got[1]) == set(want[1])
+    assert got[-1]["n_backend_compiles"] == 1
+    assert summary["compile"]["tracked"] == {"episode[T=6]": 1}
+    with open(summary["trace"]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"obs/sample", "obs/actor", "obs/env_step", "obs/train"} <= names

@@ -1,13 +1,14 @@
 """Write ``tests/data/torch_port_golden.npz``,
 ``tests/data/torch_port_train_golden.npz``,
-``tests/data/torch_serve_golden.npz`` and
-``tests/data/torch_port_dyn_golden.npz``: JAX traces with the random
-draws that produced them, for holding the PyTorch port (``repro_torch``)
+``tests/data/torch_serve_golden.npz``,
+``tests/data/torch_port_dyn_golden.npz`` and
+``tests/data/torch_pop_golden.npz``: JAX traces with the random draws
+that produced them, for holding the PyTorch port (``repro_torch``)
 against the JAX package where JAX is not installed.
 
     PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
         [--train-out PATH] [--serve-out PATH] [--dyn-out PATH]
-        [--only decision|train|serve|dyn]
+        [--pop-out PATH] [--only decision|train|serve|dyn|pop]
 
 Runs on the CPU with JAX only. The decision file:
 
@@ -61,6 +62,19 @@ fleet (the poisson runs inject the workload's raw uniforms,
 ``dyn_draws``, so the port advances its own workload state; the
 per-fleet ``sp`` is stored). Each run keeps what the training file keeps,
 under ``<run>/``.
+
+The population file (``build_pop``): a reference ``PopulationTrainer``
+run (``POP``: GRLE, P=4 members with sampled hypers, B=2, T=15, M=5, 4
+curriculum regions over fig5_baseline..fig8_csi, 2 generations, PBT
+every generation) with every draw it made: the hyperparameter uniforms
+(``init/hyper_u``), the initial params and hypers, per generation the
+curriculum's regions and offsets (and the scenarios they give), per
+member the tasks, the Gumbel exploration noise [T, B, K, M, O], the
+replay rows and, from a replay of its episode (``pop_member_episode``,
+held against the trainer's own run), its decisions, rewards, losses and
+margins; the members' metrics, PBT's coin and jitters and its stats, the
+hypers, curriculum state and report after it; the final params, the
+telemetry counters and the history records.
 
 For the sweep (no file): ``sweep_cell_reference`` rebuilds the initial
 params and draws the reference's ``sweep.run_cell`` uses for a cell, and
@@ -120,6 +134,15 @@ DYN_RUNS = {
                    ("fig5_baseline", "fig8_csi")),
 }
 DYN_SPACE_SEED = 6
+POP_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_pop_golden.npz")
+# The population golden run: GRLE on fig5_baseline..fig8_csi at M=5, P=4
+# members with sampled hypers, 2 fleets, 15 slots (3 train steps), 4
+# curriculum regions, PBT every generation. Its margins (critic, actor,
+# exploration noise) are recorded: a replay may part from it only at one
+# at most NEAR_TIE, and then stops comparing.
+POP = dict(method="grle", space=("fig5_baseline", "fig8_csi"), n_devices=5,
+           members=4, fleets=2, slots=15, regions=4, generations=2, seed=0,
+           replay=16, batch=4, train_every=5)
 
 
 def grle(scenario: str):
@@ -649,6 +672,223 @@ def port_slot_draws(data: dict):
                      workload=wl)
 
 
+# --------------------------------------------------------------- population
+def pop_trainer(**kw):
+    """The reference ``PopulationTrainer`` of the population golden file
+    (``POP``), with ``kw`` passed on (``history=``, ``telemetry=``)."""
+    from repro.pop import Curriculum, PopulationTrainer
+
+    c = POP
+    jdef = agent_def(c["method"], MECEnv(make_scenario(
+        c["space"][0], n_devices=c["n_devices"])))
+    space = scenario_space(*c["space"], n_devices=c["n_devices"])
+    cur = Curriculum(space.lo, space.hi, n_regions=c["regions"])
+    return PopulationTrainer(
+        jdef, cur, n_members=c["members"], n_fleets=c["fleets"],
+        n_slots=c["slots"], pbt_every=1, seed=c["seed"], mesh=None,
+        replay_capacity=c["replay"], batch_size=c["batch"],
+        train_every=c["train_every"], **kw)
+
+
+def _pop_programs(drv):
+    """The jitted slot replay and absorb of ``pop_member_episode`` for one
+    reference driver (built once: scenario and hypers are arguments)."""
+    adef, env = drv.adef, drv.env
+    n_cand, k = adef.n_candidates, adef.n_random
+
+    @jax.jit
+    def slot(state, env_state, wl_state, task_keys, dec_keys, sp, gain):
+        task_keys, task_subs = VecMECEnv.split_keys(task_keys)
+        dec_keys, dec_subs = VecMECEnv.split_keys(dec_keys)
+
+        def fleet(es, wl, tk, dk):
+            wl, tasks = drv.workload.sample(wl, tk, sp)
+            g = build_graph(env.observe(es, tasks, sp), env.N, env.L)
+            x_hat, _ = adef.scores(state.params, g, state.exit_mask)
+            allowed = (state.exit_mask[None, :] > 0.5) & (g.mask > 0.5)
+            gum = jax.random.gumbel(dk, (k, *allowed.shape))
+            noise = jnp.where(allowed[None], x_hat[None] * gain + gum,
+                              -jnp.inf)
+            rand = jnp.argmax(noise, axis=-1).astype(jnp.int32)
+            top = jax.lax.top_k(noise, 2)[0]
+            cand_margin = (top[..., 0] - top[..., 1]).min()
+            cands = jnp.concatenate(
+                [one_hot_candidates(x_hat, n_cand), rand], axis=0)
+            q = env.evaluate(es, tasks, cands, sp)
+            best = jnp.argmax(q)
+            new_es, res = env.step(es, tasks, cands[best], sp)
+            return (wl, new_es, g, cands[best], res.reward, q, best, cands,
+                    x_hat, tasks, gum, cand_margin)
+
+        out = jax.vmap(fleet)(env_state, wl_state, task_subs, dec_subs)
+        return (task_keys, dec_keys) + out
+
+    absorb = jax.jit(lambda st, g, d, lr: adef.absorb(st, g, d, lr=lr))
+    return slot, absorb
+
+
+def pop_member_episode(drv, programs, agent, key, sp, hypers,
+                       n_slots: int) -> dict:
+    """One population member's training episode as the reference's
+    ``PopulationDriver`` runs it (``drv.init_carry(key, agent_state=agent,
+    sp=sp)``, then ``drv._slot(carry, sp, hypers)`` per slot), replayed
+    from its key schedule by ``programs`` (``_pop_programs(drv)``): the
+    tasks, each fleet's Gumbel noise [T, B, K, M, O] (``decide_with``'s
+    ``jax.random.gumbel(dk, ...)``), the replay rows of each train step,
+    and per slot and fleet the decision, reward, q_est and three margins:
+    the critic's (``q_margin``), the actor's (``xhat_margin``) and the
+    smallest gap between the top two of the noise an exploration
+    candidate's argmax picks from (``cand_margin``: x_hat * gain +
+    gumbel). With ``drv.train`` also the per-slot loss; and the final
+    ``AgentState``."""
+    slot, absorb = programs
+    adef = drv.adef
+    carry = drv.init_carry(key, agent_state=agent, sp=sp)
+    k_episode = carry.agent_state.key
+    state, env_state, wl = carry.agent_state, carry.env_state, carry.wl_state
+    task_keys, dec_keys = carry.task_keys, carry.dec_keys
+    rec = {k_: [] for k_ in ("decisions", "reward", "q_est", "q_margin",
+                             "xhat_margin", "cand_margin", "loss", "gumbel")}
+    tasks_all, sizes = [], []
+    for _ in range(n_slots):
+        (task_keys, dec_keys, wl, env_state, g, dec, reward, q, best, cands,
+         x_hat, tasks, gum, cand_margin) = slot(
+            state, env_state, wl, task_keys, dec_keys, sp,
+            hypers.explore_gain)
+        cands, q, best = map(np.asarray, (cands, q, best))
+        b = np.arange(q.shape[0])
+        dec = np.asarray(dec)
+        other = (cands != dec[:, None, :]).any(-1)
+        x_sorted = np.sort(np.asarray(x_hat), axis=-1)
+        rec["decisions"].append(dec)
+        rec["reward"].append(np.asarray(reward))
+        rec["q_est"].append(q[b, best])
+        rec["q_margin"].append(q[b, best] - np.where(other, q, -np.inf)
+                               .max(-1))
+        rec["xhat_margin"].append((x_sorted[..., -1] - x_sorted[..., -2])
+                                  .min(-1))
+        rec["cand_margin"].append(np.asarray(cand_margin))
+        rec["gumbel"].append(np.asarray(gum, np.float32))
+        tasks_all.append(tasks)
+        if not drv.train:
+            continue
+        size_before = int(state.replay.size)
+        state, loss = absorb(state, g, jnp.asarray(dec), hypers.lr)
+        rec["loss"].append(np.asarray(loss))
+        if not np.isnan(np.asarray(loss)):
+            sizes.append(min(size_before + dec.shape[0], adef.buffer_size))
+    out = {k_: np.stack(v) for k_, v in rec.items() if v}
+    out.update({f"tasks/{f}": np.stack([np.asarray(getattr(t, f))
+                                        for t in tasks_all])
+                for f in TASK_FIELDS})
+    out["replay_take"] = (train_takes(adef, k_episode, sizes).astype(
+        np.int32) if sizes else np.zeros((0, adef.batch_size), np.int32))
+    out["final_state"] = state
+    return out
+
+
+def build_pop() -> dict:
+    """Everything the population golden file holds, as a flat dict (see
+    the module docstring)."""
+    import tempfile
+
+    from repro.obs.history import HistoryStore
+    from repro.obs.telemetry import telemetry_host
+    from repro.pop import pbt_update
+    from repro.pop.population import exit_mask_from_tau
+
+    c = POP
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = HistoryStore(tmp)
+        tr = pop_trainer(telemetry=True, history=hist, history_name="pop")
+        drv = tr.driver.drv
+        programs = _pop_programs(drv)
+        p = c["members"]
+        ts = tr.init_state()
+        _, k_hyp = jax.random.split(jax.random.fold_in(tr.root, 0))
+        data = {"config": np.asarray(repr(sorted(c.items()))),
+                "init/hyper_u": np.stack([
+                    np.asarray(jax.random.uniform(k_, (p,)))
+                    for k_ in jax.random.split(k_hyp, 3)])}
+        data.update(flat_tree("init/hypers", ts.pop.hypers._asdict()))
+        data.update(flat_tree("init/params", jax.tree_util.tree_map(
+            np.asarray, ts.pop.agents.params)))
+        for g in range(c["generations"]):
+            pre = f"gen{g}"
+            key1 = tr._gen_key(1, g)
+            _, k_offset = jax.random.split(key1)
+            region, sps = tr._resample_fn(ts.cur, key1)
+            data[f"{pre}/region"] = np.asarray(region)
+            data[f"{pre}/offset"] = np.asarray(
+                jax.random.uniform(k_offset, (p,), jnp.float32))
+            data.update(flat_tree(f"{pre}/sps", sps._asdict()))
+            key2 = tr._gen_key(2, g)
+            run, mets = tr.driver.run_generation(ts.pop, key2, sps)
+            for i in range(p):
+                pick = (lambda x: x[i])
+                agent = jax.tree_util.tree_map(pick, ts.pop.agents)
+                hyp = jax.tree_util.tree_map(pick, ts.pop.hypers)
+                agent = agent._replace(exit_mask=exit_mask_from_tau(
+                    drv.adef, hyp.exit_tau))
+                ep = pop_member_episode(
+                    drv, programs, agent, jax.random.fold_in(key2, i),
+                    jax.tree_util.tree_map(pick, sps), hyp, c["slots"])
+                # the replay is the population driver's own run
+                want = jax.tree_util.tree_map(pick, run.agents.params)
+                for a, b in zip(jax.tree_util.tree_leaves(
+                        ep.pop("final_state").params),
+                        jax.tree_util.tree_leaves(want)):
+                    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                               rtol=1e-4, atol=1e-6)
+                np.testing.assert_allclose(ep["reward"].mean(),
+                                           float(mets["avg_reward"][i]),
+                                           rtol=1e-5)
+                data.update({f"{pre}/m{i}/{k}": v for k, v in ep.items()})
+            data.update({f"{pre}/mets/{k}": np.asarray(v)
+                         for k, v in mets.items()})
+            key3 = tr._gen_key(3, g)
+            k_coin, k_gain, k_tau = jax.random.split(key3, 3)
+            cfg = tr.pbt_cfg
+            data[f"{pre}/pbt/up"] = np.asarray(
+                jax.random.bernoulli(k_coin, 0.5, (p,)))
+            data[f"{pre}/pbt/gain"] = np.asarray(jax.random.uniform(
+                k_gain, (p,), jnp.float32, -cfg.gain_jitter,
+                cfg.gain_jitter))
+            data[f"{pre}/pbt/tau"] = np.asarray(jax.random.uniform(
+                k_tau, (p,), jnp.float32, -cfg.tau_jitter, cfg.tau_jitter))
+            _, stats = pbt_update(run, mets["avg_reward"], key3, cfg)
+            data.update({f"{pre}/stats/{k}": np.asarray(v)
+                         for k, v in stats._asdict().items()})
+            ts, rep = tr.generation(ts)
+            data.update({f"{pre}/report/{k}": np.asarray(v, np.float64)
+                         for k, v in rep["metrics"].items()})
+            data[f"{pre}/report/best_member"] = np.asarray(rep["best_member"])
+            data[f"{pre}/report/region_visits"] = np.asarray(
+                rep["region_visits"])
+            data.update(flat_tree(f"{pre}/hypers", ts.pop.hypers._asdict()))
+            data.update(flat_tree(f"{pre}/cur", ts.cur._asdict()))
+        data.update(flat_tree("final/params", jax.tree_util.tree_map(
+            np.asarray, ts.pop.agents.params)))
+        host = telemetry_host(tr.telemetry)
+        data.update({f"telemetry/{k}": np.asarray(v)
+                     for k, v in host["counters"].items()})
+        data.update({f"telemetry/hist/{k}": np.asarray(h["counts"])
+                     for k, h in host["hists"].items()})
+        recs = [r for r in hist.records() if r["kind"] == "pop"]
+        for j, r in enumerate(recs):
+            data.update({f"history/{j}/{k}": np.asarray(v, np.float64)
+                         for k, v in r["metrics"].items()})
+    return data
+
+
+def pop_margin(data: dict) -> float:
+    """The smallest recorded margin (critic, actor, exploration noise) of
+    every member-episode of a population golden run."""
+    return min(float(data[k].min()) for k in data
+               if k.rsplit("/", 1)[-1] in ("q_margin", "xhat_margin",
+                                           "cand_margin"))
+
+
 # ------------------------------------------------------------------ serving
 def serve_engine(scheduler: str = "grle", kind: str = "sync", **kw):
     """A JAX serving engine as the serve golden and tests build it; the
@@ -784,12 +1024,15 @@ def main(argv=None) -> int:
     ap.add_argument("--train-out", default=TRAIN_GOLDEN)
     ap.add_argument("--serve-out", default=SERVE_GOLDEN)
     ap.add_argument("--dyn-out", default=DYN_GOLDEN)
-    ap.add_argument("--only", choices=("decision", "train", "serve", "dyn"))
+    ap.add_argument("--pop-out", default=POP_GOLDEN)
+    ap.add_argument("--only", choices=("decision", "train", "serve", "dyn",
+                                       "pop"))
     args = ap.parse_args(argv)
     jobs = {"decision": (build, args.out),
             "train": (build_train, args.train_out),
             "serve": (build_serve, args.serve_out),
-            "dyn": (build_dyn, args.dyn_out)}
+            "dyn": (build_dyn, args.dyn_out),
+            "pop": (build_pop, args.pop_out)}
     for name, (fn, out) in jobs.items():
         if args.only not in (None, name):
             continue

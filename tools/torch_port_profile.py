@@ -39,10 +39,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 from repro_torch.core import agent_def  # noqa: E402
 from repro_torch.mec import MECEnv, make_scenario  # noqa: E402
+from repro_torch.obs.profile import PHASE_SPANS  # noqa: E402
 from repro_torch.rollout import RolloutDriver  # noqa: E402
 from torch_profiling import card, device_summary, profiled  # noqa: E402
 
-PHASES = ("sample", "actor", "env_step", "train")
+# the driver's phase spans (obs.profile.phase), by their recorded names
+PHASES = PHASE_SPANS
 TRAIN_STEPS = 10
 # name fragments of the hand-written kernels: every template instance
 # (gcn_agg_kernel<K, KS>, edge_score_kernel<H, E>) contains one
