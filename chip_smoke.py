@@ -1,6 +1,7 @@
 """Drive repro_torch's GRLE decision and training paths, the paper's
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
-GQA and RWKV-6), its serving engines, its experiment sweep, its
+GQA, RWKV-6, and the rest of the model zoo: Zamba2, DeepSeek-MoE,
+DeepSeek-V2, Whisper), its serving engines, its experiment sweep, its
 population training and its profiler and cost hooks on one NVIDIA GPU
 and check them.
 
@@ -264,14 +265,59 @@ order, each fatal on failure:
    ``obs/<phase>`` spans; ``obs.cost.hot_program_costs(quick=True)`` on
    the card and on the CPU give equal FLOPs per program (the cost table is
    printed);
-28. one ``{"kernels": [...]}`` line (launches of phase 18), the card line
-   again, and last ``{"ok": true, "device": {...}}``.
+28. the zoo's new kernel shapes against their plain versions, each in
+   f32 and bf16 (ATTN_TOL; bf16 flash also against its emulation within
+   FLASH_EMU_TOL): flash_attention at Zamba2's shared block [4, 2048, 32,
+   32, 80] causal and at Whisper's encoder [4, 1500, 16, 16, 64] without
+   the mask; decode_attention at [8, 32, 32, 80, S=256] with random
+   lengths and at Whisper's cross-attention [8, 16, 16, 64, S=1500] with
+   every length 1500; ssm_scan in bf16 with Mamba-2's read-out (no
+   bonus, one decay per head) at [4, 2048, 80, 64, 64] chunk 128, fast
+   decays and slow ones from a nonzero state, y and state within SSM_TOL
+   and within ref.SSM_EMU_TOL / SSM_EMU_STATE_TOL of the emulation; in
+   bf16 kernel, plain and library (scaled_dot_product_attention) times
+   and the bound;
+29. zoo golden replay: ``tests/data/torch_lm_zoo_golden.npz`` (reduced
+   Zamba2, DeepSeek-MoE, DeepSeek-V2 and Whisper, f32, JAX outputs)
+   through the port on the card: prefill logits and every exit's serve
+   logits within 1e-4 of 1 + |ref|, layer 0's MoE expert choices and kept
+   slots equal;
+30. the zoo at full width in bf16, random weights from seed 0, one model
+   at a time: Zamba2-2.7B (prefill B=4, S=2048), DeepSeek-MoE-16B (B=4,
+   S=2048), Whisper-medium (the encoder over 4 x 1500 frames, the
+   decoder's dense pass over S=448) and DeepSeek-V2-236B with its depth
+   cut to 4 layers (B=1, S=2048): prefill ms and prompt tokens/s; greedy
+   decoding of 8 requests (prompts of 16..32 tokens, 8 new, a 256-row
+   cache; Whisper against its encoder's output) at every exit, ms a step
+   and tokens/s; the hand kernels' launches of each call exactly as
+   ``zoo_launches`` counts them; a 128-token prefill at B=2 against the
+   same tokens teacher-forced through serve_step (the MoE models with the
+   capacity raised so that no slot drops on either path), relative L2 of
+   the last logits and the first and last layer's caches (and the shared
+   block's) printed, within CONSIST_TOL: in bf16 at layer 0 (Whisper: the
+   logits; deeper, bf16 drifts: the scan kernel's bf16 products, MoE
+   routers flipping near-tied experts); in float32, on fresh weights at
+   full width (DeepSeek-MoE cut to 14 layers, DeepSeek-V2 to 2, so the
+   float32 weights fit), every one;
+31. the slice's main path: ``python -m repro_torch.launch.serve --arch
+   zamba2_2_7b --slots 10 --decode`` in-process (launch/serve.py's engine
+   and requests): every slot's assignments and ms; launches exactly
+   gcn_agg 4 and edge_score 1 a decision plus as many a train step,
+   decode_attention (shared-block applications below the exit) x 12
+   positions per exit group, each nonzero; the actor launches (M=4) and
+   decode_attention (d=80) at the engine's shapes against their plain
+   versions; slot ms without decoding;
+32. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+   one ``{"kernels": [...]}`` line (launches of phases 18, 30 and 31 and
+   the LM prefills and decodes), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -411,6 +457,51 @@ POP_FULL = dict(POP_GOLDEN_CONFIG, n_devices=14, members=16, fleets=1,
                 slots=80, regions=6, replay=64, batch=16, train_every=5)
 POP_GENERATIONS = 3
 POP_EVAL_POINTS = (0.8, 0.9, 1.0)
+# the rest of the model zoo: its golden run (tools/make_torch_lm_golden.py
+# zoo) and its models at full width, bf16, random weights from seed 0:
+# (arch, prefill batch, prompt length, layers kept). DeepSeek-V2-236B's
+# ~4.05 B params a layer do not fit the card's 80 GB at its 60 layers, so
+# its depth is cut to 4 at full width (~17.3 B params, ~34.5 GB)
+ZOO_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_lm_zoo_golden.npz")
+ZOO_MODELS = (("zamba2_2_7b", PREFILL_B, PREFILL_S, None),
+              ("deepseek_moe_16b", PREFILL_B, PREFILL_S, None),
+              ("whisper_medium", PREFILL_B, 448, None),
+              ("deepseek_v2_236b", 1, PREFILL_S, 4))
+# the zoo's decode runs: prompts of 16..32 tokens, 8 new tokens a request;
+# its consistency runs over 128 tokens (one chunk of Zamba2's scan: the
+# carried state across chunks is held by phases 28 and 29); both cut so
+# that the whole script stays well inside its time limit
+ZOO_PROMPT_LENS, ZOO_NEW, ZOO_CONSIST_P = (16, 32), 8, 128
+# the MoE models' consistency runs with the capacity factor raised until
+# no slot drops: a decode step routes all B tokens as one group, a prefill
+# each row as its own, so with drops the two compute different functions
+# (the reference's own decode-vs-dense test raises it for the same reason)
+ZOO_CONSIST_CF = 64.0
+# In bf16 prefill and decode drift apart with depth (NVIDIA H100 80GB HBM3,
+# 700 W: Zamba2's last logits at 0.94 relative L2 after 54 layers,
+# DeepSeek-MoE's 8.9e-2, DeepSeek-V2's 5.0e-2; layer 0 within 1.4e-4; PERF.md
+# §6): the bf16 scan kernel rounds its products to bf16, and an MoE router
+# flips near-tied experts between the two paths. So, as for RWKV-6, bf16 is
+# gated where both paths share their inputs (layer 0; Whisper's logits, its
+# decoder having no prefill cache), and every layer and the logits within
+# CONSIST_TOL in float32, on fresh float32 weights at full width, the depth
+# cut where the float32 weights would not fit beside the activations. In
+# float32 Zamba2's 54 random layers still grow a 1.5e-6 difference at layer
+# 0 to 2.8e-3 at the last (the MoE models: 3.4e-6), so RWKV-6's 2e-3 float32
+# limit (CONSIST_F32_TOL) does not apply here
+ZOO_F32_LAYERS = {"zamba2_2_7b": None, "deepseek_moe_16b": 14,
+                  "whisper_medium": None, "deepseek_v2_236b": 2}
+# the kernels' new shapes: Zamba2's shared block (d = 80, causal) and
+# Whisper's encoder (S = 1500, no mask) at the prefill batch; decode at
+# d = 80 (32 heads over 32) and Whisper's cross-attention (every length
+# 1500); Zamba2's Mamba-2 scan (B, T, H, dk, dv, chunk)
+ZAMBA_ATTN = (PREFILL_B, PREFILL_S, 32, 32, 80)
+WHISPER_ENC = (PREFILL_B, 1500, 16, 16, 64)
+ZAMBA_DECODE = (SERVE_B, 32, 32, 80, SERVE_CACHE)
+WHISPER_CROSS = (SERVE_B, 16, 16, 64, 1500)
+MAMBA_SCAN = (PREFILL_B, PREFILL_S, 80, 64, 64, 128)
+# the slice's main path: the serving CLI's arguments
+ZOO_SERVE_ARGS = ("--arch", "zamba2_2_7b", "--slots", "10", "--decode")
 
 
 def phase(n, title):
@@ -2728,6 +2819,550 @@ def serve_path_phase(dev):
         raise SystemExit("async and sync engines disagree")
 
 
+# ------------------------------------------------------------------ the zoo
+def zoo_kernels_phase(dev):
+    """Phase 28: flash_attention, decode_attention and ssm_scan at the
+    zoo's new shapes against their plain versions (ATTN_TOL, SSM_TOL) and,
+    in bf16, their emulations (FLASH_EMU_TOL; ref.SSM_EMU_TOL and
+    SSM_EMU_STATE_TOL); in bf16 kernel (CUDA-graph replay), plain and
+    library times and the bound. Returns one row per timed shape."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(dtype, *shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def attn_check(kernel, label, dtype, got, want):
+        diff = (got.float() - want.float()).abs()
+        tol = ATTN_TOL[dtype]
+        err = float(diff.max())
+        print(f"  {kernel:16s} {label:40s} {str(dtype)[6:]:8s} max_abs_err "
+              f"{err:.3e}", flush=True)
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            raise SystemExit(f"{kernel} {label} {dtype}: kernel differs from "
+                             f"plain by more than {tol} (rtol and atol)")
+        return err
+
+    def timed(kernel, label, fn, plain, library, cost, dtype, inner, reps,
+              plain_ms=None):
+        ms = graph_ms(fn, inner=inner, reps=reps)
+        if plain_ms is None:
+            plain_ms = graph_ms(plain, inner=inner, reps=reps)
+        lib_ms = None if library is None else graph_ms(library, inner=inner,
+                                                       reps=reps)
+        b_ms, b_by = bound(*cost, peak_flops=peak_for(dtype))
+        lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:9.2f} us"
+        print(f"  {kernel:16s} {label:40s} kernel {ms * 1e3:9.2f} us  plain "
+              f"{plain_ms * 1e3:9.2f} us  library {lib}  bound "
+              f"{b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
+              f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
+        return dict(name=kernel, shape=label, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    rows = []
+    for (b, s, h, kvh, d), causal in ((ZAMBA_ATTN, True),
+                                      (WHISPER_ENC, False)):
+        label = f"[{b}, {s}, {h}, {kvh}, {d}] {'causal' if causal else 'no mask'}"
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = normal(dt, b, s, h, d), normal(dt, b, s, kvh, d), \
+                normal(dt, b, s, kvh, d)
+            got = flash_mod.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            plain = ref.flash_attention_ref(q, k, v, causal=causal)
+            err = attn_check("flash_attention", label, dt, got, plain)
+            del plain
+            if dt != torch.bfloat16:
+                continue
+            emu = ref.flash_attention_bf16_emulation(q, k, v, causal=causal)
+            e = flash_emu_err(got, emu)
+            del emu
+            print(f"  {'flash_attention':16s} {label:40s} bfloat16 vs "
+                  f"emulation {e:.3e} beyond the output's rounding", flush=True)
+            if e > FLASH_EMU_TOL:
+                raise SystemExit(f"flash_attention {label}: kernel differs "
+                                 f"from its emulation by {e} (limit "
+                                 f"{FLASH_EMU_TOL})")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rows.append(dict(timed(
+                "flash_attention", label,
+                lambda: flash_mod.flash_attention(q, k, v, causal=causal),
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
+                flash_cost(q, k, None, causal), dt, inner=5, reps=4),
+                max_abs_err=err))
+            del q, k, v, qt, kt, vt, got
+
+    lens_rng = np.random.default_rng(SEED)
+    for (b, h, kvh, d, s), kind in ((ZAMBA_DECODE, "random"),
+                                    (WHISPER_CROSS, "full")):
+        lens = (np.full(b, s) if kind == "full"
+                else lens_rng.integers(1, s + 1, size=b))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        label = f"[{b}, {h}, {kvh}, {d}, S={s}] lengths {kind}"
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
+                normal(dt, b, s, kvh, d)
+            got = decode_mod.decode_attention(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err = attn_check("decode_attention", label, dt, got,
+                             ref.decode_attention_ref(q, k, v, lengths))
+            if dt != torch.bfloat16:
+                continue
+            mask = (torch.arange(s, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+            rows.append(dict(timed(
+                "decode_attention", label,
+                lambda: decode_mod.decode_attention(q, k, v, lengths),
+                lambda: ref.decode_attention_ref(q, k, v, lengths),
+                lambda: F.scaled_dot_product_attention(
+                    q4, kt, vt, attn_mask=mask, enable_gqa=True),
+                decode_cost(q, k, lengths), dt, inner=20, reps=10),
+                max_abs_err=err))
+
+    # ssm_scan with Mamba-2's read-out (no bonus) at Zamba2's prefill
+    # shape: one decay per head, as Mamba-2's dt a; fast decays, then slow
+    # ones from a nonzero state
+    b, t, h, dk, dv, c = MAMBA_SCAN
+    dt = torch.bfloat16
+    for slow in (False, True):
+        q, k, v = normal(dt, b, t, h, dk), normal(dt, b, t, h, dk), \
+            normal(dt, b, t, h, dv)
+        log_w = -torch.exp(normal(torch.float32, b, t, h, 1, scale=0.5,
+                                  shift=-5.0 if slow else 0.0))
+        log_w = log_w.expand(b, t, h, dk).contiguous()
+        s0 = normal(torch.float32, b, h, dk, dv) if slow else None
+        label = (f"[{b}, {t}, {h}, {dk}, {dv}] chunk {c} mamba "
+                 f"{'slow' if slow else 'fast'}")
+        y, st = ssm_mod.ssm_scan(q, k, v, log_w, None, chunk=c,
+                                 initial_state=s0)
+        torch.cuda.synchronize()
+        want_y, want_s = ref.ssm_scan_ref(q, k, v, log_w, initial_state=s0)
+        err_y, err_s = scan_err(y, want_y), scan_err(st, want_s, True)
+        emu_y, emu_s = ref.ssm_scan_bf16_emulation(
+            q, k, v, log_w, chunk=c, initial_state=s0)
+        emu_err_y = ref.ssm_emu_err(y, emu_y)
+        emu_err_s = ref.ssm_emu_err(st, emu_s, state=True)
+        abs_err = float((y.float() - want_y.float()).abs().max())
+        print(f"  ssm_scan {label:44s} bfloat16 err y {err_y:.3e} state "
+              f"{err_s:.3e} (limits {SSM_TOL[dt]}, {SSM_TOL[torch.float32]});"
+              f" vs emulation y {emu_err_y:.3e} state {emu_err_s:.3e} "
+              f"(limits {ref.SSM_EMU_TOL}, {ref.SSM_EMU_STATE_TOL}); max abs "
+              f"error {abs_err:.3e}", flush=True)
+        if (not err_y <= SSM_TOL[dt] or not err_s <= SSM_TOL[torch.float32]
+                or not emu_err_y <= ref.SSM_EMU_TOL
+                or not emu_err_s <= ref.SSM_EMU_STATE_TOL):
+            raise SystemExit(f"ssm_scan {label}: kernel differs from plain or "
+                             f"its emulation beyond the limits")
+        del emu_y, emu_s, want_s
+        if not slow:
+            plain_ms = event_ms(lambda: ref.ssm_scan_ref(q, k, v, log_w))
+            rows.append(dict(timed(
+                "ssm_scan", label,
+                lambda: ssm_mod.ssm_scan(q, k, v, log_w, None, chunk=c),
+                None, None, ssm_cost(q, v, log_w, None, None), dt, inner=5,
+                reps=4, plain_ms=plain_ms), max_abs_err=abs_err))
+        del q, k, v, log_w, y, st, want_y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _first(tree):
+    """Layer 0 of a stacked param dict."""
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def zoo_golden_phase(dev):
+    """Phase 29: the reduced zoo's JAX runs (tests/data/
+    torch_lm_zoo_golden.npz, f32) through the port on the card: prefill
+    logits and every exit's serve logits within LM_GOLDEN_TOL of 1 + |ref|,
+    layer 0's MoE expert choices and kept slots equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models import EncDecLM, model_for
+    from repro_torch.models.ffn import MoEFFN
+    from repro_torch.nn import Embedding
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    with np.load(ZOO_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    reduced = {k.split("/")[1]: int(gold[k]) for k in gold
+               if k.startswith("reduced/")}
+    errs = {}
+
+    def err(got, key):
+        want = torch.tensor(gold[key], device=dev)
+        return float(((got.float() - want).abs() / (1 + want.abs())).max())
+
+    for arch in (str(a) for a in gold["archs"]):
+        cfg = get_arch(arch).reduced(**reduced)
+        model = model_for(cfg)
+        params = lm_params_from_numpy(
+            lm_params_numpy(cfg, int(gold["seed"])), cfg, dev)
+        toks = torch.tensor(gold[f"{arch}/tokens"], device=dev)
+        b = toks.shape[0]
+        batch, audio = {"tokens": toks}, None
+        if cfg.enc_layers:
+            audio = torch.tensor(np.random.default_rng(
+                int(gold["audio_seed"])).standard_normal(
+                (b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32),
+                device=dev)
+            batch["audio"] = audio
+        ops.reset_launch_counts()
+        out = make_prefill_step(cfg)(params, batch)
+        counts = ops.launch_counts()
+        errs[f"{arch}/prefill/logits"] = err(
+            out if cfg.enc_layers else out[0], f"{arch}/prefill/logits")
+        line = f"  {arch}: prefill launches {counts}"
+        if cfg.is_moe:
+            x = Embedding.apply(params["embed"], toks)
+            _, idx, _, _, _, keep = MoEFFN.route(
+                _first(params["blocks"]["ffn"]), cfg, x)
+            want_idx = torch.tensor(gold[f"{arch}/experts"], device=dev)
+            want_keep = torch.tensor(gold[f"{arch}/keep"], device=dev)
+            same = int((idx == want_idx).all(-1).sum())
+            line += (f"; layer 0's expert choices equal for {same}/"
+                     f"{idx.shape[0] * idx.shape[1]} tokens, kept slots "
+                     f"{int((keep == want_keep).sum())}/{keep.numel()}")
+            if not (torch.equal(idx, want_idx.to(idx.dtype))
+                    and torch.equal(keep, want_keep)):
+                raise SystemExit(f"zoo golden {arch}: MoE routing differs")
+        print(line, flush=True)
+        n = int(gold["serve_len"])
+        for e in (int(x) for x in gold[f"{arch}/exits"]):
+            step = make_serve_step(cfg, exit_layer=e)
+            c = model.init_cache(cfg, b, n, device=dev)
+            if cfg.enc_layers:
+                c["enc_out"] = EncDecLM.encode(params, cfg, audio)
+            got = []
+            for i in range(n):
+                lg, c = step(params, c, toks[:, i],
+                             torch.full((b,), i, dtype=torch.int64,
+                                        device=dev))
+                got.append(lg)
+            errs[f"{arch}/serve/logits_{e}"] = err(
+                torch.stack(got), f"{arch}/serve/logits_{e}")
+        del params
+    for k, v in errs.items():
+        print(f"  {k:36s} max |d| / (1 + |ref|) {v:.3e}")
+    worst = max(errs.values())
+    if not worst <= LM_GOLDEN_TOL:
+        raise SystemExit(f"zoo golden: error {worst} above {LM_GOLDEN_TOL}")
+    return worst
+
+
+def zoo_launches(cfg, *, prefill: bool, exit_layer=None) -> dict:
+    """The hand kernels' launches of one prefill, or of one serve_step at
+    ``exit_layer``: flash_attention per GQA layer (Zamba2: per shared-block
+    application; Whisper: per encoder and decoder layer), ssm_scan per
+    Mamba-2 layer in prefill; decode_attention per GQA layer that runs
+    (Whisper: self- and cross-attention); MLA none."""
+    from repro_torch.models.blocks import block_kind
+    from repro_torch.models.lm import n_shared_applications
+
+    kind, gqa = block_kind(cfg), cfg.attn_kind == "gqa"
+    e = exit_layer or cfg.n_layers
+    if prefill:
+        flash = {"mamba2": n_shared_applications(cfg),
+                 "encdec": cfg.enc_layers + cfg.n_layers,
+                 "attn": cfg.n_layers if gqa else 0}[kind]
+        return {"flash_attention": flash, "decode_attention": 0,
+                "ssm_scan": cfg.n_layers if kind == "mamba2" else 0}
+    every = cfg.shared_attn_every
+    dec = {"mamba2": e // every if every else 0, "encdec": 2 * e,
+           "attn": e if gqa else 0}[kind]
+    return {"flash_attention": 0, "decode_attention": dec, "ssm_scan": 0}
+
+
+def zoo_model_phase(dev, arch, batch, seq, layers):
+    """Phase 30, one model: full width in bf16 (random weights from seed
+    0, its depth cut to ``layers`` if given): a prefill of [batch, seq]
+    tokens (Whisper: the encoder over [batch, 1500] frames, then the
+    decoder's dense pass), greedy decoding of SERVE_B requests at each exit
+    against a SERVE_CACHE-row cache, and prefill against teacher-forced
+    decode (zoo_consistency) within CONSIST_TOL in bf16 at layer 0
+    (Whisper: its logits) and in float32 on fresh weights (ZOO_F32_LAYERS)
+    at every layer; the hand kernels' launches exactly as zoo_launches
+    counts them. Returns (launch totals, a summary row)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import EncDecLM, model_for
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers, exit_layers=())
+    model = model_for(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"{cfg.arch_id}: {cfg.n_layers} layers"
+          f"{f' (of {get_arch(arch).n_layers}: depth cut)' if layers else ''}"
+          f", d_model {cfg.d_model}, exits {cfg.exit_layers}, {cfg.dtype}; "
+          f"{n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.1f} GB), "
+          f"drawn in {time.perf_counter() - t0:.2f} s; memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB", flush=True)
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssm_scan": 0}
+    row = {"arch": cfg.arch_id, "layers": cfg.n_layers,
+           "params_b": n_params / 1e9}
+
+    def audio(b):
+        return torch.randn((b, cfg.n_audio_frames, cfg.d_model),
+                           generator=gen, device=dev).to(cfg.torch_dtype)
+
+    # prefill
+    prefill = make_prefill_step(cfg)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         device=dev)
+    inputs = {"tokens": toks}
+    if cfg.enc_layers:
+        inputs["audio"] = audio(batch)
+    prefill(params, dict(inputs, tokens=toks[:, :128]))      # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = prefill(params, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    logits = out if cfg.enc_layers else out[0]
+    want = zoo_launches(cfg, prefill=True)
+    print(f"  prefill B={batch} S={seq}"
+          f"{f' (encoder over {cfg.n_audio_frames} frames)' if cfg.enc_layers else ''}"
+          f": {wall * 1e3:.3f} ms, {batch * seq / wall:.1f} prompt tokens/s;"
+          f" launches {counts}, expected {want}", flush=True)
+    if {k: counts[k] for k in want} != want or counts["gcn_agg"] \
+            or counts["edge_score"]:
+        raise SystemExit(f"{arch} prefill: launches {counts}, expected "
+                         f"{want}")
+    if (tuple(logits.shape) != (batch, cfg.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"{arch} prefill: logits malformed")
+    for k in totals:
+        totals[k] += counts[k]
+    row.update(prefill_ms=wall * 1e3, prompt_tok_s=batch * seq / wall)
+    del out, logits
+    torch.cuda.empty_cache()
+
+    # greedy decoding at every exit
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(ZOO_PROMPT_LENS[0], ZOO_PROMPT_LENS[1] + 1,
+                        size=SERVE_B)
+    total = int(lens.max()) + ZOO_NEW
+    mat = np.zeros((SERVE_B, total), np.int64)
+    for i, n in enumerate(lens):
+        mat[i, :n] = rng.integers(0, cfg.vocab, size=n)
+    prompt_mat = torch.tensor(mat, device=dev)
+    enc_out = (EncDecLM.encode(params, cfg, audio(SERVE_B))
+               if cfg.enc_layers else None)
+
+    def fresh_cache(b, rows, enc=None):
+        cache = model.init_cache(cfg, b, rows, device=dev)
+        if enc is not None:
+            cache["enc_out"].copy_(enc)
+        return cache
+
+    greedy_decode(params, make_serve_step(cfg), fresh_cache(
+        SERVE_B, SERVE_CACHE, enc_out), prompt_mat[:, :3], lens.clip(max=3),
+        0)                                                     # warm-up
+    row["decode_ms"] = {}
+    for e in cfg.exit_layers:
+        step = make_serve_step(cfg, exit_layer=e)
+        cache = fresh_cache(SERVE_B, SERVE_CACHE, enc_out)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, steps = greedy_decode(params, step, cache, prompt_mat, lens,
+                                    ZOO_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: v * steps
+                for k, v in zoo_launches(cfg, prefill=False,
+                                         exit_layer=e).items()}
+        print(f"  exit {e:2d}: {wall / steps * 1e3:8.3f} ms/step, "
+              f"{SERVE_B * ZOO_NEW / wall:9.1f} generated tokens/s "
+              f"({steps} steps), launches {counts}", flush=True)
+        if {k: counts[k] for k in want} != want:
+            raise SystemExit(f"{arch} exit {e}: launches {counts}, expected "
+                             f"{want}")
+        if any(len(o) != ZOO_NEW or o.min() < 0 or o.max() >= cfg.vocab
+               for o in outs):
+            raise SystemExit(f"{arch} exit {e}: generated tokens malformed")
+        if any(bool(f[e:].any()) for f in cache["layers"]):
+            raise SystemExit(f"{arch} exit {e}: a layer past the exit wrote "
+                             f"its cache")
+        for k in totals:
+            totals[k] += counts[k]
+        row["decode_ms"][e] = wall / steps * 1e3
+        del cache
+    row["gen_tok_s_last_exit"] = SERVE_B * ZOO_NEW / wall
+
+    # prefill against teacher-forced decode on the same tokens: bf16, then
+    # float32 on fresh weights
+    errs = zoo_consistency(dev, cfg, model, params, gen)
+    gated = {k: v for k, v in errs.items()
+             if (k == "logits" and cfg.enc_layers)
+             or (k.startswith("layers.") and k.endswith("[0]"))}
+    worst = max(gated.values())
+    if not worst <= CONSIST_TOL:
+        raise SystemExit(f"{arch} consistency (bf16, {sorted(gated)}): "
+                         f"relative L2 {worst} above {CONSIST_TOL}")
+    row["consistency_bf16"] = errs
+    del params
+    torch.cuda.empty_cache()
+    f32_layers = ZOO_F32_LAYERS[arch]
+    cfg32 = dataclasses.replace(
+        cfg, dtype="float32",
+        **({"n_layers": f32_layers, "exit_layers": ()} if f32_layers else {}))
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), cfg32,
+                        device=dev)
+    errs = zoo_consistency(dev, cfg32, model, params, gen)
+    worst = max(errs.values())
+    if not worst <= CONSIST_TOL:
+        raise SystemExit(f"{arch} consistency (float32): relative L2 "
+                         f"{worst} above {CONSIST_TOL}")
+    row["consistency_f32"] = errs
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {arch} wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return totals, row
+
+
+def zoo_consistency(dev, cfg, model, params, gen) -> dict:
+    """A ZOO_CONSIST_P-token prefill at B = CONSIST_B against the same
+    tokens teacher-forced through serve_step (the MoE models with the capacity
+    raised to ZOO_CONSIST_CF): relative L2 of the last logits and of the
+    first and last layer's caches (and the shared block's first and last
+    application's), printed; returned by name (``layers.k[0]``, ...)."""
+    from repro_torch.models import DecoderLM, EncDecLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=ZOO_CONSIST_CF)
+    toks = torch.randint(0, cfg.vocab, (CONSIST_B, ZOO_CONSIST_P),
+                         generator=gen, device=dev)
+    cache_p, enc = None, None
+    if cfg.enc_layers:
+        audio = torch.randn((CONSIST_B, cfg.n_audio_frames, cfg.d_model),
+                            generator=gen, device=dev).to(cfg.torch_dtype)
+        enc = EncDecLM.encode(params, cfg, audio)
+        hiddens, _ = EncDecLM._decode_dense(params["decoder"], cfg, toks, enc)
+        logits_p = DecoderLM.logits(params["decoder"],
+                                    hiddens[cfg.n_layers][:, -1])
+    else:
+        logits_p, cache_p = make_prefill_step(cfg)(params, {"tokens": toks})
+    step = make_serve_step(cfg)
+    cache_d = model.init_cache(cfg, CONSIST_B, ZOO_CONSIST_P, device=dev)
+    if enc is not None:
+        cache_d["enc_out"].copy_(enc)
+    for t in range(ZOO_CONSIST_P):
+        logits_d, cache_d = step(params, cache_d, toks[:, t],
+                                 torch.full((CONSIST_B,), t,
+                                            dtype=torch.int64, device=dev))
+    errs = {"logits": rel_l2(logits_d, logits_p)}
+    for part in ("layers", "shared"):
+        if cache_p is None or part not in cache_p:
+            continue
+        for f, got, want in zip(cache_p[part]._fields, cache_d[part],
+                                cache_p[part]):
+            for i in sorted({0, got.shape[0] - 1}):
+                errs[f"{part}.{f}[{i}]"] = rel_l2(got[i], want[i])
+    print(f"  relative L2, decode vs prefill ({cfg.dtype}, {cfg.n_layers} "
+          f"layers, {CONSIST_B} x {ZOO_CONSIST_P} tokens"
+          f"{f', capacity factor {ZOO_CONSIST_CF}' if cfg.is_moe else ''}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    return errs
+
+
+
+def zoo_serve_phase(dev):
+    """Phase 31, the slice's main path: ``python -m repro_torch.launch.serve
+    --arch zamba2_2_7b --slots 10 --decode`` in-process (its engine and
+    requests, launch/serve.py's make_engine and slot_requests): Zamba2-2.7B
+    at full width behind EdgeServingEngine, GRLE choosing replica and exit
+    for 4 requests a slot. Launches exactly: gcn_agg 4 and edge_score 1 a
+    decision plus 4 and 1 a train step; decode_attention, per exit group,
+    (shared-block applications below its exit) x (positions it decodes).
+    Then the actor launches and decode_attention at the engine's shapes
+    against their plain versions, and the slots again without decoding."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+
+    args = cli.parse_args(list(ZOO_SERVE_ARGS))
+    t0 = time.perf_counter()
+    eng = cli.make_engine(args)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    every = cfg.shared_attn_every
+    print(f"python -m repro_torch.launch.serve {' '.join(ZOO_SERVE_ARGS)}: "
+          f"{cfg.arch_id}, {cfg.dtype}, exits {cfg.exit_layers}, shared block"
+          f" every {every} layers; exit table ms "
+          f"{np.round(eng.exit_times * 1e3, 4).tolist()}; engine built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(args.seed)
+    positions = cli.PROMPT_LEN + cli.MAX_NEW
+    ops.reset_launch_counts()
+    want = {"gcn_agg": 0, "edge_score": 0, "flash_attention": 0,
+            "decode_attention": 0, "ssm_scan": 0}
+    walls, shapes = [], {}
+    for slot in range(args.slots):
+        reqs = cli.slot_requests(rng, cfg.vocab, args.batch)
+        due = eng.agent_def.train_due(eng.agent_state, 1)
+        t0 = time.perf_counter()
+        assignments, info = eng.serve_slot(reqs, decode=args.decode)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want["gcn_agg"] += 4 + 4 * due
+        want["edge_score"] += 1 + due
+        groups = {}
+        for _, e in assignments:
+            groups[e] = groups.get(e, 0) + 1
+        for e, n in groups.items():
+            want["decode_attention"] += e // every * positions
+            shapes[n] = positions
+        line = ", ".join(f"{r}@exit{e}" for r, e in assignments)
+        print(f"slot {slot:3d} reward {info['reward']:.3f}  [{line}]  "
+              f"{walls[-1] * 1e3:.1f} ms", flush=True)
+        if any(len(t) != cli.MAX_NEW or min(t) < 0 or max(t) >= cfg.vocab
+               for t in info["texts"]):
+            raise SystemExit("zoo serve: generated tokens malformed")
+    counts = ops.launch_counts()
+    print(f"summary: {eng.metrics.summary()}")
+    print(f"decode=True: slot ms mean {np.mean(walls) * 1e3:.3f}, median "
+          f"{np.median(walls) * 1e3:.3f}, min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}; launches {counts}, expected {want}")
+    if (counts != want or not counts["gcn_agg"] or not counts["edge_score"]
+            or not counts["decode_attention"]):
+        raise SystemExit(f"zoo serve launches {counts}, expected {want}")
+    serve_actor_check(dev, eng, "zamba2")
+    serve_decode_check(dev, cfg, shapes)
+    walls = []
+    for _ in range(args.slots):
+        reqs = cli.slot_requests(rng, cfg.vocab, args.batch)
+        t0 = time.perf_counter()
+        eng.serve_slot(reqs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"decode=False: slot ms mean {np.mean(walls) * 1e3:.3f}, median "
+          f"{np.median(walls) * 1e3:.3f}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------ phases
 # --------------------------------------------------------------- population
 def pop_trainer(dev, data=None, **kw):
@@ -3194,6 +3829,8 @@ def main() -> int:
 
     phase(15, "RWKV consistency: prefill vs teacher-forced decode")
     rwkv_consistency_phase(dev, cfg, params, lm_gen)
+    del params
+    torch.cuda.empty_cache()
 
     phase(16, "training: actor kernels' gradients vs autograd of their "
               "plain versions")
@@ -3240,8 +3877,45 @@ def main() -> int:
 
     phase(27, "observability: the profile CLI's trace, hot program costs")
     obs_phase(dev)
+    # the zoo's models need the card's memory: whatever the earlier phases
+    # left unreferenced goes
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory allocated before the zoo: "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
 
-    phase(28, "summary")
+    phase(28, "the attention and scan kernels at the zoo's new shapes vs "
+              "their plain versions")
+    t0 = time.perf_counter()
+    zoo_rows = zoo_kernels_phase(dev)
+    print(f"phase 28 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(29, "zoo golden replay of JAX runs (reduced Zamba2, DeepSeek-MoE, "
+              "DeepSeek-V2, Whisper, f32)")
+    t0 = time.perf_counter()
+    zoo_golden_phase(dev)
+    print(f"phase 29 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(30, "the zoo at full width, bf16: prefill, early-exit decode, "
+              "consistency")
+    t0 = time.perf_counter()
+    zoo_totals = {"flash_attention": 0, "decode_attention": 0, "ssm_scan": 0}
+    zoo_models = []
+    for arch, b, s, layers in ZOO_MODELS:
+        totals, row = zoo_model_phase(dev, arch, b, s, layers)
+        zoo_models.append(row)
+        for k in zoo_totals:
+            zoo_totals[k] += totals[k]
+    print(json.dumps({"zoo_models": zoo_models}))
+    print(f"phase 30 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(31, "the slice's main path: Zamba2-2.7B behind GRLE "
+              "(repro_torch.launch.serve)")
+    t0 = time.perf_counter()
+    zoo_serve = zoo_serve_phase(dev)
+    print(f"phase 31 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(32, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -3252,13 +3926,17 @@ def main() -> int:
         b_ms, b_by = bound(s["bytes"], s["flops"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": counts[name] + zoo_serve[name],
             "max_abs_err": max(grad_err, *(v["err"]
                                            for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
-    launches = {"flash_attention": flash_launches,
-                "decode_attention": decode_launches}
+    launches = {"flash_attention": flash_launches
+                + zoo_totals["flash_attention"],
+                "decode_attention": decode_launches
+                + zoo_totals["decode_attention"]
+                + zoo_serve["decode_attention"]}
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:70"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:56")):
@@ -3271,7 +3949,7 @@ def main() -> int:
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:93",
-        "launches": ssm_launches, **ssm})
+        "launches": ssm_launches + zoo_totals["ssm_scan"], **ssm})
     print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
           "actor forward's launches (4 and 1), launches of the training "
           "path (phase 18: 200 slots' and 20 train steps' forwards), error "
@@ -3282,7 +3960,11 @@ def main() -> int:
           f"S={LONG_S}] bf16, every row read, launches of the serve phase's "
           f"four exits; ssm_scan: one call at {list(SSM_PREFILL[:5])} chunk "
           f"{SSM_PREFILL[5]} bf16, plain timed eagerly, launches of one RWKV "
-          "prefill (its decode launches none)")
+          "prefill (its decode launches none); each kernel's launches add "
+          "those of phase 30's prefills and decodes of the zoo and of phase "
+          "31's serving path (gcn_agg and edge_score: phase 31's only); the "
+          "zoo's new shapes timed in phase 28:")
+    print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

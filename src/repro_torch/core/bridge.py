@@ -5,8 +5,8 @@ The caller converts a JAX tree to numpy first
 checkpoint with ``repro_torch.train.checkpoint``, so this module needs
 neither JAX nor anything of ``repro``. Names, shapes and dtypes are
 checked against the port's layout (``core.gcn.param_shapes`` for the GCN
-actor, ``MLPActor.param_shapes`` for DROO's MLP, ``DecoderLM.param_shapes``
-for a decoder LM, the reference's ``AgentState`` and ``DeviceReplay``
+actor, ``MLPActor.param_shapes`` for DROO's MLP, ``param_shapes`` of
+``model_for(cfg)`` for an LM, the reference's ``AgentState`` and ``DeviceReplay``
 fields for an agent state, with a leading [P] in a population) and any
 mismatch raises.
 """
@@ -23,7 +23,7 @@ from repro_torch.core.policy import (DEV_DIM, OPT_DIM, AgentDef, AgentState,
                                      MLPActor)
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import DecoderLM
+from repro_torch.models.lm import model_for
 from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 
 
@@ -236,17 +236,20 @@ def agent_state_from_params(adef: AgentDef, params: dict,
 
 
 def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
-    """A numpy decoder-LM param tree (the reference's ``DecoderLM.init``
-    layout) -> the port's param dict on ``device`` (the card unless
-    ``"cpu"``). Every leaf's name, shape and dtype must match
-    ``DecoderLM.param_shapes(cfg)`` and ``DecoderLM.param_dtypes(cfg)``
-    (``cfg.dtype`` but for RWKV-6's float32 ``w0`` and ``bonus_u``; a
-    bfloat16 leaf is ml_dtypes' ``bfloat16``, as ``np.asarray`` gives it
-    for a JAX array)."""
+    """A numpy LM param tree (the layout of the reference's
+    ``model_for(cfg).init``: ``DecoderLM``'s, or ``EncDecLM``'s
+    ``encoder``/``enc_norm``/``decoder``) -> the port's param dict on
+    ``device`` (the card unless ``"cpu"``). Every leaf's name, shape and
+    dtype must match ``param_shapes(cfg)`` and ``param_dtypes(cfg)`` of
+    ``model_for(cfg)`` (``cfg.dtype`` but for the float32 leaves: RWKV-6's
+    ``w0`` and ``bonus_u``, Mamba-2's ``a_log`` and ``dt_bias``, the MoE's
+    ``router/w``; a bfloat16 leaf is ml_dtypes' ``bfloat16``, as
+    ``np.asarray`` gives it for a JAX array)."""
     device = resolve_device(device)
-    want = flatten_dict(DecoderLM.param_shapes(cfg))
+    model = model_for(cfg)
+    want = flatten_dict(model.param_shapes(cfg))
     dtypes = {path: str(dt).replace("torch.", "") for path, dt
-              in flatten_dict(DecoderLM.param_dtypes(cfg)).items()}
+              in flatten_dict(model.param_dtypes(cfg)).items()}
     got = flatten_dict(tree)
     if set(got) != set(want):
         raise ValueError(f"param leaves differ: missing "
@@ -273,26 +276,34 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
 
 
 def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
-    """Random float32 decoder-LM params drawn with numpy from ``seed``,
-    leaf by leaf in the order of ``DecoderLM.param_shapes(cfg)``: weights
+    """Random float32 LM params drawn with numpy from ``seed``, leaf by
+    leaf in the order of ``model_for(cfg).param_shapes(cfg)``: weights
     Xavier-uniform per [in, out] matrix, norm scales 1 + N(0, 0.1),
-    RWKV-6's decay base ``w0`` uniform in [-6, 0] (decays per step from
-    ~0.9975 to ~0.37, so the state carries across chunks), every other
-    leaf (biases, embedding, RWKV mixes, LoRAs, bonus) N(0, 0.02). Both
-    frameworks can rebuild them from the seed alone
+    RWKV-6's decay base ``w0`` and Mamba-2's ``a_log`` uniform in [-6, 0]
+    (decays per step from ~0.9975 to ~0.37 for RWKV-6, exp(-dt e^a_log)
+    for Mamba-2, so the state carries across chunks), MoE experts
+    ``w1``/``w2``/``w3`` normal with std 1/sqrt(in) and Mamba-2's
+    ``conv_w`` with std 0.5, as the reference scales them, every other leaf (biases, embedding, RWKV
+    mixes, LoRAs, bonus, MLA's up-projections, ``dt_bias``) N(0, 0.02).
+    Both frameworks can rebuild them from the seed alone
     (``tools/make_torch_lm_golden.py``, ``chip_smoke.py``); biases and
     scales are nonzero and not one, so a test sees them."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for path, shape in flatten_dict(DecoderLM.param_shapes(cfg)).items():
+    shapes = model_for(cfg).param_shapes(cfg)
+    for path, shape in flatten_dict(shapes).items():
         leaf = path.rsplit("/", 1)[1]
         if leaf == "w":
             limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
             x = rng.uniform(-limit, limit, size=shape)
         elif leaf == "scale":
             x = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif leaf == "w0":
+        elif leaf in ("w0", "a_log"):
             x = rng.uniform(-6.0, 0.0, size=shape)
+        elif leaf in ("w1", "w2", "w3"):
+            x = rng.standard_normal(shape) / math.sqrt(shape[-2])
+        elif leaf == "conv_w":
+            x = 0.5 * rng.standard_normal(shape)
         else:
             x = 0.02 * rng.standard_normal(shape)
         flat[path] = x.astype(np.float32)

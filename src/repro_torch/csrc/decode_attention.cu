@@ -38,7 +38,10 @@
 //   the Pallas kernel does (every logit masked alike, so p = 1 on every
 //   row): it is read as length S with q scaled by 0, so every logit is 0
 //   and the online softmax and the split combine give sum_s v[b, s] / S.
-// g up to 8 (every config of the repo); a larger group is refused.
+// g up to 8 (every config of the repo); a larger group is refused. Head
+// widths 32, 64, 128 and 80: a head of 80 runs in the 128-wide lane layout
+// (16 or 32 lanes a row, a power of two for the __shfl_xor sums), its
+// lanes past column 80 holding zeros and loading nothing.
 #include <cooperative_groups.h>
 
 #include "attention_common.cuh"
@@ -83,7 +86,9 @@ __device__ __forceinline__ void merge(float m0, float m1, float* m,
 
 // at g <= 4 the registers are capped at 128, so that four 4-warp blocks
 // (Llama's B=64 grid of 512 blocks in one wave) share an SM
-template <typename T, int D, int G>
+// D is the lane layout's head width (a power of two), DR <= D the head's
+// own: lanes whose 16 bytes lie past DR load nothing and hold zeros
+template <typename T, int D, int G, int DR = D>
 __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
     decode_attention_kernel(Args a) {
   using L = Layout<T, D, G>;
@@ -99,6 +104,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
   const int sub = lane % LPR, grp = lane / LPR;  // d chunk, row in a load
+  const bool live = sub * V < DR;                // the chunk is the head's
   const bool empty = a.lengths[b] <= 0;  // uniform over all S rows
   const int len = empty ? a.S : min(a.lengths[b], a.S);
   const float q_scale = empty ? 0.f : a.scale_log2;
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + sub * V;
 #pragma unroll
   for (int hh = 0; hh < G; ++hh) {
-    if (hh < g) {
+    if (hh < g && live) {
       attn::load_vec(qp + hh * a.q_sh, qr[hh]);
     } else {
 #pragma unroll
@@ -132,7 +138,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
       const int row = c0 + grp + j * RPW;
-      if (row < r1) {
+      if (row < r1 && live) {
         kd[j] = __ldg(reinterpret_cast<const uint4*>(kp + row * a.k_ss));
         vd[j] = __ldg(reinterpret_cast<const uint4*>(vp + row * a.v_ss));
       } else {
@@ -252,7 +258,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
       sa += s_acc[w][hh][c] * f;
     }
     if (n_split == 1) {
-      if (hh < g) op[hh * a.o_sh + c] = attn::from_f32<T>(sl > 0.f ? sa / sl : 0.f);
+      if (hh < g && c < DR)
+        op[hh * a.o_sh + c] = attn::from_f32<T>(sl > 0.f ? sa / sl : 0.f);
     } else {
       s_pacc[hh][c] = sa;
       if (c == 0) {
@@ -269,7 +276,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
   const int rank = (int)cluster.block_rank();
   for (int i = rank * blockDim.x + tid; i < G * D; i += n_split * blockDim.x) {
     const int hh = i / D, c = i - hh * D;
-    if (hh >= g) continue;
+    if (hh >= g || c >= DR) continue;
     float mx = -INFINITY;
     for (int r = 0; r < n_split; ++r)
       mx = fmaxf(mx, cluster.map_shared_rank(&s_pm[0], r)[hh]);
@@ -285,10 +292,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, G <= 4 ? 2 : 1)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, int DR>
 int launch(const Args& a, long long B, long long KVH, int n_split,
            int n_warps, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, D, G>;
+  auto kernel = decode_attention_kernel<T, D, G, DR>;
   const dim3 grid((unsigned)n_split, (unsigned)KVH, (unsigned)B);
   const dim3 block((unsigned)(32 * n_warps));
   if (n_split == 1) {
@@ -315,13 +322,13 @@ int launch(const Args& a, long long B, long long KVH, int n_split,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DR = D>
 int dispatch_g(const Args& a, long long B, long long KVH, int n_split,
                int n_warps, cudaStream_t st) {
-  if (a.g <= 1) return launch<T, D, 1>(a, B, KVH, n_split, n_warps, st);
-  if (a.g <= 2) return launch<T, D, 2>(a, B, KVH, n_split, n_warps, st);
-  if (a.g <= 4) return launch<T, D, 4>(a, B, KVH, n_split, n_warps, st);
-  if (a.g <= 8) return launch<T, D, 8>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 1) return launch<T, D, 1, DR>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 2) return launch<T, D, 2, DR>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 4) return launch<T, D, 4, DR>(a, B, KVH, n_split, n_warps, st);
+  if (a.g <= 8) return launch<T, D, 8, DR>(a, B, KVH, n_split, n_warps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -333,6 +340,8 @@ int dispatch_d(long long D, const Args& a, long long B, long long KVH,
       return dispatch_g<T, 32>(a, B, KVH, n_split, n_warps, st);
     case 64:
       return dispatch_g<T, 64>(a, B, KVH, n_split, n_warps, st);
+    case 80:
+      return dispatch_g<T, 128, 80>(a, B, KVH, n_split, n_warps, st);
     case 128:
       return dispatch_g<T, 128>(a, B, KVH, n_split, n_warps, st);
     default:

@@ -46,6 +46,11 @@
 // P V as 4x4 and 4 x d/16 register micro-tiles of fmaf, the softmax with
 // four threads per row.
 //
+// Head widths: 32, 64, 128 and 80 (StableLM-3B, Zamba2's shared block). In
+// bfloat16 a head of 80 runs in the 128-wide layout with its last 48
+// columns zero-filled (rows of 160 bytes fit no 128-byte swizzle atom), at
+// the cost of 128-wide products; float32 takes 80 as it is.
+//
 // Both read Q, K and V through their (batch, position, head) strides, so the
 // [B,S,H,d] layout needs no transposed copy and the shared K/V of a GQA
 // group is never expanded, and take query tiles heaviest first (the last
@@ -275,24 +280,31 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 
 // Start copying `rows` rows (row r at src + r * stride) of an R-row tile
 // into its swizzled place; rows rows..R-1 are zero-filled, so a masked
-// score never meets a stale value.
-template <int D, int R>
+// score never meets a stale value. A head of DR < D elements sits in the
+// D-wide layout with its columns DR..D-1 zero-filled, so they add nothing
+// to Q K^T and leave zeros in O's columns that are never stored.
+template <int D, int R, int DR = D>
 __device__ __forceinline__ void load_tile_async(unsigned dst, const bf16* src,
                                                 long long stride, int rows,
                                                 int tid) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
+  constexpr int C = D / 8;    // 16-byte chunks per row of the layout
+  constexpr int CR = DR / 8;  // ... of which the head's own
 #pragma unroll
   for (int it = 0; it < (R * C + kMmaThreads - 1) / kMmaThreads; ++it) {
     const int i = tid + it * kMmaThreads;
     if (R * C % kMmaThreads && i >= R * C) break;
     const int r = i / C, c = i - r * C;
-    const bool ok = r < rows;
+    const bool ok = r < rows && c < CR;
     cp_async16(dst + swizzled<D, R>(r, c),
-               src + (ok ? r : 0) * stride + c * 8, ok ? 16 : 0);
+               src + (ok ? r : 0) * stride + (ok ? c : 0) * 8, ok ? 16 : 0);
   }
 }
 
-template <int D>
+// D is the layout's head width (32, 64 or 128), DR <= D the head's own:
+// D = 128, DR = 80 runs a head of 80 in the 128-wide layout (see
+// load_tile_async), wgmma's N = 80 rows of 160 bytes fitting no swizzle
+// atom of the D = 64 / 128 layouts.
+template <int D, int DR = D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_attention_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -335,12 +347,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   auto fetch_tile = [&](int t) {  // tile t of [0, n_tiles) into its stage
     const int k0 = (kt_begin + t) * kBk, rows = min(kBk, S - k0);
     const int st = t % ST;
-    load_tile_async<D, kBk>(s_k + st * Cfg::kTile, kb + k0 * ks.s, ks.s,
-                            rows, tid);
-    load_tile_async<D, kBk>(s_v + st * Cfg::kTile, vb + k0 * vs.s, vs.s,
-                            rows, tid);
+    load_tile_async<D, kBk, DR>(s_k + st * Cfg::kTile, kb + k0 * ks.s, ks.s,
+                                rows, tid);
+    load_tile_async<D, kBk, DR>(s_v + st * Cfg::kTile, vb + k0 * vs.s, vs.s,
+                                rows, tid);
   };
-  load_tile_async<D, BQ>(s_q, qb, qs.s, min(BQ, S - q0), tid);
+  load_tile_async<D, BQ, DR>(s_q, qb, qs.s, min(BQ, S - q0), tid);
 #pragma unroll
   for (int t = 0; t < ST - 1; ++t) {
     if (t < n_tiles) fetch_tile(t);
@@ -504,13 +516,13 @@ __global__ void __launch_bounds__(kMmaThreads)
           pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
   }
   __syncwarp();
-  constexpr int C = D / 8;
+  constexpr int C = DR / 8;  // the head's own 16-byte chunks per row
   bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int it = 0; it < 16 * C / 32; ++it) {
+  for (int it = 0; it < (16 * C + 31) / 32; ++it) {
     const int i = lane + it * 32;
     const int r = i / C, c = i - r * C;
-    if (w0 + r < S)
+    if (i < 16 * C && w0 + r < S)
       *reinterpret_cast<uint4*>(ob + (w0 + r) * os.s + c * 8) =
           *reinterpret_cast<const uint4*>(
               q_ptr + swizzled<D, BQ>(warp * 16 + r, c));
@@ -677,6 +689,9 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // ---------------------------------------------------------------- launch
+// the wgmma layout's head width for a head of d: 80 runs zero-padded to 128
+constexpr int mma_layout(int d) { return d == 80 ? 128 : d; }
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
            Strides ks, Strides vs, Strides os, long long B, long long S,
@@ -686,9 +701,10 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
   const float scale_log2 = attn::kLog2e / sqrtf((float)D);
   const int group = (int)(H / KVH);
   if constexpr (sizeof(T) == 2) {
-    auto kernel = flash_attention_kernel<D>;
-    const size_t smem = MmaCfg<D>::kSmem;
-    constexpr int bq = MmaCfg<D>::kBq;
+    constexpr int DL = mma_layout(D);
+    auto kernel = flash_attention_kernel<DL, D>;
+    const size_t smem = MmaCfg<DL>::kSmem;
+    constexpr int bq = MmaCfg<DL>::kBq;
     cudaError_t err = attn::allow_smem(kernel, smem, &configured);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)H, (unsigned)B);
@@ -721,6 +737,9 @@ int dispatch_d(long long D, const void* q, const void* k, const void* v,
                            window, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, qs, ks, vs, os, B, S, H, KVH, causal,
+                           window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, qs, ks, vs, os, B, S, H, KVH, causal,
                            window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, qs, ks, vs, os, B, S, H, KVH, causal,

@@ -44,12 +44,13 @@ def causal_pairs(s, window):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_cost(q, k, window):
+def flash_cost(q, k, window, causal=True):
     """Each of q, k, v read once, the output written once; QK^T and PV
-    over the kept (causal) pairs only."""
+    over the kept pairs only (all S^2 without the causal mask)."""
     b, s, h, d = q.shape
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return nbytes, 4 * b * h * d * causal_pairs(s, window)
+    pairs = causal_pairs(s, window) if causal else s * s
+    return nbytes, 4 * b * h * d * pairs
 
 
 def decode_cost(q, k, lengths):

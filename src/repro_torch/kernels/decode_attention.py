@@ -9,7 +9,9 @@ layer's slice of a stacked cache costs no copy) and only the rows below
 ``lengths[b]``. It splits each sequence's rows across up to
 ``MAX_SPLITS`` blocks (one thread-block cluster) when B * KVH blocks
 alone would leave the card idle; ``n_splits`` is that choice, a pure
-function so that it can be tested without a card.
+function so that it can be tested without a card. ``HEAD_DIMS`` are the
+head widths the kernel takes (80 in the 128-wide lane layout); another
+raises.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SPLITS = 8      # the portable thread-block cluster size
 MIN_SPLIT_ROWS = 256

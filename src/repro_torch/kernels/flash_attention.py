@@ -1,4 +1,4 @@
-"""Causal GQA flash attention: wrapper of the CUDA kernel
+"""GQA flash attention, causal or not: wrapper of the CUDA kernel
 ``csrc/flash_attention.cu``.
 
 Counterpart of ``repro/kernels/flash_attention.py``. A CUDA tensor
@@ -8,7 +8,9 @@ and nothing else. The kernel reads q/k/v through their strides, so
 unlike the JAX wrapper there is no head-major copy, and any sequence
 length is taken (the TPU kernel needs S to be a multiple of its blocks).
 bfloat16 runs both products on the tensor cores (P rounded to bf16
-before P V, the row sums in float32); float32 runs them as float32 FMAs.
+before P V, the row sums in float32; a head of 80 in the 128-wide layout,
+zero-padded); float32 runs them as float32 FMAs. ``HEAD_DIMS`` are the
+head widths the kernel takes; another raises.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
 

@@ -51,7 +51,8 @@ _FLOPS = {
     "gcn_agg": lambda a: _cost.gcn_agg_cost(*a.values())[1],
     "edge_score": lambda a: _cost.edge_score_cost(*a.values())[1],
     "flash_attention": lambda a: _cost.flash_cost(a["q"], a["k"],
-                                                  a["window"])[1],
+                                                  a["window"],
+                                                  a["causal"])[1],
     "decode_attention": lambda a: _cost.decode_cost(a["q"], a["k"],
                                                     a["lengths"])[1],
     "ssm_scan": lambda a: _cost.ssm_cost(a["q"], a["v"], a["log_w"],
@@ -148,8 +149,9 @@ def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
 
 @_counted
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
-    """Causal GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] ->
-    [B,S,H,d], keys j <= i with i - j < ``window``."""
+    """GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] -> [B,S,H,d],
+    keys j <= i (``causal``; all keys without it) with i - j <
+    ``window``."""
     _forward_only("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 

@@ -1,8 +1,9 @@
-"""RWKV-6 (Finch): the gated linear recurrence and its block.
+"""RWKV-6 (Finch) and Mamba-2 (SSD): the gated linear recurrence and its
+blocks.
 
 Counterpart of ``repro/models/ssm.py``: ``chunked_linear_attn``,
-``linear_attn_step``, ``naive_linear_attn``, ``RWKVState`` and
-``RWKV6Block``. The primitive is a linear recurrence over rank-1 state
+``linear_attn_step``, ``naive_linear_attn``, ``RWKVState``,
+``RWKV6Block``, ``MambaState`` and ``Mamba2Block``. The primitive is a linear recurrence over rank-1 state
 updates,
 
     S_t = diag(w_t) · S_{t-1} + k_tᵀ v_t          (state [dk, dv] per head)
@@ -10,8 +11,10 @@ updates,
 
 ``chunked_linear_attn`` (prefill) runs it through ``ops.ssm_scan``, the
 hand-written chunked kernel on the card; ``linear_attn_step`` (decode) is
-plain PyTorch, as it is plain jnp in the reference. Mamba-2 is not ported
-yet.
+plain PyTorch, as it is plain jnp in the reference. RWKV-6 reads the
+state before the update with a bonus term; Mamba-2 reads it after
+(``bonus_u=None``). Mamba-2's depthwise causal conv (K = 4, its last
+K - 1 inputs carried as state) is plain PyTorch, as it is jnp there.
 
 The block keeps the reference's quirks as they are: the decay's LoRA
 reuses ``lora_b[:, :d]``, the decay adds ``xw * 0.0``, ``ln_x`` uses
@@ -182,3 +185,137 @@ class RWKV6Block:
         y = RMSNorm.apply(params["ln_x"], y.reshape(b, 1, d)) * g
         y = Linear.apply(params["wo"], y)
         return y, RWKVState(wkv, x[:, 0], state.shift_cm)
+
+
+# --------------------------------------------------------------------- Mamba2
+class MambaState(NamedTuple):
+    ssd: torch.Tensor     # [B, H, d_state, head_dim] float32
+    conv: torch.Tensor    # [B, conv_k - 1, d_conv_in] the last conv inputs
+
+
+class Mamba2Block:
+    """Mamba2 / SSD block (arXiv:2405.21060 form used by Zamba2): one input
+    projection to (z, x, B, C, dt), a causal depthwise conv over (x, B, C),
+    the SSD recurrence with decay exp(dt a) per head (keys B and queries C
+    shared by the heads, values dt x), a gated RMSNorm and the output
+    projection."""
+
+    CONV_K = 4
+    # leaves kept in float32 whatever cfg.dtype, as the reference's init does
+    FLOAT32_LEAVES = frozenset({"a_log", "dt_bias"})
+
+    @staticmethod
+    def dims(cfg: ArchConfig):
+        d_inner = cfg.ssm_expand * cfg.d_model
+        h = d_inner // cfg.ssm_head_dim
+        d_conv_in = d_inner + 2 * cfg.d_state   # x, B, C share the conv
+        return d_inner, h, d_conv_in
+
+    @staticmethod
+    def param_shapes(cfg: ArchConfig) -> dict:
+        d = cfg.d_model
+        d_inner, h, d_conv_in = Mamba2Block.dims(cfg)
+        return {
+            "in_proj": {"w": (d, 2 * d_inner + 2 * cfg.d_state + h)},
+            "conv_w": (Mamba2Block.CONV_K, d_conv_in),
+            "conv_b": (d_conv_in,),
+            "a_log": (h,),
+            "dt_bias": (h,),
+            "norm": {"scale": (d_inner,)},
+            "out_proj": {"w": (d_inner, d)},
+        }
+
+    @staticmethod
+    def _split(cfg: ArchConfig, zxbcdt):
+        d_inner, h, _ = Mamba2Block.dims(cfg)
+        n = cfg.d_state
+        z, x, bmat, cmat, dt = torch.split(
+            zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
+        return z, x, bmat, cmat, dt
+
+    @staticmethod
+    def _conv(params, xbc, conv_state=None):
+        """Causal depthwise conv over time: xbc [B,T,C] -> (silu(conv + b)
+        [B,T,C], the last K - 1 inputs [B,K-1,C] as the next state)."""
+        k = Mamba2Block.CONV_K
+        pad = (xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[-1]))
+               if conv_state is None else conv_state)
+        xp = torch.cat([pad, xbc], dim=1)
+        w, t = params["conv_w"], xbc.shape[1]
+        out = xp[:, 0:t] * w[0]
+        for i in range(1, k):
+            out = out + xp[:, i:i + t] * w[i]
+        return F.silu(out + params["conv_b"]), xp[:, -(k - 1):]
+
+    @staticmethod
+    def init_state(cfg: ArchConfig, batch: int, *, device,
+                   dtype=None) -> MambaState:
+        dtype = dtype or cfg.torch_dtype
+        _, h, d_conv_in = Mamba2Block.dims(cfg)
+        return MambaState(
+            torch.zeros((batch, h, cfg.d_state, cfg.ssm_head_dim),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, Mamba2Block.CONV_K - 1, d_conv_in),
+                        dtype=dtype, device=device))
+
+    @staticmethod
+    def _ssd_inputs(params, cfg: ArchConfig, x, bmat, cmat, dt):
+        """(q, k, v, log_w) of the recurrence: q = C and k = B broadcast
+        over the heads (views), v = dt x, log_w = dt a broadcast over
+        d_state (float32, contiguous: the scan kernel reads its last axis
+        as 16-byte rows)."""
+        b, t, _ = x.shape
+        _, h, _ = Mamba2Block.dims(cfg)
+        n = cfg.d_state
+        dt = F.softplus(dt.float() + params["dt_bias"])           # [B,T,H]
+        a = -torch.exp(params["a_log"])                           # [H] < 0
+        log_w = (dt * a)[..., None].expand(b, t, h, n).contiguous()
+        xh = x.reshape(b, t, h, cfg.ssm_head_dim)
+        v = xh * dt[..., None].to(xh.dtype)                       # dt x
+        k = bmat[:, :, None, :].expand(b, t, h, n)
+        q = cmat[:, :, None, :].expand(b, t, h, n)
+        return q, k, v, log_w
+
+    @staticmethod
+    def _mixer_inputs(params, cfg: ArchConfig, xin, conv_state):
+        d_inner = Mamba2Block.dims(cfg)[0]
+        z, x, bmat, cmat, dt = Mamba2Block._split(
+            cfg, Linear.apply(params["in_proj"], xin))
+        xbc, conv = Mamba2Block._conv(params, torch.cat([x, bmat, cmat], -1),
+                                      conv_state)
+        x, bmat, cmat = torch.split(
+            xbc, [d_inner, cfg.d_state, cfg.d_state], dim=-1)
+        return z, conv, Mamba2Block._ssd_inputs(params, cfg, x, bmat, cmat,
+                                                dt)
+
+    @staticmethod
+    def _out(params, y, z):
+        y = RMSNorm.apply(params["norm"], y * F.silu(z))
+        return Linear.apply(params["out_proj"], y)
+
+    @staticmethod
+    def apply_dense(params, cfg: ArchConfig, xin,
+                    state: MambaState | None = None):
+        """xin [B,T,d] (prefill; state optional) -> (y [B,T,d],
+        MambaState after the T tokens). The recurrence runs through
+        ``chunked_linear_attn`` (``ops.ssm_scan``, Mamba semantics)."""
+        b, t, _ = xin.shape
+        z, conv, (q, k, v, log_w) = Mamba2Block._mixer_inputs(
+            params, cfg, xin, None if state is None else state.conv)
+        y, ssd = chunked_linear_attn(
+            q, k, v, log_w, chunk=cfg.ssm_chunk,
+            initial_state=None if state is None else state.ssd)
+        y = y.reshape(b, t, Mamba2Block.dims(cfg)[0])
+        return Mamba2Block._out(params, y, z), MambaState(ssd, conv)
+
+    @staticmethod
+    def apply_decode(params, cfg: ArchConfig, xin, state: MambaState):
+        """xin [B,1,d] one token -> (y [B,1,d], new MambaState); the
+        recurrence is ``linear_attn_step`` (plain)."""
+        b = xin.shape[0]
+        z, conv, (q, k, v, log_w) = Mamba2Block._mixer_inputs(
+            params, cfg, xin, state.conv)
+        y, ssd = linear_attn_step(q[:, 0], k[:, 0], v[:, 0], log_w[:, 0],
+                                  state.ssd)
+        y = y.reshape(b, 1, Mamba2Block.dims(cfg)[0])
+        return Mamba2Block._out(params, y, z), MambaState(ssd, conv)

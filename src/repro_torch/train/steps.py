@@ -1,9 +1,9 @@
-"""Prefill and serve steps of the decoder LMs.
+"""Prefill and serve steps of the LMs.
 
 Counterpart of ``repro/train/steps.py::make_prefill_step`` /
 ``::make_serve_step``. PyTorch runs eagerly, so a step is a plain
-function (no ``jit``); it runs under ``torch.no_grad()``. The training
-step waits for the training slice.
+function (no ``jit``); it runs under ``torch.no_grad()``. The LM training
+step is not ported yet.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import model_for
+from repro_torch.models.lm import DecoderLM, EncDecLM, model_for
 
 
 def make_serve_step(cfg: ArchConfig, *, exit_layer: Optional[int] = None):
@@ -31,14 +31,22 @@ def make_serve_step(cfg: ArchConfig, *, exit_layer: Optional[int] = None):
 
 def make_prefill_step(cfg: ArchConfig):
     """``prefill_step(params, {"tokens": [B, S]}) -> (logits [B, V] at the
-    last position, cache)``; the cache is the layers' K/V (GQA) or
-    ``RWKVState`` (RWKV-6), as ``serve_step`` takes it."""
+    last position, cache)``; the cache is each layer's K/V (GQA), latents
+    (MLA) or recurrent state (RWKV-6, Mamba-2), and the shared block's
+    K/V, as ``serve_step`` takes it. For the encoder-decoder,
+    ``{"audio": [B, frames, d], "tokens": [B, S]}`` -> logits [B, V] only,
+    as the reference returns: the encoder, then the decoder's dense pass."""
     model = model_for(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        h, cache = model.prefill(params, cfg, batch["tokens"])
-        logits = model.logits(params, h[:, -1:])
-        return logits[:, 0], cache
+        if model is EncDecLM:
+            enc_out = EncDecLM.encode(params, cfg, batch["audio"])
+            hiddens, _ = EncDecLM._decode_dense(params["decoder"], cfg,
+                                                batch["tokens"], enc_out)
+            h = hiddens[cfg.n_layers]
+            return DecoderLM.logits(params["decoder"], h[:, -1:])[:, 0]
+        h, cache, _ = DecoderLM.prefill(params, cfg, batch["tokens"])
+        return DecoderLM.logits(params, h[:, -1:])[:, 0], cache
 
     return prefill_step

@@ -425,15 +425,25 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # (B, S, H, KVH, d, window): tests/test_kernels.py's grid, a ragged S, and
 # Llama-3.2-1B's prefill shape at B=1; S = 200 (a 64-row tile cut at 8
-# rows) at every head dim, and windows at d = 64 and 128
+# rows) at every head dim, and windows at d = 64, 80 and 128; d = 80 is
+# StableLM-3B's and Zamba2's shared block's head
 FLASH_SHAPES = [(1, 128, 2, 2, 32, None), (2, 128, 4, 2, 64, None),
                 (1, 256, 8, 2, 32, 64), (2, 64, 4, 1, 128, None),
                 (2, 100, 4, 2, 64, 48), (1, 2048, 32, 8, 64, None),
                 (2, 200, 4, 2, 32, None), (1, 200, 8, 2, 64, 64),
-                (1, 200, 4, 1, 128, None), (1, 384, 4, 2, 128, 64)]
-# (B, H, KVH, d, S): tests/test_kernels.py's grid and Llama-3.2-1B's decode
+                (1, 200, 4, 1, 128, None), (1, 384, 4, 2, 128, 64),
+                (2, 200, 4, 2, 80, None), (1, 256, 4, 4, 80, 64)]
+# (B, S, H, KVH, d) without the causal mask: Whisper's encoder (S = 1500
+# frames, cut to 300 here) and a head of 80
+NON_CAUSAL_SHAPES = [(2, 300, 4, 4, 64), (1, 200, 4, 2, 80),
+                     (1, 1500, 16, 16, 64)]
+# (B, H, KVH, d, S): tests/test_kernels.py's grid, Llama-3.2-1B's decode,
+# heads of 80 (Zamba2's shared block: 32 over 32) and Whisper's
+# cross-attention over 1500 frames
 DECODE_SHAPES = [(2, 4, 2, 32, 256), (3, 8, 2, 64, 512), (1, 2, 2, 128, 128),
-                 (8, 32, 8, 64, 256), (64, 32, 8, 64, 4096)]
+                 (8, 32, 8, 64, 256), (64, 32, 8, 64, 4096),
+                 (3, 8, 2, 80, 300), (8, 32, 32, 80, 256),
+                 (8, 16, 16, 64, 1500)]
 
 
 # bf16 flash_attention against ref.flash_attention_bf16_emulation, beyond
@@ -472,6 +482,22 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, h, kvh, d,
                                want.float().cpu().numpy(), **ATTN_TOL[dtype])
     if dtype == torch.bfloat16:     # and at the precision of its arithmetic
         emu = ref.flash_attention_bf16_emulation(q, k, v, window=win)
+        assert flash_emu_err(got, emu) <= FLASH_EMU_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d", NON_CAUSAL_SHAPES)
+def test_flash_attention_non_causal_matches_plain(cuda, dtype, b, s, h, kvh,
+                                                  d):
+    q = normal(cuda, dtype, b, s, h, d, seed=1)
+    k = normal(cuda, dtype, b, s, kvh, d, seed=2)
+    v = normal(cuda, dtype, b, s, kvh, d, seed=3)
+    got = flash_mod.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        emu = ref.flash_attention_bf16_emulation(q, k, v, causal=False)
         assert flash_emu_err(got, emu) <= FLASH_EMU_TOL
 
 

@@ -28,9 +28,8 @@ from repro.train.steps import make_prefill_step as jax_make_prefill_step
 from repro_torch.configs import get_arch
 from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
 from repro_torch.kernels import ops
-from repro_torch.models import DecoderLM, model_for
+from repro_torch.models import DecoderLM
 from repro_torch.models.attention import GQAAttention
-from repro_torch.models.blocks import block_kind
 from repro_torch.models.ffn import DenseFFN
 from repro_torch.models.rope import apply_rope
 from repro_torch.nn import Embedding, RMSNorm
@@ -47,8 +46,6 @@ MODULE_TOL = dict(rtol=1e-5, atol=1e-5)   # f32, one module
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)    # f32, logits through the model
 PORTED = ("llama3_2_1b", "qwen1_5_0_5b", "stablelm_3b", "internlm2_20b",
           "chameleon_34b")
-NOT_PORTED = ("whisper_medium", "zamba2_2_7b", "deepseek_moe_16b",
-              "deepseek_v2_236b")
 B, P, T = 2, 8, 16
 
 
@@ -98,18 +95,6 @@ def test_param_shapes_equal_reference_init(arch):
         assert DecoderLM.param_shapes(port) == want
         dtypes = {str(s.dtype) for s in jax.tree_util.tree_leaves(shapes)}
         assert dtypes == {port.dtype}
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    cfg = get_arch(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model_for(cfg)
-    if not cfg.enc_layers and not cfg.shared_attn_every:
-        with pytest.raises(NotImplementedError, match=cfg.arch_id):
-            block_kind(cfg)
-        with pytest.raises(NotImplementedError):
-            DecoderLM.init(torch.Generator(), cfg, device="cpu")
 
 
 # --------------------------------------------------------------- modules

@@ -323,21 +323,21 @@ def test_rwkv_block_wrap_dense_and_decode_match_reference():
     (bp, jbp) = layer(*params(cfg), i=2)
     x = rand(8, B, P, cfg.d_model)
     pos = jnp.broadcast_to(jnp.arange(P)[None], (B, P))
-    y, cache = RWKVBlockWrap.apply_dense(bp, cfg, torch.tensor(x),
-                                         want_cache=True)
+    y, cache, _ = RWKVBlockWrap.apply_dense(bp, cfg, torch.tensor(x),
+                                            want_cache=True)
     jy, jcache, _ = JaxRWKVWrap.apply_dense(jbp, jcfg, jnp.asarray(x), pos,
                                             want_cache=True)
     close(y, jy, MODULE_TOL)
     close(cache.wkv, jcache.wkv, SSM_TOL)
     close(cache.shift_tm, jcache.shift_tm, MODULE_TOL)
     close(cache.shift_cm, jcache.shift_cm, MODULE_TOL)
-    y2, none = RWKVBlockWrap.apply_dense(bp, cfg, torch.tensor(x))
+    y2, none, _ = RWKVBlockWrap.apply_dense(bp, cfg, torch.tensor(x))
     assert none is None and torch.equal(y, y2)
     ts, js = cache, jcache
     for t in range(3):
         xt = rand(9 + t, B, 1, cfg.d_model)
-        yt, ts = RWKVBlockWrap.apply_decode(bp, cfg, torch.tensor(xt), ts,
-                                            None)
+        yt, ts, _ = RWKVBlockWrap.apply_decode(bp, cfg, torch.tensor(xt),
+                                               ts, None)
         jyt, js, _ = JaxRWKVWrap.apply_decode(jbp, jcfg, jnp.asarray(xt), js,
                                               None)
         close(yt, jyt, MODULE_TOL)
@@ -458,7 +458,7 @@ def test_lm_params_from_numpy_takes_rwkv_leaf_dtypes():
 
 
 def test_rwkv_is_ported_and_mamba_is_not():
+    """RWKV-6 runs as a DecoderLM of rwkv6 blocks. (Mamba-2 is ported
+    since: tests/test_torch_models_zoo.py holds it.)"""
     assert block_kind(get_arch("rwkv6_7b")) == "rwkv6"
     assert model_for(get_arch("rwkv6_7b")) is DecoderLM
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        block_kind(get_arch("zamba2_2_7b").reduced(shared_attn_every=0))

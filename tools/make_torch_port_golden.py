@@ -890,14 +890,15 @@ def pop_margin(data: dict) -> float:
 
 
 # ------------------------------------------------------------------ serving
-def serve_engine(scheduler: str = "grle", kind: str = "sync", **kw):
-    """A JAX serving engine as the serve golden and tests build it; the
-    sync one with ``lm_params_numpy`` weights."""
+def serve_engine(scheduler: str = "grle", kind: str = "sync", *,
+                 arch: str = SERVE_ARCH, **kw):
+    """A JAX serving engine as the serve golden and tests build it, over
+    the reduced ``arch``; the sync one with ``lm_params_numpy`` weights."""
     from repro.configs import get_arch
     from repro.serve import ContinuousServingEngine, EdgeServingEngine, Replica
     from repro_torch.core.bridge import lm_params_numpy
 
-    cfg = get_arch(SERVE_ARCH, reduced=True)
+    cfg = get_arch(arch, reduced=True)
     kw = dict(dict(scheduler=scheduler, batch_slots=SERVE_BATCH,
                    seed=SERVE_SEED, workload="mmpp", scenario="dyn_bursty",
                    agent_kw=SERVE_AGENT_KW), **kw)
@@ -964,24 +965,25 @@ def serve_draws(eng, rec) -> dict:
     return out
 
 
-def serve_run(scheduler: str = "grle") -> dict:
-    """The JAX sync engine over ``SERVE_SCHEDULE`` with decoding: the
-    golden file's arrays plus "state0" (the initial ``AgentState``,
-    numpy), "telemetry" (the snapshot), "latency_ring" and
+def serve_run(scheduler: str = "grle", *, arch: str = SERVE_ARCH,
+              schedule=SERVE_SCHEDULE) -> dict:
+    """The JAX sync engine over ``schedule`` with decoding, serving the
+    reduced ``arch``: the golden file's arrays plus "state0" (the initial
+    ``AgentState``, numpy), "telemetry" (the snapshot), "latency_ring" and
     "tokens_served"."""
     from repro.mec.profiles import TPU_V5E_HBM_BW, TPU_V5E_PEAK_FLOPS
 
-    eng = serve_engine(scheduler)
+    eng = serve_engine(scheduler, arch=arch)
     state0 = jax.tree_util.tree_map(np.asarray, eng.agent_state)
     rec = record_draws(eng)
     names = [n for n, _ in SERVE_REPLICAS]
-    t, m = len(SERVE_SCHEDULE), SERVE_BATCH
+    t, m = len(schedule), SERVE_BATCH
     out = {"assign_replica": np.full((t, m), -1, np.int32),
            "assign_exit": np.full((t, m), -1, np.int32),
            "texts": np.full((t, m, SERVE_NEW), -1, np.int32),
            "reward": np.zeros((t,), np.float32),
            "loss": np.full((t,), np.nan, np.float32)}
-    for i, n in enumerate(SERVE_SCHEDULE):
+    for i, n in enumerate(schedule):
         reqs = None if n < 0 else [eng.make_request() for _ in range(n)]
         count = int(eng.agent_state.loss_count)
         assignments, info = eng.serve_slot(reqs, decode=True)
@@ -997,7 +999,7 @@ def serve_run(scheduler: str = "grle") -> dict:
     data = {"seed": np.asarray(SERVE_SEED),
             "lm_seed": np.asarray(SERVE_LM_SEED),
             "scheduler": np.asarray(scheduler),
-            "schedule": np.asarray(SERVE_SCHEDULE, np.int32),
+            "schedule": np.asarray(schedule, np.int32),
             "profile/peak_flops": np.asarray(TPU_V5E_PEAK_FLOPS),
             "profile/hbm_bw": np.asarray(TPU_V5E_HBM_BW),
             "exit_mask": np.asarray(state0.exit_mask),
