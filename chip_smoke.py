@@ -2,8 +2,8 @@
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
 GQA, RWKV-6, and the rest of the model zoo: Zamba2, DeepSeek-MoE,
 DeepSeek-V2, Whisper), its serving engines, its experiment sweep, its
-population training and its profiler and cost hooks on one NVIDIA GPU
-and check them.
+population training, its profiler and cost hooks, LM training and the
+paper's multi-exit VGG-16 pipeline on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -307,9 +307,33 @@ order, each fatal on failure:
    positions per exit group, each nonzero; the actor launches (M=4) and
    decode_attention (d=80) at the engine's shapes against their plain
    versions; slot ms without decoding;
-32. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
-   one ``{"kernels": [...]}`` line (launches of phases 18, 30 and 31 and
-   the LM prefills and decodes), the card line again, and last
+33. the differentiable flash route: ``ops.flash_attention`` on inputs
+   that require grad (Llama's training shape [8, 256, 32, 8, 64] in bf16
+   and f32, a window of 128, Whisper's maskless encoder over 1500
+   frames): one launch, its output the kernel's bit for bit, q/k/v
+   gradients within ATTN_TOL of autograd through the plain version, and a
+   control (the softmax scale dropped from the backward) that the gate
+   must reject; the forward and backward ms at the training shape;
+34. the training golden: ``tests/data/torch_train_golden.npz`` (reduced
+   Llama with exits and remat, DeepSeek-MoE, Whisper; two f32 AdamW
+   steps each) replayed: the first step's gradients within 1e-4 of each
+   leaf's max, losses and per-exit CE within 1e-5, params by the Adam
+   rule (near-ties counted);
+35. path A, LM training: ``python -m repro_torch.launch.train --arch
+   llama3_2_1b --steps 20 --batch 8 --seq 256`` in-process (full width and
+   depth, bf16, remat, four exits): finite losses, step ms, tokens/s,
+   peak memory, and 2 x 16 flash launches a step (the wrapper over the
+   run, the profiler over one more step); then three AdamW steps on one
+   batch, whose loss must fall at every step;
+36. path B, the paper's pipeline: the golden's VGG run replayed; then
+   examples/torch_vgg_offloading.py's stages at VGG-16's full width:
+   300 + 300 training steps at batch 64 (steps/s), ``profile_exits`` on
+   the card (five rows), GRLE over 300 slots on that profile with the
+   profiler's gcn_agg/edge_score kernels (4 and 1 per actor forward);
+   ssp and avg_accuracy printed;
+37. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+   one ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35
+   and 36 and the LM prefills and decodes), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -2333,26 +2357,41 @@ RAN = re.compile(r"\[sweep\] (.+): ran (\d+) cells in ([\d.]+) s \(first "
                  r"per cell)?\)")
 
 
-def profiled_call(fn):
+def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None):
     """``fn()`` under torch.profiler, the window open ``PROFILER_TAIL_S``
-    after its closing synchronize: (result, device records of the two
-    actor kernels, cudaGraphLaunch calls)."""
+    after its closing synchronize: (result, {name: device records of the
+    kernel ``<name>_kernel``}, cudaGraphLaunch calls). A ``busy`` dict
+    gets ``wall_ms`` (``fn()`` to its synchronize, host clock),
+    ``device_ms`` (the device records' summed time, the driver's spans
+    left out), ``kernels`` (those records: CUDA kernels and copies) and
+    ``by_name`` ({kernel: device ms})."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         time.sleep(PROFILER_TAIL_S)
     cuda = torch.autograd.DeviceType.CUDA
-    ours = {"gcn_agg": 0, "edge_score": 0}
-    graphs = 0
+    ours = {k: 0 for k in names}
+    graphs, by_name = 0, {}
     for e in prof.events():
         if e.name == "cudaGraphLaunch":
             graphs += 1
         elif e.device_type == cuda:
             for k in ours:
                 ours[k] += f"{k}_kernel" in e.name
+            if e.name not in SPANS:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+    if busy is not None:
+        busy.update(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
+                    kernels=sum(1 for e in prof.events()
+                                if e.device_type == cuda
+                                and e.name not in SPANS),
+                    by_name=by_name)
     return out, ours, graphs
 
 
@@ -3675,6 +3714,598 @@ def obs_phase(dev):
     print(f"phase 27 wall {time.perf_counter() - t0:.2f} s")
 
 
+LM_TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                               "torch_train_golden.npz")
+# the LM train step's gates (tests/test_torch_train_lm.py): losses and
+# per-exit CE relative, gradients against 1e-4 of the leaf's max |g|,
+# params after Adam steps by TRAIN_PARAM_TOL, an entry off it only where
+# some step's reference gradient sat within GRAD_TIE of 0 (Adam's first
+# steps move an entry by ~lr whatever its gradient's size, so a gradient
+# within rounding of 0 can flip its step): a near-tie, counted
+TRAIN_LM_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+GRAD_TIE = 1e-4
+
+
+def load_npz(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def adam_rule(got, want, grads, grad_max, *, rtol=TRAIN_PARAM_TOL[0],
+              atol=TRAIN_PARAM_TOL[1]):
+    """(entries off rtol/atol of ``want`` outside near-ties, near-ties):
+    a near-tie is an entry off it where some step's reference gradient
+    (``grads`` with their leaves' ``grad_max``) is within GRAD_TIE of its
+    leaf's max |g| of 0."""
+    bad = np.abs(got - want) > atol + rtol * np.abs(want)
+    tie = np.zeros_like(bad)
+    for g, m in zip(grads, grad_max):
+        tie |= np.abs(g) <= GRAD_TIE * m
+    return int((bad & ~tie).sum()), int((bad & tie).sum())
+
+
+def _golden_leaves(gold, prefix, tree, kind):
+    """``{path: (port values at the stored indices, the stored values)}``
+    of a flat port tree against ``<prefix>/<kind>/<path>``."""
+    from repro_torch.nn.pytree import flatten_dict
+
+    out = {}
+    for path, x in flatten_dict(tree).items():
+        idx = gold[f"{prefix}/idx/{path}"]
+        got = x.detach().float().reshape(-1)[torch.as_tensor(
+            idx, device=x.device)].cpu().numpy()
+        out[path] = (got, gold[f"{prefix}/{kind}/{path}"])
+    return out
+
+
+def _step_grads(gold, prefix, path, n_steps):
+    keys = [(f"{prefix}/grads/{t}/{path}", f"{prefix}/grad_max/{t}/{path}")
+            for t in range(n_steps)]
+    keys = [(g, m) for g, m in keys if g in gold]
+    return [gold[g] for g, _ in keys], [float(gold[m]) for _, m in keys]
+
+
+def lm_train_replay(dev, gold, arch) -> dict:
+    """Replay the golden's ``arch`` run (tools/make_torch_train_golden.py)
+    through the port on ``dev``: the first step's gradients (sampled
+    entries) within TRAIN_GRAD_TOL of the leaf's max |g|, each step's loss,
+    per-exit
+    CE and moe_aux within TRAIN_LM_RTOL, and the final params by
+    ``adam_rule``. Returns {"loss_err", "grad_err", "ties", "params"};
+    raises SystemExit on a failure."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.train.steps import (make_loss_fn, make_train_state,
+                                         make_train_step)
+
+    cfg = get_arch(arch).reduced(
+        exit_layers=tuple(int(e) for e in gold[f"{arch}/exit_layers"]),
+        remat=bool(gold[f"{arch}/remat"]))
+    lr, warm, decay = (float(x) for x in gold["lm_schedule"])
+    opt = adamw(linear_warmup_cosine(lr, int(warm), int(decay)),
+                weight_decay=float(gold["lm_weight_decay"]))
+    params = lm_params_from_numpy(
+        lm_params_numpy(cfg, int(gold["lm_seed"])), cfg, dev)
+    state, opt = make_train_state(cfg, None, opt, params=params)
+    step, loss_fn = make_train_step(cfg, opt), make_loss_fn(cfg)
+    n_steps = gold[f"{arch}/loss"].shape[0]
+    loss_err = grad_err = 0.0
+    for t in range(n_steps):
+        batch = {k: torch.as_tensor(gold[f"{arch}/{k}"][t], device=dev)
+                 for k in ("tokens", "labels", "audio")
+                 if f"{arch}/{k}" in gold}
+        batch["tokens"] = batch["tokens"].long()
+        batch["labels"] = batch["labels"].long()
+        if t == 0:
+            grad_err = _grad_check(gold, arch, loss_fn, state.params, batch)
+        state, metrics = step(state, batch)
+        for k, v in metrics.items():
+            if f"{arch}/{k}" not in gold or k == "moe_dropped":
+                continue
+            want = float(gold[f"{arch}/{k}"][t])
+            err = abs(float(v) - want) / max(abs(want), 1e-30)
+            if want == 0.0:
+                err = abs(float(v))
+            loss_err = max(loss_err, err)
+            if not err <= TRAIN_LM_RTOL:
+                raise SystemExit(f"{arch} step {t} {k}: {float(v)} vs the "
+                                 f"reference's {want}")
+        if float(metrics["moe_dropped"]) != float(
+                gold[f"{arch}/moe_dropped"][t]):
+            raise SystemExit(f"{arch} step {t}: moe_dropped "
+                             f"{float(metrics['moe_dropped'])} vs "
+                             f"{float(gold[f'{arch}/moe_dropped'][t])}")
+    ties = n_param = 0
+    for path, (got, want) in _golden_leaves(gold, arch, state.params,
+                                            "params").items():
+        bad, tie = adam_rule(got, want,
+                             *_step_grads(gold, arch, path, n_steps))
+        if bad:
+            raise SystemExit(f"{arch} params {path}: {bad} entries off the "
+                             f"reference outside near-ties")
+        ties += tie
+        n_param += got.size
+    return {"loss_err": loss_err, "grad_err": grad_err, "ties": ties,
+            "params": n_param}
+
+
+def _grad_check(gold, arch, loss_fn, params, batch) -> float:
+    """The port's gradients at the initial params (the reference's too)
+    against step 0's: the largest error over the leaves, each over its
+    leaf's max |g|; raises above TRAIN_GRAD_TOL. (Later steps start from
+    params that Adam's near-ties have already moved, so their gradients
+    are not gated.)"""
+    leaves = _flat_requires_grad(params)
+    with torch.enable_grad():
+        loss, _ = loss_fn(_unflat(leaves), batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    worst = 0.0
+    for path, (got, want) in _golden_leaves(
+            gold, arch, _unflat(dict(zip(leaves, grads))),
+            "grads/0").items():
+        m = float(gold[f"{arch}/grad_max/0/{path}"])
+        err = float(np.abs(got - want).max()) / max(m, 1e-30)
+        worst = max(worst, err)
+        if not err <= TRAIN_GRAD_TOL:
+            raise SystemExit(f"{arch} grad {path}: error {err:.3e} of the "
+                             f"leaf's max |g|")
+    return worst
+
+
+def _flat_requires_grad(tree) -> dict:
+    from repro_torch.nn.pytree import flatten_dict
+
+    return {k: v.detach().requires_grad_()
+            for k, v in flatten_dict(tree).items()}
+
+
+def _unflat(flat):
+    from repro_torch.nn.pytree import unflatten_dict
+
+    return unflatten_dict(flat)
+
+
+def vgg_train_replay(dev, gold) -> dict:
+    """Replay the golden's VGG run through ``train_vgg_ee`` on ``dev``:
+    both stages' losses within TRAIN_LM_RTOL, the final params by
+    ``adam_rule``. Returns {"loss_err", "ties", "params"}."""
+    from repro_torch.core.bridge import vgg_params_from_numpy, vgg_params_numpy
+    from repro_torch.vgg import train_vgg_ee
+
+    width, steps = float(gold["vgg_width"]), int(gold["vgg_steps"])
+    params = vgg_params_from_numpy(
+        vgg_params_numpy(width, int(gold["vgg_seed"])), dev,
+        width_mult=width)
+    batches = [(torch.as_tensor(x, device=dev),
+                torch.as_tensor(y, device=dev).long())
+               for x, y in zip(gold["vgg/images"], gold["vgg/labels"])]
+    params, hist = train_vgg_ee(width_mult=width, steps_main=steps,
+                                steps_exits=steps, lr=float(gold["vgg_lr"]),
+                                device=dev, params=params, batches=batches)
+    loss_err = 0.0
+    for k in ("main_loss", "exit_loss"):
+        got, want = np.array(hist[k]), gold[f"vgg/{k}"].astype(np.float64)
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        loss_err = max(loss_err, err)
+        if not err <= TRAIN_LM_RTOL:
+            raise SystemExit(f"vgg {k}: {got} vs the reference's {want}")
+    ties = n_param = 0
+    for path, (got, want) in _golden_leaves(gold, "vgg", params,
+                                            "params").items():
+        bad, tie = adam_rule(got, want,
+                             *_step_grads(gold, "vgg", path, 2 * steps))
+        if bad:
+            raise SystemExit(f"vgg params {path}: {bad} entries off the "
+                             f"reference outside near-ties")
+        ties += tie
+        n_param += got.size
+    return {"loss_err": loss_err, "ties": ties, "params": n_param}
+
+
+# phase 33: the flash Function's shapes (label, (B, S, H, KVH, d), causal,
+# window, dtypes): Llama-3.2-1B's training step, a window, Whisper's encoder
+FLASH_GRAD_SHAPES = (
+    ("llama3_2_1b train", (8, 256, 32, 8, 64), True, None,
+     (torch.bfloat16, torch.float32)),
+    ("window 128", (2, 512, 8, 2, 64), True, 128,
+     (torch.bfloat16, torch.float32)),
+    ("whisper encoder", (4, 1500, 16, 16, 64), False, None,
+     (torch.bfloat16,)))
+# phase 35: path A, as python -m repro_torch.launch.train runs it
+TRAIN_ARGS = ("--arch", "llama3_2_1b", "--steps", "20", "--batch", "8",
+              "--seq", "256", "--log-every", "5")
+# and its checks that training lowers the loss: steps on one batch, and
+# the same CLI at the reduced width (vocabulary 512), where 200 steps of
+# TokenStream's batches have a bigram table to learn
+FIXED_STEPS, FIXED_LR = 3, 3e-4
+REDUCED_TRAIN_ARGS = ("--arch", "llama3_2_1b", "--reduced", "--steps", "200",
+                      "--batch", "8", "--seq", "256", "--log-every", "50")
+HELD_OUT = 4     # batches of the stream past the run, for its loss
+# phase 36: path B, examples/torch_vgg_offloading.py at VGG-16's width
+VGG_STEPS, VGG_SLOTS = 300, 300
+
+
+def train_step_split(cfg, state, batch, reps=3) -> dict:
+    """Median host ms of each part of one LM train step, as
+    ``make_train_step``'s ``on_part`` hook marks them (a synchronize at
+    each mark): the forward (the multi-exit loss, remat'd layers and
+    checkpointed CE chunks), the backward (``torch.autograd.grad``, which
+    recomputes them), and AdamW's update with ``apply_updates``."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    marks = []
+
+    def on_part(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    step = make_train_step(cfg, adamw(3e-4), on_part=on_part)
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        marks[:] = [("start", time.perf_counter())]
+        new, _ = step(state, batch)
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            parts[name].append((b - a) * 1e3)
+        del new
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def event_pair_ms(fn) -> float:
+    """Device-clock ms of one ``fn()`` between two CUDA events (host
+    launches included where the card waits for them)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def flash_grads(fn, q, k, v, dout, **kw):
+    """(out, dq, dk, dv) of ``fn(q, k, v, **kw)`` by autograd, on leaf
+    copies of q, k, v."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, **kw)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+def flash_function_phase(dev) -> dict:
+    """Phase 33: ``ops.flash_attention`` with inputs that require grad,
+    as the training step calls it: one kernel launch whose output equals
+    the kernel's bit for bit and lies within ATTN_TOL of the plain
+    version's (in bf16 also within FLASH_EMU_TOL of the kernel's
+    emulation), and q/k/v gradients within ATTN_TOL of autograd through
+    the plain version; a control with the softmax scale dropped from the
+    backward must fail that gate. Forward and backward ms at Llama's
+    training shape. Returns {"max_abs_err"}: the forward's largest
+    absolute error against the plain version (the backward is the plain
+    version's own VJP, so its error says nothing of the kernel)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for label, (b, s, h, kvh, d), causal, window, dtypes in FLASH_GRAD_SHAPES:
+        for dtype in dtypes:
+            def normal(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+            q, k, v = normal(b, s, h, d), normal(b, s, kvh, d), \
+                normal(b, s, kvh, d)
+            dout = normal(b, s, h, d)
+            kw = dict(causal=causal, window=window)
+            before = flash_mod.launches
+            out, *got = flash_grads(ops.flash_attention, q, k, v, dout, **kw)
+            torch.cuda.synchronize()
+            launched = flash_mod.launches - before
+            kernel_out = flash_mod.flash_attention(q, k, v, **kw)
+            if launched != 1 or not torch.equal(out, kernel_out):
+                raise SystemExit(f"flash Function {label} {dtype}: {launched} "
+                                 f"launches, forward equal to the kernel's "
+                                 f"{torch.equal(out, kernel_out)}")
+            plain, *want = flash_grads(ref.flash_attention_ref, q, k, v,
+                                       dout, **kw)
+            tol = ATTN_TOL[dtype]
+
+            def excess(gs, ws):
+                return max(float(((g.float() - w.float()).abs()
+                                  - tol - tol * w.float().abs()).max())
+                           for g, w in zip(gs, ws))
+
+            # the forward: the kernel's output against the plain version's
+            # (and, in bf16, against the kernel's emulation)
+            out, plain = out.detach(), plain.detach()
+            fwd_err = float((out.float() - plain.float()).abs().max())
+            emu = "" if dtype != torch.bfloat16 else flash_emu_err(
+                out, ref.flash_attention_bf16_emulation(q, k, v, **kw))
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            # the control: dq, dk, dv of attention without the 1/sqrt(d)
+            _, *wrong = flash_grads(
+                lambda q_, k_, v_, **a: ref.flash_attention_ref(
+                    q_ * math.sqrt(d), k_, v_, **a), q, k, v, dout, **kw)
+            print(f"  flash Function {label:18s} {str(dtype)[6:]:8s} "
+                  f"[{b}, {s}, {h}, {kvh}, {d}] forward == kernel, forward "
+                  f"max_abs_err {fwd_err:.3e} vs plain"
+                  + (f", {emu:.3e} vs emulation beyond rounding"
+                     if emu != "" else "")
+                  + f"; grads max_abs_err {err:.3e} (tol {tol}), control "
+                  f"excess {excess(wrong, want):.3e} > 0", flush=True)
+            if excess([out], [plain]) > 0:
+                raise SystemExit(f"flash Function {label} {dtype}: forward "
+                                 f"off the plain version's by more than "
+                                 f"{tol} (max abs {fwd_err})")
+            if emu != "" and emu > FLASH_EMU_TOL:
+                raise SystemExit(f"flash Function {label}: forward off the "
+                                 f"kernel's emulation by {emu} (limit "
+                                 f"{FLASH_EMU_TOL})")
+            if excess(got, want) > 0:
+                raise SystemExit(f"flash Function {label} {dtype}: gradients "
+                                 f"off the plain version's (max abs {err})")
+            if not excess(wrong, want) > 0:
+                raise SystemExit(f"flash Function {label} {dtype}: the gate "
+                                 f"passed a backward without the softmax scale")
+            worst = max(worst, fwd_err)
+            if label.startswith("llama") and dtype == torch.bfloat16:
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                kernel_ms = graph_ms(
+                    lambda: flash_mod.flash_attention(q, k, v, **kw))
+                call_ms = eager_ms(lambda: ops.flash_attention(*leaves, **kw),
+                                   n=50)
+                o = ops.flash_attention(*leaves, **kw)
+                bwd = sum(event_pair_ms(lambda: torch.autograd.grad(
+                    o, leaves, dout, retain_graph=True))
+                    for _ in range(10)) / 10
+                print(f"  flash Function at the training shape: the "
+                      f"kernel {kernel_ms * 1e3:.2f} us (graph replay), the "
+                      f"forward call {call_ms:.4f} ms (eager, host "
+                      f"included), the backward {bwd:.4f} ms (the plain "
+                      f"version's VJP in float32, CUDA events)", flush=True)
+            del q, k, v, dout, out, got, plain, want, wrong, kernel_out
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst}
+
+
+def lm_train_golden_phase(dev) -> None:
+    """Phase 34: the training golden's LM runs replayed on the card."""
+    gold = load_npz(LM_TRAIN_GOLDEN)
+    for arch in (str(a) for a in gold["lm_archs"]):
+        out = lm_train_replay(dev, gold, arch)
+        print(f"  {arch:18s} loss/CE rel err {out['loss_err']:.3e}  grads "
+              f"{out['grad_err']:.3e} of the leaf max  params by the Adam "
+              f"rule, near-ties {out['ties']} of {out['params']} sampled",
+              flush=True)
+
+
+def fixed_batch_losses(cfg, state, batch) -> list:
+    """The loss of ``batch`` at each of FIXED_STEPS train steps on it with
+    a fresh ``adamw(FIXED_LR)``, then after the last: a batch the model
+    trains on must lose loss at every step."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (TrainState, make_loss_fn,
+                                         make_train_step)
+
+    opt = adamw(FIXED_LR)
+    state = TrainState(state.params, opt.init(state.params), state.step)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for _ in range(FIXED_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        losses.append(float(make_loss_fn(cfg)(state.params, batch)[0]))
+    del state
+    return losses
+
+
+def held_out_losses(cfg, args, out) -> tuple:
+    """The mean loss of HELD_OUT batches that the run did not train on
+    (the stream's next ones) at the run's initial params (drawn again from
+    ``--seed``, as ``launch.train`` draws them) and at its final params:
+    whether the run's loss moved beyond one batch's noise."""
+    from repro_torch.models.lm import model_for
+    from repro_torch.train.steps import make_loss_fn
+
+    batches = [out["next_batch"]() for _ in range(HELD_OUT)]
+    dev = out["state"].step.device
+    init = model_for(cfg).init(
+        torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+    loss_fn = make_loss_fn(cfg)
+    with torch.no_grad():
+        got = tuple(sum(float(loss_fn(p, b)[0]) for b in batches) / HELD_OUT
+                    for p in (init, out["state"].params))
+    del init, batches
+    return got
+
+
+def reduced_train_losses() -> list:
+    """``launch.train`` with REDUCED_TRAIN_ARGS: every step's loss."""
+    from repro_torch.launch import train as cli
+
+    out = cli.train(cli.parse_args(list(REDUCED_TRAIN_ARGS)),
+                    log=lambda line: print("  reduced " + line, flush=True))
+    return out["losses"]
+
+
+def lm_train_phase(dev) -> dict:
+    """Phase 35, path A: ``python -m repro_torch.launch.train`` with
+    TRAIN_ARGS in-process (Llama-3.2-1B at full width and depth, bf16,
+    remat, its four exits, AdamW under linear_warmup_cosine on
+    TokenStream): every loss finite; step ms (median after the first),
+    tokens/s, peak memory; flash launches (the wrapper's count over the
+    run, and by the profiler over one more step: one per layer forward
+    plus one per layer recomputed by remat); the step's parts; the loss
+    of held-out batches at the initial and final params; then
+    ``fixed_batch_losses`` from the trained params, falling at every
+    step; then the same CLI at the reduced width, whose last loss must
+    lie below its first. Returns the wrapper's launch counts of the
+    full-width run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+
+    args = cli.parse_args(list(TRAIN_ARGS))
+    cfg = get_arch(args.arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.train(args, log=lambda line: print("  " + line, flush=True))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"path A losses {losses}: not finite")
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    if counts["flash_attention"] != per_step * args.steps:
+        raise SystemExit(f"path A: {counts['flash_attention']} flash "
+                         f"launches, expected {per_step} a step")
+    step_ms = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2] * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy = {}
+    batch = out["next_batch"]()
+    _, prof, _ = profiled_call(
+        lambda: out["step_fn"](out["state"], batch), ("flash_attention",),
+        busy=busy)
+    top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    split = train_step_split(cfg, out["state"], batch)
+    print(f"  {args.arch} B={args.batch} S={args.seq} steps {args.steps}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.2f} ms "
+          f"(median after the first; first {out['step_s'][0] * 1e3:.1f} "
+          f"ms), {args.batch * args.seq / step_ms * 1e3:.0f} tokens/s, "
+          f"peak memory {peak_gb:.2f} GB, wall {wall:.2f} s (init "
+          f"included)", flush=True)
+    print(f"  flash launches: {counts['flash_attention']} in the run "
+          f"({per_step} a step); one more step by the profiler: "
+          f"{prof['flash_attention']} flash kernels of {busy['kernels']} "
+          f"CUDA kernels and copies, device {busy['device_ms']:.2f} of "
+          f"{busy['wall_ms']:.2f} ms (busy share "
+          f"{busy['device_ms'] / busy['wall_ms']:.1%}); top kernels "
+          + "; ".join(f"{n[:48]} {ms:.2f} ms" for n, ms in top), flush=True)
+    print(f"  the step apart (median of 3, host ms to a synchronize): "
+          f"forward {split['forward']:.2f}, backward {split['backward']:.2f} "
+          f"(remat and CE recomputed), AdamW {split['optimizer']:.2f}",
+          flush=True)
+    if prof["flash_attention"] != per_step:
+        raise SystemExit(f"path A: the profiler saw {prof['flash_attention']}"
+                         f" flash kernels in a step, expected {per_step}")
+    before, after = held_out_losses(cfg, args, out)
+    print(f"  {HELD_OUT} held-out batches: mean loss {before:.6f} at the "
+          f"initial params, {after:.6f} after the run ({after - before:+.6f})",
+          flush=True)
+    fixed = fixed_batch_losses(cfg, out["state"], out["next_batch"]())
+    print(f"  {FIXED_STEPS} AdamW steps (lr {FIXED_LR}) on one batch from "
+          f"the trained params: loss {' -> '.join(f'{x:.4f}' for x in fixed)}",
+          flush=True)
+    if not all(math.isfinite(x) for x in fixed) or not all(
+            b < a for a, b in zip(fixed, fixed[1:])):
+        raise SystemExit(f"path A: the loss of a batch trained on did not "
+                         f"fall at every step: {fixed}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced = reduced_train_losses()
+    print(f"  reduced width, {len(reduced)} steps: loss {reduced[0]:.4f} -> "
+          f"{reduced[-1]:.4f}", flush=True)
+    if not all(math.isfinite(x) for x in reduced) \
+            or not reduced[-1] < reduced[0]:
+        raise SystemExit(f"path A at the reduced width: the last loss "
+                         f"{reduced[-1]} is not below the first {reduced[0]}")
+    return counts
+
+
+def _vgg_example():
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch_vgg_offloading.py")
+    spec = importlib.util.spec_from_file_location("torch_vgg_offloading",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def vgg_path_phase(dev) -> dict:
+    """Phase 36, path B: the VGG golden replay (convolutions without
+    TF32); then examples/torch_vgg_offloading.py's three stages in-process
+    at VGG-16's full width: two-stage training (VGG_STEPS + VGG_STEPS
+    steps, batch 64; steps/s), ``profile_exits`` on the card (five rows:
+    accuracy, measured and roofline ms), and GRLE over VGG_SLOTS slots on
+    the measured profile in the example's scan mode, with the profiler's
+    gcn_agg/edge_score kernels (4 and 1 per decision and per train step,
+    warm-up included) and one graph launch a slot. Returns the profiler's
+    launches."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out = vgg_train_replay(dev, load_npz(LM_TRAIN_GOLDEN))
+    print(f"  VGG golden: loss rel err {out['loss_err']:.3e}, params by the "
+          f"Adam rule, near-ties {out['ties']} of {out['params']} sampled "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    ex = _vgg_example()
+    args = ex.parse_args(["--slots", str(VGG_SLOTS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = ex.train_stage(args, steps=VGG_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = hist["main_loss"] + hist["exit_loss"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit("path B: a VGG loss is not finite")
+    print(f"  VGG-16 width {args.width_mult} batch {args.batch}: "
+          f"{2 * VGG_STEPS} steps in {train_s:.2f} s, "
+          f"{2 * VGG_STEPS / train_s:.1f} steps/s; main loss "
+          f"{hist['main_loss'][0]:.3f} -> {hist['main_loss'][-1]:.3f}, exit "
+          f"loss {hist['exit_loss'][0]:.3f} -> {hist['exit_loss'][-1]:.3f}",
+          flush=True)
+    rows = ex.profile_stage(params, args)
+    if len(rows) != 5 or not all(r["ms"] > 0 and 0 <= r["accuracy"] <= 1
+                                 for r in rows):
+        raise SystemExit(f"path B: profile rows {rows}")
+    for r in rows:
+        print(f"  exit {r['exit']:2d}: acc {r['accuracy']:.4f}  measured "
+              f"{r['ms']:.4f} ms  roofline {r['roofline_ms']:.4f} ms  "
+              f"{r['gflops']:.4f} GFLOPs", flush=True)
+    print(json.dumps({"vgg_profile": rows}))
+    ops.reset_launch_counts()
+    busy = {}
+    (drv, carry, _), prof, graphs = profiled_call(
+        lambda: ex.offload_stage(rows, args), busy=busy)
+    wrappers = ops.launch_counts()
+    m = drv.metrics(carry)
+    # the scan episode: one eager warm-up slot of each kind before the
+    # capture (the training kind with its train step), then one graph
+    # launch a slot; the wrappers count the warm-up and the capture
+    warm = drv.graphs_captured + (m["train_steps"] > 0)
+    decisions = VGG_SLOTS + int(m["train_steps"])
+    print(f"  GRLE {VGG_SLOTS} slots (scan) on the measured profile: ssp "
+          f"{m['ssp']:.6f} avg_accuracy {m['avg_accuracy']:.6f} train steps "
+          f"{int(m['train_steps'])}; profiler gcn_agg {prof['gcn_agg']} "
+          f"edge_score {prof['edge_score']} ({warm} warm-up actor forwards "
+          f"included), {graphs} graph launches, wrapper calls {wrappers}, "
+          f"busy share {busy['device_ms'] / busy['wall_ms']:.1%} (capture "
+          f"included)", flush=True)
+    if (prof["gcn_agg"] != 4 * (decisions + warm)
+            or prof["edge_score"] != decisions + warm
+            or graphs != VGG_SLOTS or drv.graphs_captured != 2
+            or wrappers["gcn_agg"] == 0 or wrappers["edge_score"] == 0
+            or not 0.0 < m["ssp"] <= 1.0):
+        raise SystemExit(f"path B: GRLE launches {prof}, {graphs} graph "
+                         f"launches and {drv.graphs_captured} graphs for "
+                         f"{decisions} actor forwards and {warm} warm-up "
+                         f"ones, wrapper calls {wrappers}, ssp {m['ssp']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3915,7 +4546,31 @@ def main() -> int:
     zoo_serve = zoo_serve_phase(dev)
     print(f"phase 31 wall {time.perf_counter() - t0:.2f} s")
 
-    phase(32, "summary")
+    phase(33, "the flash Function: the kernel forward, the plain version's "
+              "backward")
+    t0 = time.perf_counter()
+    flash_fn = flash_function_phase(dev)
+    print(f"phase 33 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(34, "training golden replay of JAX runs (reduced Llama, "
+              "DeepSeek-MoE, Whisper, f32)")
+    t0 = time.perf_counter()
+    lm_train_golden_phase(dev)
+    print(f"phase 34 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(35, "path A: LM training, Llama-3.2-1B at full width, bf16 "
+              "(repro_torch.launch.train)")
+    t0 = time.perf_counter()
+    train_counts = lm_train_phase(dev)
+    print(f"phase 35 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(36, "path B: the paper's multi-exit VGG-16, trained, profiled on "
+              "the card, GRLE on its profile")
+    t0 = time.perf_counter()
+    vgg_counts = vgg_path_phase(dev)
+    print(f"phase 36 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(37, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -3927,13 +4582,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[name] + zoo_serve[name],
+            "launches": counts[name] + zoo_serve[name] + vgg_counts[name],
             "max_abs_err": max(grad_err, *(v["err"]
                                            for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+    attn["flash_attention"]["max_abs_err"] = max(
+        attn["flash_attention"]["max_abs_err"], flash_fn["max_abs_err"])
     launches = {"flash_attention": flash_launches
-                + zoo_totals["flash_attention"],
+                + zoo_totals["flash_attention"]
+                + train_counts["flash_attention"],
                 "decode_attention": decode_launches
                 + zoo_totals["decode_attention"]
                 + zoo_serve["decode_attention"]}
@@ -3962,7 +4620,10 @@ def main() -> int:
           f"{SSM_PREFILL[5]} bf16, plain timed eagerly, launches of one RWKV "
           "prefill (its decode launches none); each kernel's launches add "
           "those of phase 30's prefills and decodes of the zoo and of phase "
-          "31's serving path (gcn_agg and edge_score: phase 31's only); the "
+          "31's serving path (gcn_agg and edge_score: phase 31's only), "
+          "flash_attention those of phase 35's training run, gcn_agg and "
+          "edge_score those of phase 36's GRLE run (by the profiler); "
+          "flash_attention's error also covers phase 33's forwards at the training shapes; the "
           "zoo's new shapes timed in phase 28:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ checkpoint with ``repro_torch.train.checkpoint``, so this module needs
 neither JAX nor anything of ``repro``. Names, shapes and dtypes are
 checked against the port's layout (``core.gcn.param_shapes`` for the GCN
 actor, ``MLPActor.param_shapes`` for DROO's MLP, ``param_shapes`` of
-``model_for(cfg)`` for an LM, the reference's ``AgentState`` and ``DeviceReplay``
-fields for an agent state, with a leading [P] in a population) and any
-mismatch raises.
+``model_for(cfg)`` for an LM and its AdamW moments,
+``VGG16EE.param_shapes`` for the multi-exit VGG-16, the reference's
+``AgentState`` and ``DeviceReplay`` fields for an agent state, with a
+leading [P] in a population) and any mismatch raises.
 """
 from __future__ import annotations
 
@@ -246,33 +247,83 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
     ``router/w``; a bfloat16 leaf is ml_dtypes' ``bfloat16``, as
     ``np.asarray`` gives it for a JAX array)."""
     device = resolve_device(device)
-    model = model_for(cfg)
-    want = flatten_dict(model.param_shapes(cfg))
-    dtypes = {path: str(dt).replace("torch.", "") for path, dt
-              in flatten_dict(model.param_dtypes(cfg)).items()}
     got = flatten_dict(tree)
-    if set(got) != set(want):
-        raise ValueError(f"param leaves differ: missing "
-                         f"{sorted(set(want) - set(got))}, unexpected "
-                         f"{sorted(set(got) - set(want))}")
-    out = {}
-    for path, shape in want.items():
-        x = got[path]
+    for path, x in got.items():
         if not isinstance(x, np.ndarray):
             raise TypeError(f"{path}: expected a numpy array, got "
                             f"{type(x).__name__}")
-        if x.dtype.name != dtypes[path]:
-            raise TypeError(f"{path}: dtype {x.dtype.name}, expected "
-                            f"{dtypes[path]}")
-        if x.shape != shape:
-            raise ValueError(f"{path}: shape {x.shape}, expected {shape}")
-        if dtypes[path] == "bfloat16":
+    check_lm_leaves({k: (x.dtype.name, x.shape) for k, x in got.items()},
+                    cfg)
+    out = {}
+    for path, x in got.items():
+        if x.dtype.name == "bfloat16":
             t = torch.from_numpy(np.array(x).view(np.uint16))
             t = t.view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(x))
         out[path] = t.to(device)
     return unflatten_dict(out)
+
+
+def check_lm_leaves(leaves: dict, cfg: ArchConfig) -> None:
+    """``leaves`` ``{path: (dtype name, shape)}`` of a flat LM param tree
+    against ``param_shapes(cfg)`` and ``param_dtypes(cfg)`` of
+    ``model_for(cfg)``: the same paths, and each leaf's dtype and shape;
+    raises on the first mismatch."""
+    model = model_for(cfg)
+    want = flatten_dict(model.param_shapes(cfg))
+    dtypes = {path: str(dt).replace("torch.", "") for path, dt
+              in flatten_dict(model.param_dtypes(cfg)).items()}
+    if set(leaves) != set(want):
+        raise ValueError(f"param leaves differ: missing "
+                         f"{sorted(set(want) - set(leaves))}, unexpected "
+                         f"{sorted(set(leaves) - set(want))}")
+    for path, shape in want.items():
+        dtype, got = leaves[path]
+        if dtype != dtypes[path]:
+            raise TypeError(f"{path}: dtype {dtype}, expected "
+                            f"{dtypes[path]}")
+        if tuple(got) != shape:
+            raise ValueError(f"{path}: shape {tuple(got)}, expected {shape}")
+
+
+def train_state_from_numpy(state, cfg: ArchConfig, device=None):
+    """The reference's LM ``TrainState`` (a NamedTuple or mapping of
+    ``params``, ``opt_state``, ``step``, numpy leaves; ``opt_state`` Adam's
+    or AdamW's ``{"step", "mu", "nu"}``) -> the port's
+    ``repro_torch.train.TrainState`` on ``device``. The params and both
+    moments are checked as ``lm_params_from_numpy`` checks params (the
+    moments have the params' dtypes); both steps are 0-d int32."""
+    from repro_torch.train.steps import TrainState
+
+    device = resolve_device(device)
+    st = _fields(state, TrainState._fields, "TrainState")
+    opt = _fields(st["opt_state"], ("step", "mu", "nu"), "opt_state")
+    _array("step", st["step"], np.int32, ())
+    _array("opt_state/step", opt["step"], np.int32, ())
+
+    def step(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    return TrainState(
+        params=lm_params_from_numpy(st["params"], cfg, device),
+        opt_state={"step": step(opt["step"]),
+                   "mu": lm_params_from_numpy(opt["mu"], cfg, device),
+                   "nu": lm_params_from_numpy(opt["nu"], cfg, device)},
+        step=step(st["step"]))
+
+
+def vgg_params_from_numpy(tree: dict, device=None, *,
+                          width_mult: float = 1.0,
+                          n_classes: int = 10) -> dict:
+    """A numpy ``VGG16EE`` param tree (the reference's ``VGG16EE.init`` at
+    ``width_mult``, float32) -> the port's on ``device`` (the card unless
+    ``"cpu"``); names, dtypes and shapes checked against
+    ``VGG16EE.param_shapes``."""
+    from repro_torch.vgg.model import VGG16EE
+
+    want = VGG16EE.param_shapes(n_classes=n_classes, width_mult=width_mult)
+    return _tree_from_numpy(tree, want, resolve_device(device), "")
 
 
 def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
@@ -304,6 +355,32 @@ def lm_params_numpy(cfg: ArchConfig, seed: int) -> dict:
             x = rng.standard_normal(shape) / math.sqrt(shape[-2])
         elif leaf == "conv_w":
             x = 0.5 * rng.standard_normal(shape)
+        else:
+            x = 0.02 * rng.standard_normal(shape)
+        flat[path] = x.astype(np.float32)
+    return unflatten_dict(flat)
+
+
+def vgg_params_numpy(width_mult: float, seed: int, *,
+                     n_classes: int = 10) -> dict:
+    """Random float32 ``VGG16EE`` params drawn with numpy from ``seed``,
+    leaf by leaf in ``VGG16EE.param_shapes`` order: conv kernels
+    He-normal (std sqrt(2 / fan_in)), classifiers Xavier-uniform, biases
+    N(0, 0.02) (nonzero, so that a test sees them). Both frameworks can
+    rebuild them from the seed alone (``tools/make_torch_train_golden.py``,
+    ``chip_smoke.py``)."""
+    from repro_torch.vgg.model import VGG16EE
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    shapes = VGG16EE.param_shapes(n_classes=n_classes, width_mult=width_mult)
+    for path, shape in flatten_dict(shapes).items():
+        if len(shape) == 4:
+            x = rng.standard_normal(shape) * math.sqrt(
+                2.0 / (shape[0] * shape[1] * shape[2]))
+        elif len(shape) == 2:
+            limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+            x = rng.uniform(-limit, limit, size=shape)
         else:
             x = 0.02 * rng.standard_normal(shape)
         flat[path] = x.astype(np.float32)

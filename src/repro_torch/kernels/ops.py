@@ -14,8 +14,17 @@ grad they run as ``torch.autograd.Function``s whose forward is the kernel
 rule in plain PyTorch (``ref.gcn_agg_bwd``, ``ref.edge_score_bwd``; the
 JAX package's VJPs are jnp too, ``repro/kernels/ops.py:85-105,
 141-171``). Otherwise they call the kernel directly and build no graph.
-The TPU attention and scan kernels have no backward: an input of theirs
-that requires grad raises, so a missing gradient cannot go unnoticed.
+``flash_attention`` is differentiable too, because the LM training step
+differentiates through it: on the card, with grad enabled and an input
+that requires grad, it runs as ``_FlashAttention``, whose forward is the
+kernel (the same launch, bit for bit) and whose backward recomputes the
+plain version ``ref.flash_attention_ref`` in float32 and returns its VJP
+in the inputs' dtype. The JAX package has no backward kernel for
+attention either (its training differentiates jnp ``sdpa``; its Pallas
+flash has no VJP). On the CPU autograd runs straight through the plain
+version. ``decode_attention`` and ``ssm_scan`` have no backward: an input
+of theirs that requires grad raises, so a missing gradient cannot go
+unnoticed.
 
 While a cost counter (``obs.cost``) is active, each call is counted as one
 operation whose FLOPs come from its formula in ``kernels/cost.py``, and
@@ -122,6 +131,31 @@ class _EdgeScore(torch.autograd.Function):
                                    needs=ctx.needs_input_grad)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: autograd of
+    ``ref.flash_attention_ref`` over float32 copies of the saved inputs,
+    cast back to their dtypes (the plain version's probabilities are
+    recomputed, [B, KVH, g, S, S] float32 per call)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            out = _ref.flash_attention_ref(qf, kf, vf, causal=ctx.causal,
+                                           window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (qf, kf, vf),
+                                             dout.float())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 @_counted
 def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     """Eq-12 message passing: relu(self @ w_self + agg @ w_nbr + bias).
@@ -151,8 +185,9 @@ def edge_score(h_src, h_dst, edge_feat, w_src, b_src, w_dst, w_feat, w_out,
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] -> [B,S,H,d],
     keys j <= i (``causal``; all keys without it) with i - j <
-    ``window``."""
-    _forward_only("flash_attention", q, k, v)
+    ``window``. Differentiable in q, k and v."""
+    if _wants_grad((q, k, v)) and q.device.type == "cuda":
+        return _FlashAttention.apply(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 

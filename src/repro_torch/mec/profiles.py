@@ -1,11 +1,13 @@
-"""Early-exit accuracy/latency profiles: the paper's Table I and an
-analytic one for decoder LMs.
+"""Early-exit accuracy/latency profiles: the paper's Table I and analytic
+ones for VGG-16 and decoder LMs.
 
-Counterpart of ``repro/mec/profiles.py``. ``llm_exit_profile`` models the
-serving replica by its roofline figures, keyword arguments whose defaults
-are the NVIDIA H100 SXM's published ones (dense bf16 FLOP/s, HBM bytes/s),
-so with default arguments the exit table is this card's. The VGG-16
-roofline profile of the reference is not ported.
+Counterpart of ``repro/mec/profiles.py``. ``exit_profile_roofline`` (the
+reference's ``exit_profile_tpu_v5e``, renamed) and ``llm_exit_profile``
+model the edge server by its roofline figures, keyword arguments
+``peak_flops``/``hbm_bw`` whose defaults are the NVIDIA H100 SXM's
+published ones (dense bf16 FLOP/s, HBM bytes/s), so with default
+arguments the exit table is this card's; pass another accelerator's
+figures to model it.
 """
 from __future__ import annotations
 
@@ -37,6 +39,27 @@ H100_PEAK_BF16_FLOPS = 989e12
 H100_HBM_BW = 3.35e12
 # fixed per-step overhead of a decode step, seconds (the reference's)
 STEP_OVERHEAD_S = 50e-6
+
+# VGG-16 (CIFAR-10, 32x32 input) cumulative GFLOPs up to each of the five
+# candidate exits (conv MACs*2 + classifier), batch 1.
+_VGG16_CUM_GFLOPS = np.array([0.0049, 0.0769, 0.1147, 0.2314, 0.6280])
+_VGG16_CUM_MBYTES = np.array([0.35, 1.6, 2.4, 5.1, 30.0])  # weights+acts touched
+
+
+def exit_profile_roofline(derate: float = 0.15, *,
+                          peak_flops: float = H100_PEAK_BF16_FLOPS,
+                          hbm_bw: float = H100_HBM_BW):
+    """Roofline latency of each VGG-16 candidate exit on one accelerator of
+    ``peak_flops`` FLOP/s and ``hbm_bw`` bytes/s.
+
+    ``derate`` models the achievable fraction of peak for small conv
+    batches. Latency = max(compute term, memory term) + the fixed
+    ``STEP_OVERHEAD_S``. Returns (times_s [1, 5], accuracy [5]: Table I's).
+    """
+    t_comp = _VGG16_CUM_GFLOPS * 1e9 / (peak_flops * derate)
+    t_mem = _VGG16_CUM_MBYTES * 1e6 / hbm_bw
+    times = np.maximum(t_comp, t_mem) + STEP_OVERHEAD_S
+    return times[None, :], VGG16_TABLE_I["accuracy"].copy()
 
 
 def llm_exit_profile(n_layers: int, d_model: int, d_ff: int, vocab: int,

@@ -14,7 +14,12 @@ applied every ``shared_attn_every`` layers) keeps one KV cache per
 application (``cache["shared"]``, stacked). ``EncDecLM`` runs Whisper: an
 encoder over precomputed frame embeddings, then the decoder with
 cross-attention to its output, which the serving cache carries as
-``enc_out``.
+``enc_out``. ``forward_train`` returns the normed hidden state at every
+exit for the training loss; with ``cfg.remat`` and grad enabled each
+layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of the reference's ``jax.checkpoint`` around its scan body:
+the backward recomputes the layer's forward (its attention kernel
+launches again).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (BLOCK_BY_KIND, ZERO_AUX, AttnBlock,
@@ -154,6 +160,19 @@ def _as_aux(aux: BlockAux, device) -> BlockAux:
                       for a in aux))
 
 
+def _train_layer(apply_dense, layer_params, cfg: ArchConfig, x, *extra):
+    """One layer's dense pass for training -> (x, aux); under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and grad is enabled."""
+
+    def run(h):
+        h, _, aux = apply_dense(layer_params, cfg, h, *extra)
+        return h, aux
+
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(run, x, use_reentrant=False)
+    return run(x)
+
+
 def _write_back(old, new) -> None:
     """Copy a block's returned cache fields into its layer's slice where
     the block returned new tensors (the in-place ones are the slice)."""
@@ -223,6 +242,39 @@ class DecoderLM:
     @staticmethod
     def logits(params, hidden):
         return Linear.apply(params["lm_head"], hidden)
+
+    # ------------------------------------------------------------- training
+    @staticmethod
+    def forward_train(params, cfg: ArchConfig, tokens):
+        """tokens [B, S] -> ({exit_layer: normed hidden [B,S,D]}, aux).
+
+        The ``build_plan`` events in order: the layers (each checkpointed
+        under ``cfg.remat``), Zamba2's shared block, and at each exit the
+        hidden through that exit's norm (the final norm at the last
+        layer, which is always present). Hidden states, not logits: the
+        loss computes chunked CE against the shared LM head. ``aux`` sums
+        the MoE's load-balance loss and dropped fraction over the layers
+        and the shared block's applications, as float32 tensors.
+        """
+        block = BLOCK_BY_KIND[block_kind(cfg)]
+        x = Embedding.apply(params["embed"], tokens)
+        aux, hiddens = ZERO_AUX, {}
+        for ev in build_plan(cfg):
+            if ev[0] == "layers":
+                for i in range(ev[1], ev[2]):
+                    x, a = _train_layer(block.apply_dense,
+                                        _layer(params["blocks"], i), cfg, x)
+                    aux = add_aux(aux, a)
+            elif ev[0] == "shared":
+                x, _, a = AttnBlock.apply_dense(params["shared_block"], cfg,
+                                                x)
+                aux = add_aux(aux, a)
+            else:
+                hiddens[ev[1]] = DecoderLM._head(params, cfg, x, ev[1])
+        if cfg.n_layers not in hiddens:
+            hiddens[cfg.n_layers] = RMSNorm.apply(params["final_norm"], x,
+                                                  eps=cfg.norm_eps)
+        return hiddens, _as_aux(aux, x.device)
 
     # ----------------------------------------------------------------- cache
     @staticmethod
@@ -341,16 +393,22 @@ class EncDecLM:
 
     @staticmethod
     def encode(params, cfg: ArchConfig, audio_embeds):
-        """audio_embeds [B, frames, d] -> the encoder's normed output."""
+        """audio_embeds [B, frames, d] -> the encoder's normed output (each
+        layer checkpointed under ``cfg.remat`` with grad enabled)."""
+
+        def layer(p, cfg, h):
+            return EncoderBlock.apply(p, cfg, h), None, ZERO_AUX
+
         x = audio_embeds
         for i in range(cfg.enc_layers):
-            x = EncoderBlock.apply(_layer(params["encoder"], i), cfg, x)
+            x, _ = _train_layer(layer, _layer(params["encoder"], i), cfg, x)
         return RMSNorm.apply(params["enc_norm"], x, eps=cfg.norm_eps)
 
     @staticmethod
     def _decode_dense(dparams, cfg: ArchConfig, tokens, enc_out):
         """tokens [B, S] against enc_out -> ({exit layer: normed hidden
-        [B,S,d]}, aux) at every exit (and the last layer)."""
+        [B,S,d]}, aux) at every exit (and the last layer); each layer
+        checkpointed under ``cfg.remat`` with grad enabled."""
         x = Embedding.apply(dparams["embed"], tokens)
         aux, hiddens, last = ZERO_AUX, {}, 0
         exits = list(cfg.exit_layers)
@@ -358,8 +416,9 @@ class EncDecLM:
             exits.append(cfg.n_layers)
         for e in exits:
             for i in range(last, e):
-                x, _, a = EncDecBlock.apply_dense(
-                    _layer(dparams["blocks"], i), cfg, x, enc_out)
+                x, a = _train_layer(EncDecBlock.apply_dense,
+                                    _layer(dparams["blocks"], i), cfg, x,
+                                    enc_out)
                 aux = add_aux(aux, a)
             last = e
             hiddens[e] = DecoderLM._head(dparams, cfg, x, e)
@@ -367,6 +426,9 @@ class EncDecLM:
 
     @staticmethod
     def forward_train(params, cfg: ArchConfig, audio_embeds, tokens):
+        """audio_embeds [B, frames, d], tokens [B, S] -> ({exit layer:
+        normed hidden}, aux): the encoder, then the decoder's dense pass
+        against its output."""
         enc_out = EncDecLM.encode(params, cfg, audio_embeds)
         return EncDecLM._decode_dense(params["decoder"], cfg, tokens, enc_out)
 

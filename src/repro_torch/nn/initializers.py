@@ -1,8 +1,9 @@
 """Weight initializers drawing from an explicit ``torch.Generator``.
 
 Counterpart of ``repro/nn/initializers.py`` (``normal_init``,
-``xavier_uniform``, ``zeros_init``, ``ones_init``). Same distributions as
-the reference, not its bits.
+``truncated_normal_init``, ``xavier_uniform``, ``he_normal``,
+``zeros_init``, ``ones_init``). Same distributions as the reference, not
+its bits.
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ def normal_init(generator: torch.Generator, shape, *, device,
     return (x * scale).to(dtype)
 
 
+def truncated_normal_init(generator: torch.Generator, shape, *, device,
+                          scale: float = 0.02, dtype=torch.float32):
+    """N(0, 1) truncated to [-2, 2], rescaled to unit variance, times
+    ``scale``."""
+    x = torch.empty(shape, device=device, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (x * (scale / 0.87962566)).to(dtype)
+
+
 def xavier_uniform(generator: torch.Generator, shape, *, device,
                    dtype=torch.float32):
     fan_in, fan_out = _fans(shape)
@@ -25,6 +35,16 @@ def xavier_uniform(generator: torch.Generator, shape, *, device,
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
     return (u * (2.0 * limit) - limit).to(dtype)
+
+
+def he_normal(generator: torch.Generator, shape, *, device,
+              dtype=torch.float32):
+    """N(0, 2 / fan_in): dense [in, out] and conv [h, w, cin, cout]
+    kernels."""
+    fan_in, _ = _fans(shape)
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * math.sqrt(2.0 / fan_in)).to(dtype)
 
 
 def zeros_init(generator, shape, *, device, dtype=torch.float32):

@@ -1,8 +1,9 @@
 """Nested dicts of tensors (counterpart of ``repro/nn/pytree.py``).
 
-Only what the training slice uses: a flat ``{path: leaf}`` view of a
-param tree and back (checkpoint paths), and zeros shaped like a tree
-(Adam's moments).
+A flat ``{path: leaf}`` view of a param tree and back (checkpoint paths),
+zeros shaped like a tree (the optimizers' moments), and the reference's
+size, bytes, cast, path-map and global-norm helpers. A leaf is a tensor;
+``tree_map_with_path`` also walks lists and tuples, as the reference's.
 """
 from __future__ import annotations
 
@@ -37,3 +38,48 @@ def tree_zeros_like(tree: dict) -> dict:
     """Zeros of each leaf's shape, dtype and device, in the same tree."""
     return {k: tree_zeros_like(v) if isinstance(v, dict)
             else torch.zeros_like(v) for k, v in tree.items()}
+
+
+def _leaves(tree) -> list:
+    return list(flatten_dict(tree).values()) if isinstance(tree, dict) \
+        else [tree]
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar parameters."""
+    return sum(x.numel() for x in _leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def tree_map_with_path(fn, tree):
+    """Map ``fn(path_str, leaf) -> leaf`` over a nested dict (lists and
+    tuples indexed by position), paths joined with "/"."""
+
+    def rec(prefix, node):
+        if isinstance(node, dict):
+            return {k: rec(f"{prefix}/{k}" if prefix else k, v)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(f"{prefix}/{i}", v)
+                              for i, v in enumerate(node))
+        return fn(prefix, node)
+
+    return rec("", tree)
+
+
+def tree_cast(tree, dtype):
+    """Floating leaves cast to ``dtype``; the others kept."""
+    return tree_map_with_path(
+        lambda _, x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32."""
+    leaves = _leaves(tree)
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in leaves))

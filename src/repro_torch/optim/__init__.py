@@ -1,5 +1,12 @@
-"""Optimizers (PyTorch port): Adam, as the GRLE actor trains."""
-from repro_torch.optim.optimizers import (Optimizer, adam, apply_updates,
-                                          scale_updates)
+"""Optimizers (PyTorch port): Adam, AdamW, SGD, gradient clipping and
+learning-rate schedules."""
+from repro_torch.optim.optimizers import (Optimizer, adam, adamw,
+                                          apply_updates, chain_clip,
+                                          clip_by_global_norm, scale_updates,
+                                          sgd)
+from repro_torch.optim.schedules import (constant, cosine_decay,
+                                         linear_warmup_cosine)
 
-__all__ = ["Optimizer", "adam", "apply_updates", "scale_updates"]
+__all__ = ["Optimizer", "adam", "adamw", "apply_updates", "chain_clip",
+           "clip_by_global_norm", "constant", "cosine_decay",
+           "linear_warmup_cosine", "scale_updates", "sgd"]

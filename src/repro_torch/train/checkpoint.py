@@ -7,6 +7,11 @@ zlib- or zstd-compressed msgpack of a flat map ``{path: {"dtype": str,
 field order: params, opt_state, replay, key, step, exit_mask, last_loss,
 loss_sum, loss_count), the data C-ordered raw bytes.
 
+An LM's params keep their dtypes: a bfloat16 leaf is written as the
+reference writes one (dtype ``"bfloat16"``, the raw 16-bit words), and
+``restore_lm_params`` reads such a file straight into tensors, with no
+``ml_dtypes``.
+
 The msgpack subset is encoded and decoded in pure Python
 (``train/_msgpack.py``), since the GPU machine has no ``msgpack``. Files
 are written with zlib; a zstd file (the reference writes zstd where
@@ -22,8 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.bridge import (REPLAY_FIELDS, STATE_FIELDS,
-                                     agent_state_from_numpy)
+                                     agent_state_from_numpy,
+                                     check_lm_leaves)
 from repro_torch.core.policy import AgentDef, AgentState
+from repro_torch.device import resolve_device
 from repro_torch.nn.pytree import unflatten_dict
 from repro_torch.train._msgpack import packb, unpackb
 
@@ -48,6 +55,12 @@ def _encode_tree(tree) -> dict:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 rec(f"{prefix}/__seq{i}", v)
+        elif (isinstance(node, torch.Tensor)
+              and node.dtype == torch.bfloat16):
+            words = node.detach().cpu().contiguous().view(torch.int16)
+            flat[prefix] = {"dtype": "bfloat16",
+                            "shape": list(node.shape),
+                            "data": words.numpy().tobytes()}
         else:
             arr = _numpy(node)
             flat[prefix] = {"dtype": str(arr.dtype), "shape": list(arr.shape),
@@ -87,6 +100,23 @@ def restore_checkpoint(path: str) -> dict:
     flat = unpackb(read_payload(path))
     return {k: np.frombuffer(v["data"], dtype=v["dtype"])
             .reshape(v["shape"]).copy() for k, v in flat.items()}
+
+
+def restore_lm_params(path: str, cfg, device=None) -> dict:
+    """The reference's ``save_checkpoint(path, params)`` of an LM (or the
+    port's) -> the port's param dict on ``device`` (the card unless
+    ``"cpu"``), every leaf's path, dtype and shape checked against
+    ``model_for(cfg)`` (``core.bridge.check_lm_leaves``)."""
+    device = resolve_device(device)
+    flat = unpackb(read_payload(path))
+    check_lm_leaves({k: (v["dtype"], v["shape"]) for k, v in flat.items()},
+                    cfg)
+    out = {}
+    for k, v in flat.items():
+        dtype = getattr(torch, v["dtype"])
+        x = torch.frombuffer(bytearray(v["data"]), dtype=dtype)
+        out[k] = x.reshape(v["shape"]).to(device)
+    return unflatten_dict(out)
 
 
 def _reference_tree(state: AgentState):

@@ -816,3 +816,105 @@ def test_rwkv_launch_counts(cuda):
         assert sum(ops.launch_counts().values()) == 0
         assert bool(torch.isfinite(lg).all())
         assert c["layers"].wkv[:e].any() and not c["layers"].wkv[e:].any()
+
+
+# ------------------------------------------------------------- training
+FLASH_FN_SHAPES = [(2, 64, 4, 2, 64, True, None),
+                   (2, 96, 4, 4, 32, True, 24),
+                   (1, 80, 4, 4, 64, False, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,win", FLASH_FN_SHAPES)
+def test_flash_function_is_the_kernel_with_the_plain_backward(
+        cuda, dtype, b, s, h, kvh, d, causal, win):
+    """``ops.flash_attention`` on inputs that require grad: one kernel
+    launch, its output the kernel's bit for bit, and q/k/v gradients
+    within ATTN_TOL of autograd through the plain version; a backward
+    without the softmax scale falls outside that tolerance."""
+    q = normal(cuda, dtype, b, s, h, d, seed=1)
+    k = normal(cuda, dtype, b, s, kvh, d, seed=2)
+    v = normal(cuda, dtype, b, s, kvh, d, seed=3)
+    dout = normal(cuda, dtype, b, s, h, d, seed=4)
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, causal=causal, window=win)
+        return out, torch.autograd.grad(out, leaves, dout)
+
+    before = flash_mod.launches
+    out, got = grads(ops.flash_attention)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    assert torch.equal(out, flash_mod.flash_attention(q, k, v, causal=causal,
+                                                      window=win))
+    _, want = grads(ref.flash_attention_ref)
+    _, wrong = grads(lambda q_, k_, v_, **kw: ref.flash_attention_ref(
+        q_ * d ** 0.5, k_, v_, **kw))
+    tol = ATTN_TOL[dtype]
+    for g, w, x in zip(got, want, wrong):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol)
+    assert any(not np.allclose(x.float().cpu().numpy(),
+                               w.float().cpu().numpy(), **tol)
+               for x, w in zip(wrong, want))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_lm_train_step_launches_and_matches_the_cpu(cuda, remat):
+    """A reduced Llama train step (f32, exits (1, 2)) on the card: one
+    flash launch per layer, two under remat (the recomputed forward), and
+    the same loss and params as the CPU's plain route."""
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_state, make_train_step
+
+    cfg = get_arch("llama3_2_1b").reduced(exit_layers=(1, 2), remat=remat)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 33))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = lm_params_from_numpy(lm_params_numpy(cfg, 0), cfg, dev)
+        state, opt = make_train_state(cfg, None, adamw(1e-5), params=params)
+        batch = {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                 "labels": torch.tensor(toks[:, 1:], device=dev)}
+        before = flash_mod.launches
+        state, metrics = make_train_step(cfg, opt)(state, batch)
+        torch.cuda.synchronize()
+        out[dev.type] = (state, metrics, flash_mod.launches - before)
+    assert out["cpu"][2] == 0
+    assert out["cuda"][2] == cfg.n_layers * (2 if remat else 1)
+    np.testing.assert_allclose(float(out["cuda"][1]["loss"]),
+                               float(out["cpu"][1]["loss"]), rtol=1e-5)
+    cpu = flatten_dict(out["cpu"][0].params)
+    for k, x in flatten_dict(out["cuda"][0].params).items():
+        np.testing.assert_allclose(x.cpu().numpy(), cpu[k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("stride,padding", [(1, "SAME"), (2, "SAME"),
+                                            (1, "VALID"), (2, "VALID")])
+def test_conv2d_float32_on_the_card_runs_without_tf32(cuda, stride, padding):
+    """Conv2D in float32 on the card against float64 on the CPU: within
+    float32 rounding even with cuDNN's TF32 switched on globally, which
+    the layer turns off for its own convolutions (and restores)."""
+    from repro_torch.nn import Conv2D
+
+    x, w, bias = arrays(5, (4, 17, 17, 64), (3, 3, 64, 128), (128,))
+    want = Conv2D.apply({"w": torch.tensor(w).double(),
+                         "b": torch.tensor(bias).double()},
+                        torch.tensor(x).double(), stride=(stride, stride),
+                        padding=padding)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = Conv2D.apply({"w": torch.tensor(w, device=cuda),
+                            "b": torch.tensor(bias, device=cuda)},
+                           torch.tensor(x, device=cuda),
+                           stride=(stride, stride), padding=padding)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    scale = 1.0 + float(want.abs().max())
+    err = float((got.double().cpu() - want).abs().max())
+    assert err <= 1e-5 * scale, err

@@ -55,6 +55,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.pop.trainer, repro_torch.launch.pop\n"
             "import repro_torch.obs.profile, repro_torch.obs.cost\n"
             "import repro_torch.launch.profile, repro_torch.kernels.cost\n"
+            "import repro_torch.data, repro_torch.vgg, repro_torch.nn\n"
+            "import repro_torch.launch.train, repro_torch.optim.schedules\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -213,10 +213,10 @@ def test_attention_wrappers_refuse_bad_shapes_and_devices(op):
 @pytest.mark.parametrize("op", ["gcn_agg", "edge_score", "flash_attention",
                                 "decode_attention"])
 def test_ops_raise_on_requires_grad(op):
-    """The attention kernels have no backward and raise on an input that
-    requires grad; the actor kernels differentiate (their autograd
-    Functions; tests/test_torch_train.py holds the gradients) and build no
-    graph under no_grad."""
+    """``decode_attention`` has no backward and raises on an input that
+    requires grad; the actor kernels and ``flash_attention`` differentiate
+    (tests/test_torch_train.py and tests/test_torch_train_lm.py hold the
+    gradients) and build no graph under no_grad."""
     if op in ("flash_attention", "decode_attention"):
         _, args = attn_args(0, 1, 64, 4, 2, 32,
                             decode=op == "decode_attention")
@@ -224,7 +224,7 @@ def test_ops_raise_on_requires_grad(op):
         args = to_torch(gcn_args(0, 1, 4, 3) if op == "gcn_agg"
                         else edge_args(0, 1, 4, 3))
     args[1].requires_grad_(True)
-    if op in ("flash_attention", "decode_attention"):
+    if op == "decode_attention":
         with pytest.raises(NotImplementedError, match="forward-only"):
             getattr(ops, op)(*args)
         return
