@@ -315,8 +315,8 @@ order, each fatal on failure:
    control (the softmax scale dropped from the backward) that the gate
    must reject; the forward and backward ms at the training shape;
 34. the training golden: ``tests/data/torch_train_golden.npz`` (reduced
-   Llama with exits and remat, DeepSeek-MoE, Whisper; two f32 AdamW
-   steps each) replayed: the first step's gradients within 1e-4 of each
+   Llama with exits and remat, DeepSeek-MoE, Whisper, RWKV-6 and Zamba2
+   with remat and 8-row chunks; two f32 AdamW steps each) replayed: the first step's gradients within 1e-4 of each
    leaf's max, losses and per-exit CE within 1e-5, params by the Adam
    rule (near-ties counted);
 35. path A, LM training: ``python -m repro_torch.launch.train --arch
@@ -331,10 +331,29 @@ order, each fatal on failure:
    the card (five rows), GRLE over 300 slots on that profile with the
    profiler's gcn_agg/edge_score kernels (4 and 1 per actor forward);
    ssp and avg_accuracy printed;
-37. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
-   one ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35
-   and 36 and the LM prefills and decodes), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+37. the differentiable scan: ``ops.ssm_scan`` on inputs that require
+   grad at the SSM configs' training shapes (Zamba2's [8, 256, 80, 64,
+   64] without the bonus, RWKV-6's [8, 256, 64, 64, 64] with it, chunk
+   128), bf16 and f32, with and without an initial state: one launch, y
+   and state the kernel's bit for bit, held against the sequential plain
+   version (f32 1e-4 of 1 + the largest |value|; bf16 against the
+   kernel's emulation, its planted faults rejected); the chunked VJP's
+   gradients against autograd of the sequential version in f32 at B=2
+   within 1e-4 of each leaf's max, and a control (one chunk's decays
+   perturbed) that the gate must reject; the kernel's us and the
+   backward's ms a call;
+38. the SSM configs trained at full width in bf16 (B=8, S=256, remat,
+   four exits): Zamba2-2.7B through ``python -m repro_torch.launch.train
+   --arch zamba2_2_7b`` in-process, RWKV-6-7B with its depth cut to
+   RWKV_TRAIN_LAYERS of 32 layers: finite losses, step ms, tokens/s, peak
+   memory, the step's parts, the busy share, ``ssm_scan`` launches a step
+   2 x the layers and flash 9 (Zamba2's shared block), by the wrappers
+   and by the profiler; then three AdamW steps on one batch, whose loss
+   must fall at every step;
+39. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+   one ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35,
+   36 and 38 and the LM prefills and decodes), the card line again, and
+   last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
@@ -1131,6 +1150,48 @@ def event_ms(fn, *, reps=3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_emulation(label, y, st, emu_y, emu_s):
+    """The bf16 scan kernel against its emulation, y beyond its output
+    rounding and the state; returns both readings."""
+    from repro_torch.kernels import ref
+
+    excess = ref.ssm_emu_excess(y, emu_y)
+    err_y = float(excess.max())
+    err_s = ref.ssm_emu_err(st, emu_s, state=True)
+    # how sparse the y error is: rounding flips touch a few rows
+    sparse = ", ".join(f"{int((excess > th).sum())} above {th}"
+                       for th in (1e-4, 1e-3))
+    print(f"  ssm_scan {label:46s} bfloat16 vs emulation: y {err_y:.3e} "
+          f"beyond its rounding (limit {ref.SSM_EMU_TOL}; of "
+          f"{excess.numel()} elements {sparse}), state {err_s:.3e} "
+          f"(limit {ref.SSM_EMU_STATE_TOL})", flush=True)
+    if err_y > ref.SSM_EMU_TOL or err_s > ref.SSM_EMU_STATE_TOL:
+        raise SystemExit(f"ssm_scan {label} bf16: kernel differs from its "
+                         f"emulation by y {err_y}, state {err_s}")
+    return err_y, err_s
+
+
+def emulation_controls(q, k, v, log_w, u, s0, c, emu_y, emu_s, want_y):
+    """The scan's emulation check must reject each planted fault; whether
+    the 3e-2 gate against plain would is printed beside it."""
+    from repro_torch.kernels import ref
+
+    for fault in ref.SSM_EMU_FAULTS:
+        bad_y, bad_s = ref.ssm_scan_bf16_emulation(
+            q, k, v, log_w, bonus_u=u, chunk=c, initial_state=s0,
+            fault=fault)
+        err_y = ref.ssm_emu_err(bad_y.bfloat16(), emu_y)
+        err_s = ref.ssm_emu_err(bad_s, emu_s, state=True)
+        gate = scan_err(bad_y, want_y) <= SSM_TOL[torch.bfloat16]
+        print(f"  control: {fault}: y {err_y:.3e}, state {err_s:.3e} "
+              f"(limits {ref.SSM_EMU_TOL}, {ref.SSM_EMU_STATE_TOL}); the "
+              f"3e-2 gate {'accepts' if gate else 'rejects'} it",
+              flush=True)
+        if err_y <= ref.SSM_EMU_TOL and err_s <= ref.SSM_EMU_STATE_TOL:
+            raise SystemExit(f"ssm_scan: the emulation check accepts a "
+                             f"planted fault ({fault})")
+
+
 def ssm_scan_phase(dev):
     """Phase 11: ssm_scan against its plain version, y and final state;
     at the prefill shape in f32 with slow decays, that the tolerance
@@ -1151,42 +1212,6 @@ def ssm_scan_phase(dev):
                              f"plain by {err} of 1 + its (sequence, head)'s "
                              f"largest |value|, above {tol}")
         return err
-
-    def check_emulation(label, y, st, emu_y, emu_s):
-        """The bf16 kernel against its emulation, y beyond its output
-        rounding and the state; returns both readings."""
-        excess = ref.ssm_emu_excess(y, emu_y)
-        err_y = float(excess.max())
-        err_s = ref.ssm_emu_err(st, emu_s, state=True)
-        # how sparse the y error is: rounding flips touch a few rows
-        sparse = ", ".join(f"{int((excess > th).sum())} above {th}"
-                           for th in (1e-4, 1e-3))
-        print(f"  ssm_scan {label:46s} bfloat16 vs emulation: y {err_y:.3e} "
-              f"beyond its rounding (limit {ref.SSM_EMU_TOL}; of "
-              f"{excess.numel()} elements {sparse}), state {err_s:.3e} "
-              f"(limit {ref.SSM_EMU_STATE_TOL})", flush=True)
-        if err_y > ref.SSM_EMU_TOL or err_s > ref.SSM_EMU_STATE_TOL:
-            raise SystemExit(f"ssm_scan {label} bf16: kernel differs from its "
-                             f"emulation by y {err_y}, state {err_s}")
-        return err_y, err_s
-
-    def emulation_controls(q, k, v, log_w, u, s0, c, emu_y, emu_s, want_y):
-        """The emulation check must reject each planted fault; whether the
-        3e-2 gate against plain would is printed beside it."""
-        for fault in ref.SSM_EMU_FAULTS:
-            bad_y, bad_s = ref.ssm_scan_bf16_emulation(
-                q, k, v, log_w, bonus_u=u, chunk=c, initial_state=s0,
-                fault=fault)
-            err_y = ref.ssm_emu_err(bad_y.bfloat16(), emu_y)
-            err_s = ref.ssm_emu_err(bad_s, emu_s, state=True)
-            gate = scan_err(bad_y, want_y) <= SSM_TOL[torch.bfloat16]
-            print(f"  control: {fault}: y {err_y:.3e}, state {err_s:.3e} "
-                  f"(limits {ref.SSM_EMU_TOL}, {ref.SSM_EMU_STATE_TOL}); the "
-                  f"3e-2 gate {'accepts' if gate else 'rejects'} it",
-                  flush=True)
-            if err_y <= ref.SSM_EMU_TOL and err_s <= ref.SSM_EMU_STATE_TOL:
-                raise SystemExit(f"ssm_scan: the emulation check accepts a "
-                                 f"planted fault ({fault})")
 
     _, _, _, dk, dv, c = SSM_PREFILL
     info = {dt: ssm_mod.kernel_info(dk, dv, c, dt)
@@ -2357,10 +2382,21 @@ RAN = re.compile(r"\[sweep\] (.+): ran (\d+) cells in ([\d.]+) s \(first "
                  r"per cell)?\)")
 
 
-def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None):
+# the CUDA symbols of a wrapper's kernels, where they are not <name>_kernel
+KERNEL_SYMBOLS = {"ssm_scan": ("ssm_scan_kernel", "ssm_scan_bf16_kernel")}
+# profiled_call(lead=True)'s markers: torch.cuda._sleep's kernel
+LEAD_MARKER, LEAD_MARKERS = "spin_kernel", 128
+
+
+def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None,
+                  lead=False):
     """``fn()`` under torch.profiler, the window open ``PROFILER_TAIL_S``
     after its closing synchronize: (result, {name: device records of the
-    kernel ``<name>_kernel``}, cudaGraphLaunch calls). A ``busy`` dict
+    kernel ``<name>_kernel`` or ``KERNEL_SYMBOLS[name]``}, cudaGraphLaunch
+    calls). With ``lead``, the window also stays open ``PROFILER_TAIL_S``
+    and runs ``LEAD_MARKERS`` marker kernels (``spin_kernel``, left out of
+    every count) before ``fn()``: a window can lose the device records of
+    the work it starts with. A ``busy`` dict
     gets ``wall_ms`` (``fn()`` to its synchronize, host clock),
     ``device_ms`` (the device records' summed time, the driver's spans
     left out), ``kernels`` (those records: CUDA kernels and copies) and
@@ -2369,6 +2405,11 @@ def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if lead:
+            time.sleep(PROFILER_TAIL_S)
+            for _ in range(LEAD_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2377,21 +2418,21 @@ def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None):
     cuda = torch.autograd.DeviceType.CUDA
     ours = {k: 0 for k in names}
     graphs, by_name = 0, {}
+    n_kernels = 0
     for e in prof.events():
         if e.name == "cudaGraphLaunch":
             graphs += 1
-        elif e.device_type == cuda:
+        elif e.device_type == cuda and LEAD_MARKER not in e.name:
             for k in ours:
-                ours[k] += f"{k}_kernel" in e.name
+                ours[k] += any(sym in e.name for sym in
+                               KERNEL_SYMBOLS.get(k, (f"{k}_kernel",)))
             if e.name not in SPANS:
+                n_kernels += 1
                 by_name[e.name] = by_name.get(e.name, 0.0) \
                     + e.time_range.elapsed_us() / 1e3
     if busy is not None:
         busy.update(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
-                    kernels=sum(1 for e in prof.events()
-                                if e.device_type == cuda
-                                and e.name not in SPANS),
-                    by_name=by_name)
+                    kernels=n_kernels, by_name=by_name)
     return out, ours, graphs
 
 
@@ -3780,9 +3821,11 @@ def lm_train_replay(dev, gold, arch) -> dict:
     from repro_torch.train.steps import (make_loss_fn, make_train_state,
                                          make_train_step)
 
-    cfg = get_arch(arch).reduced(
-        exit_layers=tuple(int(e) for e in gold[f"{arch}/exit_layers"]),
-        remat=bool(gold[f"{arch}/remat"]))
+    kw = {"exit_layers": tuple(int(e) for e in gold[f"{arch}/exit_layers"]),
+          "remat": bool(gold[f"{arch}/remat"])}
+    if f"{arch}/ssm_chunk" in gold:
+        kw["ssm_chunk"] = int(gold[f"{arch}/ssm_chunk"])
+    cfg = get_arch(arch).reduced(**kw)
     lr, warm, decay = (float(x) for x in gold["lm_schedule"])
     opt = adamw(linear_warmup_cosine(lr, int(warm), int(decay)),
                 weight_decay=float(gold["lm_weight_decay"]))
@@ -4306,6 +4349,347 @@ def vgg_path_phase(dev) -> dict:
     return prof
 
 
+# phase 37: the scan Function at the SSM configs' training shapes (label,
+# (B, T, H, dk, dv), RWKV's bonus), chunk 128, in bf16 and float32, with
+# and without an initial state; its gradients against autograd of the
+# sequential plain version at SSM_GRAD_B sequences, where that T-step
+# graph fits
+SSM_FN_SHAPES = (("zamba2_2_7b train", (8, 256, 80, 64, 64), False),
+                 ("rwkv6_7b train", (8, 256, 64, 64, 64), True))
+SSM_FN_CHUNK = 128
+SSM_GRAD_B = 2
+SSM_GRAD_TOL = 1e-4      # of each leaf's max |g|
+# phase 38: the SSM configs trained at full width, bf16, B=8, S=256,
+# remat: Zamba2-2.7B at its full depth through the launch.train CLI, and
+# RWKV-6-7B at full width with its depth cut to RWKV_TRAIN_LAYERS of 32
+# layers, through make_train_step: all 32 would need ~180 GB at the ~24 B
+# a param Llama-3.2-1B's step peaked at; 11 peaked at 70.79 GB alone but
+# ran out of memory after the script's earlier phases (fragmentation), so
+# 10 (NVIDIA H100 80GB HBM3, 700 W)
+SSM_TRAIN_STEPS = 4
+PROFILE_TRIES = 3
+ZAMBA_TRAIN_ARGS = ("--arch", "zamba2_2_7b", "--steps", str(SSM_TRAIN_STEPS),
+                    "--batch", "8", "--seq", "256", "--log-every", "1")
+RWKV_TRAIN_ARGS = ("--arch", "rwkv6_7b", "--steps", str(SSM_TRAIN_STEPS),
+                   "--batch", "8", "--seq", "256", "--log-every", "1")
+RWKV_TRAIN_LAYERS = 10
+
+
+def scan_grads(fn, xs, dy, ds):
+    """(y, state, gradients of <y, dy> + <state, ds> with respect to the
+    present inputs) of ``fn(q, k, v, log_w, u, s0)``, by autograd on leaf
+    copies of ``xs``."""
+    leaves = [None if x is None else x.detach().clone().requires_grad_()
+              for x in xs]
+    y, st = fn(*leaves)
+    loss = (y.float() * dy).sum() + (st * ds).sum()
+    return y, st, torch.autograd.grad(loss, [x for x in leaves
+                                             if x is not None])
+
+
+def grad_excess(got, want) -> float:
+    """The largest |g - w| over its leaf's max |w|, beyond the rounding
+    of a bf16 gradient (2^-8 |w|; none for a float32 one)."""
+    out = 0.0
+    for g, w in zip(got, want):
+        rnd = 2.0 ** -8 * w.abs() if g.dtype == torch.bfloat16 else 0.0
+        err = ((g.float() - w.float()).abs() - rnd).clamp(min=0)
+        out = max(out, float(err.max()) / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def ssm_function_phase(dev) -> dict:
+    """Phase 37: ``ops.ssm_scan`` on inputs that require grad, as the
+    RWKV-6 and Mamba-2 blocks call it in training, at SSM_FN_SHAPES: one
+    kernel launch whose y and state equal the kernel's bit for bit, held
+    against the sequential plain version (SSM_TOL of 1 + the (sequence,
+    head)'s largest |value|; bf16 also against the kernel's emulation
+    within SSM_EMU_TOL / SSM_EMU_STATE_TOL, its planted faults rejected); the chunked VJP's gradients (cotangents on y and on the
+    state) within SSM_GRAD_TOL of each leaf's max of autograd through the
+    sequential plain version in float32 at SSM_GRAD_B sequences, and a
+    control, the reference gradients with one chunk's decays perturbed,
+    that must fail that gate; the kernel forward's us (beside the plain
+    version's and the bound) and the backward's ms a call at each
+    training shape in bf16. Returns {"max_abs_err": the
+    forward's largest absolute error against the plain version, "rows"}."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c = SSM_FN_CHUNK
+    worst, rows = 0.0, []
+    for label, (b, t, h, dk, dv), rwkv in SSM_FN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for init in (False, True):
+                def normal(*shape, scale=1.0, shift=0.0):
+                    return torch.randn(shape, generator=gen, device=dev) \
+                        * scale + shift
+
+                q, k = normal(b, t, h, dk).to(dtype), \
+                    normal(b, t, h, dk).to(dtype)
+                v = normal(b, t, h, dv).to(dtype)
+                log_w = -torch.exp(normal(b, t, h, dk, scale=0.5,
+                                          shift=-5.0 if init else 0.0))
+                u = normal(h, dk, scale=0.2) if rwkv else None
+                s0 = normal(b, h, dk, dv) if init else None
+                xs = (q, k, v, log_w, u, s0)
+                dy, ds = normal(b, t, h, dv), normal(b, h, dk, dv)
+                tag = (f"{label} {str(dtype)[6:]} "
+                       f"{'slow, initial state' if init else 'fast'}")
+                before = ssm_mod.launches
+                y, st, got = scan_grads(
+                    lambda *a: ops.ssm_scan(*a[:5], chunk=c,
+                                            initial_state=a[5]),
+                    xs, dy, ds)
+                torch.cuda.synchronize()
+                launched = ssm_mod.launches - before
+                ky, ks = ssm_mod.ssm_scan(q, k, v, log_w, u, chunk=c,
+                                          initial_state=s0)
+                if launched != 1 or not (torch.equal(y, ky)
+                                         and torch.equal(st, ks)):
+                    raise SystemExit(f"scan Function {tag}: {launched} "
+                                     f"launches, forward equal to the "
+                                     f"kernel's {torch.equal(y, ky)}, state "
+                                     f"{torch.equal(st, ks)}")
+                y, st = y.detach(), st.detach()
+                want_y, want_s = ref.ssm_scan_ref(q, k, v, log_w, bonus_u=u,
+                                                  initial_state=s0)
+                fwd = float((y.float() - want_y.float()).abs().max())
+                err_y, err_s = scan_err(y, want_y), scan_err(st, want_s,
+                                                             True)
+                line = (f"  scan Function {tag:38s} forward == kernel; max "
+                        f"abs error {fwd:.3e}, y {err_y:.3e} / state "
+                        f"{err_s:.3e} of 1 + max |value| vs plain")
+                if dtype == torch.float32:
+                    print(line + f" (limit {SSM_TOL[dtype]})", flush=True)
+                    if not (err_y <= SSM_TOL[dtype]
+                            and err_s <= SSM_TOL[dtype]):
+                        raise SystemExit(f"scan Function {tag}: forward off "
+                                         f"the plain version")
+                else:
+                    print(line + f" (limit {SSM_TOL[dtype]})", flush=True)
+                    if not err_y <= SSM_TOL[dtype]:
+                        raise SystemExit(f"scan Function {tag}: forward off "
+                                         f"the plain version")
+                    emu_y, emu_s = ref.ssm_scan_bf16_emulation(
+                        q, k, v, log_w, bonus_u=u, chunk=c,
+                        initial_state=s0)
+                    check_emulation(tag, y, st, emu_y, emu_s)
+                    if init:
+                        emulation_controls(q, k, v, log_w, u, s0, c, emu_y,
+                                           emu_s, want_y)
+                    del emu_y, emu_s
+                worst = max(worst, fwd)
+                del want_y, want_s, got, ky, ks
+                # the backward against the sequential version's autograd,
+                # in float32 on the same inputs and cotangents (dy as the
+                # Function's y receives it, in y's dtype)
+                sub = [None if x is None else x[:SSM_GRAD_B] if x.dim() == 4
+                       else x for x in xs]
+                dyc = dy[:SSM_GRAD_B].to(dtype).float()
+                dsc = ds[:SSM_GRAD_B]
+                _, _, got = scan_grads(
+                    lambda *a: ops.ssm_scan(*a[:5], chunk=c,
+                                            initial_state=a[5]),
+                    sub, dyc, dsc)
+                f32 = [None if x is None else x.float() for x in sub]
+
+                def seq(*a):
+                    return ref.ssm_scan_ref(*a[:4], bonus_u=a[4],
+                                            initial_state=a[5])
+
+                _, _, want = scan_grads(seq, f32, dyc, dsc)
+                err = grad_excess(got, want)
+                wrong_w = f32[3].clone()
+                wrong_w[:, c:2 * c] *= 1.05
+                _, _, wrong = scan_grads(seq, f32[:3] + [wrong_w] + f32[4:],
+                                         dyc, dsc)
+                control = grad_excess(got, wrong)
+                print(f"  scan Function {tag:38s} grads at B={SSM_GRAD_B}: "
+                      f"{err:.3e} of the leaf max beyond their rounding "
+                      f"(limit {SSM_GRAD_TOL}); control (one chunk's decays "
+                      f"x1.05) {control:.3e}", flush=True)
+                if not err <= SSM_GRAD_TOL:
+                    raise SystemExit(f"scan Function {tag}: gradients off "
+                                     f"the sequential version's by {err}")
+                if not control > SSM_GRAD_TOL:
+                    raise SystemExit(f"scan Function {tag}: the gradient "
+                                     f"gate accepts one chunk's decays "
+                                     f"perturbed")
+                row = {"case": tag, "fwd_max_abs_err": fwd,
+                       "grad_err": err, "control": control}
+                if dtype == torch.bfloat16 and not init:
+                    leaves = [None if x is None else
+                              x.detach().clone().requires_grad_()
+                              for x in xs]
+                    present = [x for x in leaves if x is not None]
+                    kernel_us = graph_ms(lambda: ssm_mod.ssm_scan(
+                        q, k, v, log_w, u, chunk=c), inner=5, reps=4) * 1e3
+                    plain_us = event_ms(lambda: ref.ssm_scan_ref(
+                        q, k, v, log_w, bonus_u=u)) * 1e3
+                    b_ms, b_by = bound(*ssm_cost(q, v, log_w, u, None),
+                                       peak_for(dtype))
+                    oy, ost = ops.ssm_scan(*leaves[:5], chunk=c)
+
+                    def backward():
+                        return torch.autograd.grad(
+                            (oy, ost), present, (dy.to(oy.dtype), ds),
+                            retain_graph=True)
+
+                    backward()      # warm: the allocator's blocks
+                    bwd = sum(event_pair_ms(backward) for _ in range(5)) / 5
+                    print(f"  scan Function {tag:38s} the kernel "
+                          f"{kernel_us:.2f} us (graph replay; plain "
+                          f"{plain_us:.2f} us eager, bound {b_ms * 1e3:.2f} "
+                          f"us, {b_by}), the backward {bwd:.4f} ms a call "
+                          f"(the plain chunked VJP in float32, CUDA events)",
+                          flush=True)
+                    row.update(kernel_us=kernel_us, plain_us=plain_us,
+                               bound_us=b_ms * 1e3, bound_by=b_by,
+                               bwd_ms=bwd)
+                    del oy, ost, leaves, present
+                rows.append(row)
+                del xs, q, k, v, log_w, u, s0, dy, ds, got, want, wrong, sub
+                torch.cuda.empty_cache()
+    print(json.dumps({"ssm_function": rows}))
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def ssm_train_report(label, cfg, args, out, wall) -> dict:
+    """Phase 38's checks and readings of one SSM config's run ``out``
+    (``launch.train.train``'s): every loss finite; step ms (median after
+    the first), tokens/s, the peak memory of the run; ``ssm_scan``
+    launches a step (two a layer under remat: the forward and its
+    recompute) and flash launches (one a shared-block application), by
+    the wrappers over the run and by the profiler over one more step (a
+    window that reads them exactly, of at most PROFILE_TRIES), both
+    exact, with the busy share and the top kernels; the step's
+    parts through ``make_train_step``'s hook; then ``fixed_batch_losses``
+    from the trained params, each lower. Returns (the wrappers' launches,
+    the readings)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import n_shared_applications
+    from repro_torch.train.steps import TrainState
+
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: losses {losses}: not finite")
+    # remat recomputes each layer's forward; Zamba2's shared block is not
+    # remat'd (nor is it in the reference's forward_train)
+    want = {"ssm_scan": (2 if cfg.remat else 1) * cfg.n_layers,
+            "flash_attention": n_shared_applications(cfg)}
+    for name, n in want.items():
+        if counts[name] != n * args.steps:
+            raise SystemExit(f"{label}: {counts[name]} {name} launches in "
+                             f"{args.steps} steps, expected {n} a step")
+    step_ms = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2] * 1e3
+    batch = out["next_batch"]()
+    # the profiler here drops device records of a window (the same step
+    # reads a different total from window to window; in the whole script
+    # windows read ~50 fewer, a scan's among them), so a count it reads can
+    # only be low: each window starts with marker kernels, the step is
+    # profiled until a window reads the wrappers' counts exactly, at most
+    # PROFILE_TRIES times, and no window may read more
+    windows = []
+    for _ in range(PROFILE_TRIES):
+        busy = {}
+        _, prof, _ = profiled_call(
+            lambda: out["step_fn"](out["state"], batch), tuple(want),
+            busy=busy, lead=True)
+        windows.append(f"{prof} of {busy['kernels']}")
+        if any(prof[k] > n for k, n in want.items()):
+            raise SystemExit(f"{label}: the profiler saw {prof} kernels in a "
+                             f"step, more than {want}")
+        if prof == want:
+            break
+    else:
+        raise SystemExit(f"{label}: no profiler window saw the step's "
+                         f"{want} kernels: {windows}")
+    top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
+    split = train_step_split(cfg, out["state"], batch, reps=2)
+    print(f"  {label} B={args.batch} S={args.seq} steps {args.steps}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.2f} ms "
+          f"(median after the first; first {out['step_s'][0] * 1e3:.1f} ms), "
+          f"{args.batch * args.seq / step_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, wall {wall:.2f} s (init included)", flush=True)
+    print(f"  {label} launches a step: ssm_scan {want['ssm_scan']}, flash "
+          f"{want['flash_attention']} (wrappers over the run: {counts}); one "
+          f"more step by the profiler: {prof} of {busy['kernels']} CUDA "
+          f"kernels and copies (windows: {'; '.join(windows)}), device "
+          f"{busy['device_ms']:.2f} of "
+          f"{busy['wall_ms']:.2f} ms (busy share "
+          f"{busy['device_ms'] / busy['wall_ms']:.1%}); top kernels "
+          + "; ".join(f"{n[:48]} {ms:.2f} ms" for n, ms in top), flush=True)
+    print(f"  {label} the step apart (median of 2, host ms to a "
+          f"synchronize): forward {split['forward']:.2f}, backward "
+          f"{split['backward']:.2f} (remat, the scan's chunked VJP, CE "
+          f"recomputed), AdamW {split['optimizer']:.2f}", flush=True)
+    state = out.pop("state")
+    params, step = state.params, state.step
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fixed = fixed_batch_losses(cfg, TrainState(params, None, step), batch)
+    print(f"  {label} {FIXED_STEPS} AdamW steps (lr {FIXED_LR}) on one batch "
+          f"from the trained params: loss "
+          f"{' -> '.join(f'{x:.4f}' for x in fixed)}", flush=True)
+    if not all(math.isfinite(x) for x in fixed) or not all(
+            b < a for a, b in zip(fixed, fixed[1:])):
+        raise SystemExit(f"{label}: the loss of a batch trained on did not "
+                         f"fall at every step: {fixed}")
+    return counts, {"model": label, "step_ms": step_ms,
+                    "tokens_per_s": args.batch * args.seq / step_ms * 1e3,
+                    "peak_gb": peak_gb, "split_ms": split,
+                    "busy_share": busy["device_ms"] / busy["wall_ms"],
+                    "kernels_a_step": busy["kernels"],
+                    "launches_a_step": want, "losses": losses,
+                    "fixed_batch": fixed}
+
+
+def ssm_train_phase(dev) -> dict:
+    """Phase 38: Zamba2-2.7B at full width and depth through
+    ``python -m repro_torch.launch.train`` (ZAMBA_TRAIN_ARGS, in-process),
+    then RWKV-6-7B at full width with its depth cut to RWKV_TRAIN_LAYERS
+    (``dataclasses.replace(cfg, n_layers=..., exit_layers=())``: its four
+    exits at that depth) through the same ``train`` on a cut config; each
+    read by ``ssm_train_report``. Returns the wrappers' launches over both
+    runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+
+    totals = {"ssm_scan": 0, "flash_attention": 0}
+    rows = []
+    for label, argv, cut in (
+            ("zamba2_2_7b", ZAMBA_TRAIN_ARGS, None),
+            (f"rwkv6_7b cut to {RWKV_TRAIN_LAYERS} of 32 layers",
+             RWKV_TRAIN_ARGS, RWKV_TRAIN_LAYERS)):
+        args = cli.parse_args(list(argv))
+        cfg = get_arch(args.arch, reduced=args.reduced)
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cut, exit_layers=())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = cli.train(args, cfg=cfg,
+                        log=lambda line: print(f"  {label} {line}",
+                                               flush=True))
+        counts, row = ssm_train_report(label, cfg, args, out,
+                                       time.perf_counter() - t0)
+        for k in totals:
+            totals[k] += counts[k]
+        rows.append(row)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"ssm_training": rows}))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4553,7 +4937,7 @@ def main() -> int:
     print(f"phase 33 wall {time.perf_counter() - t0:.2f} s")
 
     phase(34, "training golden replay of JAX runs (reduced Llama, "
-              "DeepSeek-MoE, Whisper, f32)")
+              "DeepSeek-MoE, Whisper, RWKV-6, Zamba2, f32)")
     t0 = time.perf_counter()
     lm_train_golden_phase(dev)
     print(f"phase 34 wall {time.perf_counter() - t0:.2f} s")
@@ -4570,7 +4954,20 @@ def main() -> int:
     vgg_counts = vgg_path_phase(dev)
     print(f"phase 36 wall {time.perf_counter() - t0:.2f} s")
 
-    phase(37, "summary")
+    phase(37, "the scan Function: the kernel forward, the plain chunked "
+              "backward")
+    t0 = time.perf_counter()
+    ssm_fn = ssm_function_phase(dev)
+    print(f"phase 37 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(38, "the SSM configs trained at full width, bf16: Zamba2-2.7B "
+              f"(repro_torch.launch.train), RWKV-6-7B cut to "
+              f"{RWKV_TRAIN_LAYERS} layers")
+    t0 = time.perf_counter()
+    ssm_train = ssm_train_phase(dev)
+    print(f"phase 38 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(39, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -4589,9 +4986,11 @@ def main() -> int:
             "bound_by": b_by, "library_ms": None})
     attn["flash_attention"]["max_abs_err"] = max(
         attn["flash_attention"]["max_abs_err"], flash_fn["max_abs_err"])
+    ssm["max_abs_err"] = max(ssm["max_abs_err"], ssm_fn["max_abs_err"])
     launches = {"flash_attention": flash_launches
                 + zoo_totals["flash_attention"]
-                + train_counts["flash_attention"],
+                + train_counts["flash_attention"]
+                + ssm_train["flash_attention"],
                 "decode_attention": decode_launches
                 + zoo_totals["decode_attention"]
                 + zoo_serve["decode_attention"]}
@@ -4607,7 +5006,8 @@ def main() -> int:
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:93",
-        "launches": ssm_launches + zoo_totals["ssm_scan"], **ssm})
+        "launches": ssm_launches + zoo_totals["ssm_scan"]
+        + ssm_train["ssm_scan"], **ssm})
     print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
           "actor forward's launches (4 and 1), launches of the training "
           "path (phase 18: 200 slots' and 20 train steps' forwards), error "
@@ -4621,9 +5021,11 @@ def main() -> int:
           "prefill (its decode launches none); each kernel's launches add "
           "those of phase 30's prefills and decodes of the zoo and of phase "
           "31's serving path (gcn_agg and edge_score: phase 31's only), "
-          "flash_attention those of phase 35's training run, gcn_agg and "
-          "edge_score those of phase 36's GRLE run (by the profiler); "
-          "flash_attention's error also covers phase 33's forwards at the training shapes; the "
+          "flash_attention those of phase 35's training run and of phase "
+          "38's Zamba2 run, ssm_scan those of phase 38's two training runs, "
+          "gcn_agg and edge_score those of phase 36's GRLE run (by the "
+          "profiler); flash_attention's error also covers phase 33's "
+          "forwards at the training shapes, ssm_scan's phase 37's; the "
           "zoo's new shapes timed in phase 28:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
     print(json.dumps({"kernels": kernels}))

@@ -88,7 +88,7 @@ class OffloadingAgent:
 
     @property
     def n_exits(self) -> int:
-        return self.adef.env.L
+        return self.adef.n_exits
 
     @property
     def n_candidates(self) -> int:

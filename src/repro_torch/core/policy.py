@@ -187,6 +187,10 @@ class AgentDef:
         object.__setattr__(self, "hidden", tuple(self.hidden))
         object.__setattr__(self, "device", device)
 
+    @property
+    def n_exits(self) -> int:
+        return self.env.L
+
     def exit_mask(self) -> torch.Tensor:
         """[N*L] option mask for this def's ``early_exit`` flag."""
         return make_exit_mask(self.env.N, self.env.L, self.early_exit,

@@ -22,9 +22,16 @@ plain version ``ref.flash_attention_ref`` in float32 and returns its VJP
 in the inputs' dtype. The JAX package has no backward kernel for
 attention either (its training differentiates jnp ``sdpa``; its Pallas
 flash has no VJP). On the CPU autograd runs straight through the plain
-version. ``decode_attention`` and ``ssm_scan`` have no backward: an input
-of theirs that requires grad raises, so a missing gradient cannot go
-unnoticed.
+version. ``ssm_scan`` is differentiable on both devices, because the
+RWKV-6 and Mamba-2 blocks train through it: with grad enabled and an
+input that requires grad it runs as ``_SsmScan``, whose forward is the
+kernel on the card (the same launch, bit for bit) and the sequential
+plain version on the CPU, and whose backward is the float32 VJP of the
+plain chunked form ``ref.ssm_scan_chunked_ref`` (the reference's
+``chunked_linear_attn``, which its training differentiates; it has no
+backward kernel), so that the CPU tests run the backward the card runs.
+``decode_attention`` has no backward: an input of its that requires grad
+raises, so a missing gradient cannot go unnoticed.
 
 While a cost counter (``obs.cost``) is active, each call is counted as one
 operation whose FLOPs come from its formula in ``kernels/cost.py``, and
@@ -156,6 +163,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
+class _SsmScan(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``ref.ssm_scan_ref`` on the CPU (the
+    same call as without grad). Backward, on both devices:
+    ``ref.ssm_scan_bwd``, the float32 VJP of the plain chunked form, from
+    the saved inputs; a cotangent autograd leaves out (an output the loss
+    does not use) is zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_w, bonus_u, initial_state, chunk):
+        ctx.save_for_backward(q, k, v, log_w, bonus_u, initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssm.ssm_scan(q, k, v, log_w, bonus_u, chunk=chunk,
+                             initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return (*_ref.ssm_scan_bwd(dy, dstate, *ctx.saved_tensors,
+                                   chunk=ctx.chunk,
+                                   needs=ctx.needs_input_grad[:6]), None)
+
+
 @_counted
 def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     """Eq-12 message passing: relu(self @ w_self + agg @ w_nbr + bias).
@@ -205,9 +234,11 @@ def ssm_scan(q, k, v, log_w, bonus_u=None, *, chunk: int,
     """The gated linear recurrence in chunks of ``chunk`` rows: q, k,
     log_w [B,T,H,dk], v [B,T,H,dv] -> (y [B,T,H,dv], final state
     [B,H,dk,dv] float32); ``bonus_u`` [H,dk] selects RWKV semantics, None
-    Mamba/SSD; ``initial_state`` None starts from zeros."""
-    extra = [x for x in (bonus_u, initial_state) if x is not None]
-    _forward_only("ssm_scan", q, k, v, log_w, *extra)
+    Mamba/SSD; ``initial_state`` None starts from zeros. Differentiable in
+    every input, with cotangents on y and on the final state."""
+    args = (q, k, v, log_w, bonus_u, initial_state)
+    if _wants_grad([x for x in args if x is not None]):
+        return _SsmScan.apply(*args, chunk)
     return _ssm.ssm_scan(q, k, v, log_w, bonus_u, chunk=chunk,
                          initial_state=initial_state)
 

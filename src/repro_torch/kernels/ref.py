@@ -5,7 +5,9 @@ Counterparts of ``repro/kernels/ref.py::gcn_agg_ref``, ``::edge_score_ref``,
 CPU tensor runs, and what ``chip_smoke.py`` holds the CUDA kernels against
 on the card. ``gcn_agg_bwd`` and ``edge_score_bwd`` are the backward rules
 of the two actor kernels (``repro/kernels/ops.py:85-105, 141-171``), which
-``ops`` runs on both devices. ``flash_attention_bf16_emulation``,
+``ops`` runs on both devices; ``ssm_scan_bwd`` is the scan's, the VJP of
+``ssm_scan_chunked_ref`` (the reference's ``chunked_linear_attn``, which
+its training differentiates; it has no backward kernel). ``flash_attention_bf16_emulation``,
 ``decode_attention_split_ref`` and ``ssm_scan_bf16_emulation`` have no
 JAX counterpart: they compute with the CUDA kernels' own rounding and
 order (the bf16 flash and scan kernels' tensor-core arithmetic, decode
@@ -255,7 +257,9 @@ def ssm_scan_ref(q, k, v, log_w, *, bonus_u=None, initial_state=None):
     (y [B,T,H,dv] in q's dtype, final state [B,H,dk,dv] float32), from
     ``initial_state`` (zeros if None). Float32 throughout. Deliberately
     not the chunked algorithm of the kernel, so that it checks the kernel
-    independently."""
+    independently; for the same reason it is the oracle that
+    ``ssm_scan_bwd``'s chunked VJP is held against on the card (its own
+    autograd would save T states, so it is not the backward)."""
     b, t, h, dk = q.shape
     s = (torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
                      device=q.device)
@@ -269,6 +273,124 @@ def ssm_scan_ref(q, k, v, log_w, *, bonus_u=None, initial_state=None):
                             bonus_u=u)
         ys.append(y)
     return torch.stack(ys, dim=1).to(q.dtype), s
+
+
+SUBBLOCK = 16   # the chunked form's anchoring sub-block (all exponents <= 0)
+
+
+def _intra_chunk(qc, kc, vc, qe, cum, u):
+    """The within-chunk part of ``ssm_scan_chunked_ref``'s y, every chunk
+    at once: q, k, qe, cum [N, c, H, dk], v [N, c, H, dv] (N = B x chunks)
+    -> [N, c, H, dv]. As the reference's ``_intra_chunk``: the diagonal
+    16-row sub-blocks exact in log space (qe_i - cum_j), the earlier
+    sub-blocks of the chunk through q and k rescaled at an anchor, the
+    cumulative decay at the end of the sub-block before the rows' own."""
+    n, c, h, dk = qc.shape
+    uu = min(SUBBLOCK, c)
+    ns = c // uu
+    dev = qc.device
+
+    def sub(x):
+        return x.reshape(n, ns, uu, h, x.shape[-1])
+
+    qs, ks, vs, qes, cums = (sub(x) for x in (qc, kc, vc, qe, cum))
+    pos = torch.arange(uu, device=dev)
+    keep = (pos[None, :] < pos[:, None]) if u is not None \
+        else (pos[None, :] <= pos[:, None])                    # [i, j]
+    gap = qes[:, :, :, None] - cums[:, :, None]               # [n,s,i,j,h,d]
+    pair = torch.exp(torch.where(keep[:, :, None, None], gap, -math.inf))
+    a = torch.einsum("nsihd,nsijhd,nsjhd->nshij", qs, pair, ks)
+    if u is not None:
+        a = a + torch.diag_embed(
+            torch.einsum("nsihd,hd,nsihd->nshi", qs, u, ks))
+    y = torch.einsum("nshij,nsjhe->nsihe", a, vs)
+    if ns > 1:
+        base = cum[:, uu - 1:c - 1:uu]                         # [n,s-1,h,d]
+        q_in = qs[:, 1:] * torch.exp(qes[:, 1:] - base[:, :, None])
+        rows = torch.arange(c, device=dev)
+        before = rows[None, :] < uu * torch.arange(1, ns, device=dev)[:, None]
+        k_in = kc[:, None] * torch.exp(torch.where(
+            before[None, :, :, None, None], base[:, :, None] - cum[:, None],
+            -math.inf))                                        # [n,s-1,c,h,d]
+        a_off = torch.einsum("ntihd,ntjhd->nthij", q_in, k_in)
+        y = torch.cat([y[:, :1], y[:, 1:] + torch.einsum(
+            "nthij,njhe->ntihe", a_off, vc)], 1)
+    return y.reshape(n, c, h, vc.shape[-1])
+
+
+def ssm_scan_chunked_ref(q, k, v, log_w, *, chunk: int, bonus_u=None,
+                         initial_state=None):
+    """The gated linear recurrence in the chunked form of
+    ``repro/models/ssm.py::chunked_linear_attn``, in float32: per chunk of
+    c = min(chunk, T) rows the inclusive cumulative decay ``cum``, its
+    total ``tot`` and the read-out exponent ``qexp`` (``cum`` for Mamba,
+    the exclusive ``cum - log_w`` for RWKV); y = the within-chunk part
+    (``_intra_chunk``) + (q e^qexp) S, then S' = e^tot S + sum_j
+    e^(tot - cum_j) k_j^T v_j. q, k, log_w [B,T,H,dk], v [B,T,H,dv] ->
+    (y [B,T,H,dv] in q's dtype, final state [B,H,dk,dv] float32). The
+    within-chunk parts of all chunks are computed at once, then the
+    states chunk by chunk. It is what ``ssm_scan_bwd`` differentiates."""
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    c = min(int(chunk), t)
+    if t % c:
+        raise ValueError(f"ssm_scan_chunked_ref: chunk {c} does not divide "
+                         f"T={t}")
+    nc = t // c
+
+    def resh(x):
+        return x.float().reshape(b, nc, c, h, x.shape[-1])
+
+    qc, kc, vc, wc = resh(q), resh(k), resh(v), resh(log_w)
+    cum = wc.cumsum(2)
+    qe = cum if bonus_u is None else cum - wc
+    u = None if bonus_u is None else bonus_u.float()
+    y = _intra_chunk(*(x.reshape(b * nc, c, h, x.shape[-1])
+                       for x in (qc, kc, vc, qe, cum)), u)
+    tot = cum[:, :, -1]                                        # [b,nc,h,dk]
+    upd = torch.einsum("bnjhd,bnjhe->bnhde",
+                       kc * torch.exp(tot[:, :, None] - cum), vc)
+    s = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+         if initial_state is None else initial_state.float())
+    starts = []
+    for i in range(nc):
+        starts.append(s)
+        s = s * torch.exp(tot[:, i])[..., None] + upd[:, i]
+    y = y.reshape(b, nc, c, h, dv) + torch.einsum(
+        "bnihd,bnhde->bnihe", qc * torch.exp(qe), torch.stack(starts, 1))
+    return y.reshape(b, t, h, dv).to(q.dtype), s
+
+
+def ssm_scan_bwd(dy, dstate, q, k, v, log_w, bonus_u, initial_state, *,
+                 chunk: int, needs=(True,) * 6):
+    """The VJP of the scan: autograd of ``ssm_scan_chunked_ref`` over
+    float32 copies of the inputs, for the cotangents ``dy`` [B,T,H,dv] of
+    y and ``dstate`` [B,H,dk,dv] of the final state (None: zero). Returns
+    the gradients of (q, k, v, log_w, bonus_u, initial_state), each in its
+    input's dtype; None where ``needs`` is False or the input is None.
+    The chunked graph keeps a [B,H,dk,dv] state and the within-chunk
+    score blocks per chunk, not T states (``ssm_scan_ref``'s loop would)."""
+    inputs = (q, k, v, log_w, bonus_u, initial_state)
+    want = [x is not None and bool(n) for x, n in zip(inputs, needs)]
+    with torch.enable_grad():
+        xs = [None if x is None else x.detach().float().requires_grad_(w)
+              for x, w in zip(inputs, want)]
+        outs = ssm_scan_chunked_ref(*xs[:4], chunk=chunk, bonus_u=xs[4],
+                                    initial_state=xs[5])
+        pairs = [(o, d.float()) for o, d in zip(outs, (dy, dstate))
+                 if d is not None]
+        leaves = [x for x, w in zip(xs, want) if w]
+        grads = list(torch.autograd.grad(
+            [o for o, _ in pairs], leaves, [d for _, d in pairs],
+            allow_unused=True)) if pairs and leaves else [None] * len(leaves)
+    grads = iter(grads)
+    out = []
+    for x, w in zip(inputs, want):
+        g = next(grads) if w else None
+        if w and g is None:
+            g = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        out.append(None if g is None else g.to(x.dtype))
+    return tuple(out)
 
 
 # The bf16 scan kernel against its emulation (ssm_emu_err), y beyond its

@@ -11,8 +11,8 @@ AdamW under ``linear_warmup_cosine`` (warm-up a tenth of ``--steps``),
 batches from ``TokenStream`` (Whisper also gets N(0, 1) audio frames
 [batch, n_audio_frames, d_model] in the config's dtype), the loss printed
 every ``--log-every`` steps and at the last, and the params saved in the
-reference's checkpoint format with ``--checkpoint``. RWKV-6 and Zamba2
-raise (no differentiable ``ssm_scan`` yet).
+reference's checkpoint format with ``--checkpoint``. Every config
+trains, RWKV-6 and Zamba2 through the differentiable ``ops.ssm_scan``.
 """
 from __future__ import annotations
 
@@ -45,13 +45,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def train(args, *, log=print) -> dict:
+def train(args, *, log=print, cfg=None) -> dict:
     """Run ``args.steps`` train steps -> ``{"state", "losses", "step_s",
     "step_fn", "next_batch"}``: the final ``TrainState``, every step's
     loss, every step's wall seconds (batch drawn, step taken and its loss
     read back, which waits for the card), and the step function and batch
-    source, with which a caller can take further steps."""
-    cfg = get_arch(args.arch, reduced=args.reduced)
+    source, with which a caller can take further steps. ``cfg``, if given,
+    replaces ``args.arch``'s config (a caller's cut of it, such as a
+    smaller depth)."""
+    cfg = cfg or get_arch(args.arch, reduced=args.reduced)
     device = resolve_device(args.device)
     opt = adamw(linear_warmup_cosine(args.lr, args.steps // 10, args.steps))
     gen = torch.Generator(device=device).manual_seed(args.seed)

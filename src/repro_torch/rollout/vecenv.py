@@ -13,8 +13,11 @@ bitwise parity goes through injected draws.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.mec.config import ScenarioParams
 from repro_torch.mec.env import MECEnv, MECState, SlotTasks
 
 
@@ -31,18 +34,25 @@ class VecMECEnv:
     def reset(self) -> MECState:
         return self.env.reset((self.n_fleets,))
 
-    def sample_slot(self, generator: torch.Generator) -> SlotTasks:
-        return self.env.sample_slot(generator, (self.n_fleets,))
+    # ``sp`` is one ScenarioParams shared by the B fleets (None: the env's
+    # own), as the reference's ``in_axes=None``; per-fleet scenarios go
+    # through ``MECEnv`` with [B]-leading knobs (``RolloutDriver``)
+    def sample_slot(self, generator: torch.Generator,
+                    sp: Optional[ScenarioParams] = None) -> SlotTasks:
+        return self.env.sample_slot(generator, (self.n_fleets,), sp)
 
-    def observe(self, states: MECState, tasks: SlotTasks) -> dict:
-        return self.env.observe(states, tasks)
+    def observe(self, states: MECState, tasks: SlotTasks,
+                sp: Optional[ScenarioParams] = None) -> dict:
+        return self.env.observe(states, tasks, sp)
 
     def evaluate(self, states: MECState, tasks: SlotTasks,
-                 decisions: torch.Tensor) -> torch.Tensor:
+                 decisions: torch.Tensor,
+                 sp: Optional[ScenarioParams] = None) -> torch.Tensor:
         """Per-fleet critic: decisions [B, S, M] -> Q [B, S]."""
-        return self.env.evaluate(states, tasks, decisions)
+        return self.env.evaluate(states, tasks, decisions, sp)
 
     def step(self, states: MECState, tasks: SlotTasks,
-             decisions: torch.Tensor):
+             decisions: torch.Tensor,
+             sp: Optional[ScenarioParams] = None):
         """Realize per-fleet decisions [B, M] -> (new states, SlotResults)."""
-        return self.env.step(states, tasks, decisions)
+        return self.env.step(states, tasks, decisions, sp)

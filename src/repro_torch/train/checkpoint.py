@@ -6,6 +6,9 @@ zlib- or zstd-compressed msgpack of a flat map ``{path: {"dtype": str,
 ``__seq{i}`` (so an ``AgentState`` is ``/__seq0`` .. ``/__seq8`` in its
 field order: params, opt_state, replay, key, step, exit_mask, last_loss,
 loss_sum, loss_count), the data C-ordered raw bytes.
+``restore_checkpoint`` reads any such file back as the reference's does
+(nested dicts, or the structure of a ``like`` tree), ``read_flat`` as the
+flat map.
 
 An LM's params keep their dtypes: a bfloat16 leaf is written as the
 reference writes one (dtype ``"bfloat16"``, the raw 16-bit words), and
@@ -43,30 +46,33 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _walk(tree, prefix=""):
+    """``(path, leaf)`` of a tree of dicts, sequences and leaves in the
+    reference's order: dict keys sorted, a sequence's items as
+    ``__seq{i}``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{prefix}/__seq{i}")
+    else:
+        yield prefix, tree
+
+
 def _encode_tree(tree) -> dict:
     """The reference's flat map of a tree of dicts, sequences and arrays
     (tensors are copied to the host), in its order."""
     flat = {}
-
-    def rec(prefix, node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                rec(f"{prefix}/{k}" if prefix else str(k), node[k])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                rec(f"{prefix}/__seq{i}", v)
-        elif (isinstance(node, torch.Tensor)
-              and node.dtype == torch.bfloat16):
+    for path, node in _walk(tree):
+        if isinstance(node, torch.Tensor) and node.dtype == torch.bfloat16:
             words = node.detach().cpu().contiguous().view(torch.int16)
-            flat[prefix] = {"dtype": "bfloat16",
-                            "shape": list(node.shape),
-                            "data": words.numpy().tobytes()}
+            flat[path] = {"dtype": "bfloat16", "shape": list(node.shape),
+                          "data": words.numpy().tobytes()}
         else:
             arr = _numpy(node)
-            flat[prefix] = {"dtype": str(arr.dtype), "shape": list(arr.shape),
-                            "data": arr.tobytes()}
-
-    rec("", tree)
+            flat[path] = {"dtype": str(arr.dtype), "shape": list(arr.shape),
+                          "data": arr.tobytes()}
     return flat
 
 
@@ -95,11 +101,52 @@ def read_payload(path: str) -> bytes:
     return zlib.decompress(raw)
 
 
-def restore_checkpoint(path: str) -> dict:
+def read_flat(path: str) -> dict:
     """The file as a flat ``{path: numpy array}``, in its order."""
     flat = unpackb(read_payload(path))
     return {k: np.frombuffer(v["data"], dtype=v["dtype"])
             .reshape(v["shape"]).copy() for k, v in flat.items()}
+
+
+def _tensor(entry: dict) -> torch.Tensor:
+    """One stored leaf as a CPU tensor of its stored dtype (a bfloat16
+    leaf from its raw words, with no ``ml_dtypes``)."""
+    dtype = getattr(torch, entry["dtype"])
+    if not entry["data"]:
+        return torch.empty(entry["shape"], dtype=dtype)
+    return torch.frombuffer(bytearray(entry["data"]),
+                            dtype=dtype).reshape(entry["shape"])
+
+
+def _rebuild(like, flat: dict, prefix: str = ""):
+    """``like``'s structure (dicts, lists, tuples, NamedTuples) with each
+    leaf taken from ``flat`` by its path, on the device of ``like``'s
+    leaf where that is a tensor."""
+    if isinstance(like, dict):
+        return {k: _rebuild(v, flat, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        items = [_rebuild(v, flat, f"{prefix}/__seq{i}")
+                 for i, v in enumerate(like)]
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
+    x = flat[prefix]
+    return x.to(like.device) if isinstance(like, torch.Tensor) else x
+
+
+def restore_checkpoint(path: str, like=None):
+    """The file as the reference's ``restore_checkpoint`` returns it, with
+    torch tensors for leaves: without ``like``, nested dicts keyed by path
+    segment (a sequence's items stay ``__seq{i}`` keys; a tree whose root
+    was a sequence sits under the key ``""``, as the reference's
+    ``unflatten_dict`` leaves it), on the CPU; with ``like``, ``like``'s
+    structure, each leaf matched by its path in the reference's order and
+    on the device of ``like``'s leaf. A path of ``like`` that the file
+    lacks raises ``KeyError``."""
+    flat = {k: _tensor(v) for k, v in unpackb(read_payload(path)).items()}
+    if like is None:
+        return unflatten_dict(flat)
+    return _rebuild(like, flat)
 
 
 def restore_lm_params(path: str, cfg, device=None) -> dict:
@@ -111,12 +158,8 @@ def restore_lm_params(path: str, cfg, device=None) -> dict:
     flat = unpackb(read_payload(path))
     check_lm_leaves({k: (v["dtype"], v["shape"]) for k, v in flat.items()},
                     cfg)
-    out = {}
-    for k, v in flat.items():
-        dtype = getattr(torch, v["dtype"])
-        x = torch.frombuffer(bytearray(v["data"]), dtype=dtype)
-        out[k] = x.reshape(v["shape"]).to(device)
-    return unflatten_dict(out)
+    return unflatten_dict({k: _tensor(v).to(device)
+                           for k, v in flat.items()})
 
 
 def _reference_tree(state: AgentState):
@@ -191,7 +234,7 @@ def restore_agent_state(path: str, like: AgentDef, device=None
 def _read_tree(path: str) -> dict:
     """The file as nested dicts keyed by path segment (``__seq{i}`` for a
     sequence's items)."""
-    flat = restore_checkpoint(path)
+    flat = read_flat(path)
     return unflatten_dict({k.removeprefix("/"): v for k, v in flat.items()})
 
 

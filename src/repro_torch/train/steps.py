@@ -9,9 +9,8 @@ is a plain function (no ``jit``).
   autograd, and one optimizer step (AdamW by default). CE is computed in
   sequence chunks against the shared LM head, each chunk checkpointed, so
   [B, S, V] logits are never all held for the backward. It serves every
-  config whose blocks run no SSM; RWKV-6 and Zamba2 (Mamba-2) need a
-  differentiable ``ssm_scan``, which the port does not have yet, and
-  raise.
+  config; RWKV-6 and Zamba2 (Mamba-2) train through the differentiable
+  ``ops.ssm_scan`` (the kernel forward, the plain chunked form's VJP).
 * ``make_serve_step``: one decode token against the cache, per exit.
 * ``make_prefill_step``: full-sequence forward that fills the cache.
 
@@ -38,14 +37,6 @@ class TrainState(NamedTuple):
     params: Any
     opt_state: Any
     step: torch.Tensor
-
-
-def _check_trainable(cfg: ArchConfig) -> None:
-    if cfg.ssm_kind != "none":
-        raise NotImplementedError(
-            f"training {cfg.arch_id} ({cfg.ssm_kind} blocks) needs a "
-            f"differentiable ssm_scan, which the port does not have yet: "
-            f"ops.ssm_scan is forward-only")
 
 
 def make_train_state(cfg: ArchConfig, generator: torch.Generator,
@@ -141,9 +132,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *,
     (the old params are not modified); metrics are detached 0-d tensors:
     ``loss``, ``ce_<exit>``, ``moe_aux``, ``moe_dropped``. ``on_part``,
     if given, is called with ``"forward"``, ``"backward"`` and
-    ``"optimizer"`` as each part of the step ends (a timing hook). Raises
-    ``NotImplementedError`` for RWKV-6 and Mamba-2 (Zamba2) configs."""
-    _check_trainable(cfg)
+    ``"optimizer"`` as each part of the step ends (a timing hook)."""
     loss_fn = make_loss_fn(cfg)
     mark = on_part or (lambda _: None)
 

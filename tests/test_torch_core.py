@@ -328,3 +328,19 @@ def test_replay_buffer_matches_reference():
             for f in MECGraph._fields:
                 np.testing.assert_array_equal(getattr(pg, f),
                                               np.asarray(getattr(jg, f)))
+
+
+@pytest.mark.parametrize("method", ["grle", "droo"])
+def test_agent_def_n_exits_matches_reference(method):
+    """``AgentDef.n_exits`` is the env's L in both packages (5 at the
+    paper's defaults), and the deprecated agent shim reads it."""
+    from repro.core.agent import make_agent as jax_make_agent
+    from repro.mec import MECConfig as JaxMECConfig
+    from repro_torch.core.agent import make_agent
+    from repro_torch.mec import MECConfig
+
+    want = jax_agent_def(method, JaxEnv(JaxMECConfig())).n_exits
+    adef = agent_def(method, MECEnv(MECConfig(), device="cpu"), device="cpu")
+    assert adef.n_exits == want == 5
+    assert make_agent(method, adef.env, 0).n_exits == jax_make_agent(
+        method, JaxEnv(JaxMECConfig()), jax.random.PRNGKey(0)).n_exits == 5

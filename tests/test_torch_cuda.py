@@ -21,7 +21,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as ssm_mod
 from repro_torch.mec import MECEnv, make_scenario
 from repro_torch.models import DecoderLM
-from repro_torch.nn.pytree import flatten_dict
+from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 from repro_torch.obs import hist_add, hist_init
 from repro_torch.rollout import RolloutDriver, SlotDraws
 from repro_torch.train import make_prefill_step, make_serve_step
@@ -789,6 +789,105 @@ def test_ssm_scan_refuses_what_the_kernel_cannot_take(cuda):
     torch.cuda.synchronize()
     want_y, want_s = ref.ssm_scan_ref(q, k, v, w, bonus_u=u)
     assert_scan_close(y, want_y, SSM_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rwkv", [False, True])
+def test_ssm_function_is_the_kernel_with_the_chunked_backward(cuda, rwkv,
+                                                              dtype):
+    """``ops.ssm_scan`` on inputs that require grad: one kernel launch, y
+    and the final state the kernel's bit for bit; the gradients of
+    <y, dy> + <S, dS> (the chunked plain VJP) within 1e-4 of each leaf's
+    max |g| of autograd through the sequential plain version in float32
+    on the same inputs and cotangents, beyond a bf16 gradient's own
+    rounding; that gate rejects the sequential version's gradients with
+    one chunk's decays perturbed."""
+    b, t, h, dk, dv, chunk = 2, 64, 2, 16, 16, 32
+    xs = ssm_args(cuda, dtype, b, t, h, dk, dv, rwkv=rwkv, slow=True)
+    rng = np.random.default_rng(9)
+    dy = torch.tensor(rng.standard_normal((b, t, h, dv)).astype(np.float32),
+                      device=cuda).to(dtype).float()
+    ds = torch.tensor(rng.standard_normal((b, h, dk, dv)).astype(np.float32),
+                      device=cuda)
+
+    def grads(fn, inputs):
+        leaves = [None if x is None else x.clone().requires_grad_()
+                  for x in inputs]
+        y, s = fn(*leaves)
+        loss = (y.float() * dy).sum() + (s * ds).sum()
+        return y, s, torch.autograd.grad(
+            loss, [x for x in leaves if x is not None])
+
+    before = ssm_mod.launches
+    y, s, got = grads(lambda q, k, v, w, u, s0: ops.ssm_scan(
+        q, k, v, w, u, chunk=chunk, initial_state=s0), xs)
+    torch.cuda.synchronize()
+    assert ssm_mod.launches == before + 1
+    ky, ks = ssm_mod.ssm_scan(*xs[:5], chunk=chunk, initial_state=xs[5])
+    assert torch.equal(y, ky) and torch.equal(s, ks)
+    f32 = [None if x is None else x.float() for x in xs]
+
+    def seq(q, k, v, w, u, s0):
+        return ref.ssm_scan_ref(q, k, v, w, bonus_u=u, initial_state=s0)
+
+    _, _, want = grads(seq, f32)
+    wrong_w = f32[3].clone()
+    wrong_w[:, chunk:] *= 1.05
+    _, _, wrong = grads(seq, f32[:3] + [wrong_w] + f32[4:])
+
+    def excess(gs, ws):
+        out = 0.0
+        for g, w in zip(gs, ws):
+            rnd = 2.0 ** -8 * w.abs() if g.dtype == torch.bfloat16 else 0.0
+            err = ((g.float() - w).abs() - rnd).clamp(min=0)
+            out = max(out, float(err.max()) / float(w.abs().max()))
+        return out
+
+    assert [g.dtype for g in got] == [x.dtype for x in xs if x is not None]
+    assert excess(got, want) <= 1e-4
+    assert excess(got, wrong) > 1e-4
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_2_7b"])
+def test_ssm_train_step_launches_and_matches_the_cpu(cuda, arch):
+    """A reduced RWKV-6 / Zamba2 (f32, remat, 8-row chunks) on the card: a
+    train step launches ``ssm_scan`` twice a layer (the forward and its
+    recompute) and flash once a shared-block application; the loss and
+    every gradient are the CPU route's (the plain forward, the same VJP):
+    1e-5 relative and 1e-4 of each leaf's max |g|."""
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.models.lm import n_shared_applications
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (make_loss_fn, make_train_state,
+                                         make_train_step)
+
+    cfg = get_arch(arch).reduced(remat=True, ssm_chunk=8)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 33))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = lm_params_from_numpy(lm_params_numpy(cfg, 0), cfg, dev)
+        batch = {"tokens": torch.tensor(toks[:, :-1], device=dev),
+                 "labels": torch.tensor(toks[:, 1:], device=dev)}
+        flat = {k: v.detach().clone().requires_grad_()
+                for k, v in flatten_dict(params).items()}
+        loss, _ = make_loss_fn(cfg)(unflatten_dict(flat), batch)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        state, opt = make_train_state(cfg, None, adamw(1e-5), params=params)
+        ops.reset_launch_counts()
+        _, metrics = make_train_step(cfg, opt)(state, batch)
+        torch.cuda.synchronize()
+        out[dev.type] = (float(loss), dict(zip(flat, grads)),
+                         ops.launch_counts(), float(metrics["loss"]))
+    assert out["cpu"][2]["ssm_scan"] == 0
+    assert out["cuda"][2]["ssm_scan"] == 2 * cfg.n_layers
+    assert out["cuda"][2]["flash_attention"] == n_shared_applications(cfg)
+    for i in (0, 3):
+        np.testing.assert_allclose(out["cuda"][i], out["cpu"][i], rtol=1e-5)
+    for k, g in out["cuda"][1].items():
+        want = out["cpu"][1][k].numpy()
+        err = float(np.abs(g.cpu().numpy() - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()), k
 
 
 def test_rwkv_launch_counts(cuda):

@@ -456,3 +456,67 @@ def test_exhaustive_decision_matches_reference(early_exit):
                              to_port(tasks, SlotTasks),
                              early_exit=early_exit)]))
         assert float(q[0]) >= float(q[1])
+
+
+# ---------------------------------------------- the batched env's sp
+def test_vecenv_takes_one_shared_scenario():
+    """``VecMECEnv``'s ``sample_slot``, ``observe``, ``evaluate`` and
+    ``step`` take one ``ScenarioParams`` shared by the B fleets, as the
+    reference's: on the reference's batched draws and states under a
+    scenario other than the env's own, the port gives the reference's
+    outputs (integers exactly, floats to 1e-6); ``sample_slot`` under it
+    draws what ``MECEnv.sample_slot`` draws (its deadlines the
+    reference's), and without it the env's own scenario."""
+    from repro.rollout.vecenv import VecMECEnv as JaxVecEnv
+    from repro_torch.rollout.vecenv import VecMECEnv
+
+    jenv, env = envs("fig5_baseline", n_devices=6)
+    jsp = JaxEnv(jax_scenario("dyn_topology", n_devices=6)).params
+    jsp = jsp._replace(deadline_s=jsp.deadline_s * 0.5,
+                       exit_times_s=jsp.exit_times_s * 1.5,
+                       csi_error=jsp.csi_error + 0.2,
+                       exit_acc=jsp.exit_acc * 0.9)
+    sp = ScenarioParams(*(torch.tensor(np.asarray(x)) for x in jsp))
+    b = 3
+    jvec, vec = JaxVecEnv(jenv, b), VecMECEnv(env, b)
+    jtasks = jvec.sample_slot(jvec.fleet_keys(jax.random.PRNGKey(5)), jsp)
+    rng = np.random.default_rng(6)
+    jstates = JaxState(
+        dev_free=jnp.asarray(rng.uniform(0, 0.2, (b, 6)), jnp.float32),
+        es_free=jnp.asarray(rng.uniform(0, 0.2, (b, env.N)), jnp.float32),
+        slot=jnp.full((b,), 3, jnp.int32))
+    states, tasks = to_port(jstates, MECState), to_port(jtasks, SlotTasks)
+    cands = np.stack([candidates(env, 7, s) for s in range(b)])
+
+    def same(got, want, name):
+        want = np.asarray(want)
+        if np.issubdtype(want.dtype, np.integer):
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-7, err_msg=name)
+
+    obs = vec.observe(states, tasks, sp)
+    for k, w in jvec.observe(jstates, jtasks, jsp).items():
+        same(obs[k], w, k)
+    same(vec.evaluate(states, tasks, torch.tensor(cands), sp),
+         jvec.evaluate(jstates, jtasks, jnp.asarray(cands), jsp), "Q")
+    new, res = vec.step(states, tasks, torch.tensor(cands[:, 0]), sp)
+    j_new, j_res = jvec.step(jstates, jtasks, jnp.asarray(cands[:, 0]), jsp)
+    for f in JaxState._fields:
+        same(getattr(new, f), getattr(j_new, f), f)
+    for f in j_res._fields:
+        same(getattr(res, f), getattr(j_res, f), f)
+    # without sp: the env's own scenario, which differs
+    assert not torch.equal(vec.evaluate(states, tasks, torch.tensor(cands)),
+                           vec.evaluate(states, tasks, torch.tensor(cands),
+                                        sp))
+    assert not torch.equal(vec.observe(states, tasks)["device"],
+                           obs["device"])
+    drawn = vec.sample_slot(torch.Generator().manual_seed(2), sp)
+    direct = env.sample_slot(torch.Generator().manual_seed(2), (b,), sp)
+    for x, y in zip(drawn, direct):
+        assert torch.equal(x, y)
+    same(drawn.deadline_s, jtasks.deadline_s, "deadline_s")
+    plain = vec.sample_slot(torch.Generator().manual_seed(2))
+    assert torch.equal(plain.deadline_s, env.params.deadline_s.expand(b, 6))

@@ -238,9 +238,14 @@ def test_ssm_scan_on_cpu_runs_plain_version_and_checks_shapes():
         ops.ssm_scan(*meta, chunk=16)
     with pytest.raises(ValueError, match="several devices"):
         ops.ssm_scan(q, k, v, meta[3], chunk=16)
+    # an input that requires grad: the same forward, now with a graph
+    # (tests/test_torch_train_ssm.py holds its gradients), shapes checked
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.ssm_scan(q, k, v, w, u, chunk=16)
+    yg, sg = ops.ssm_scan(q, k, v, w, u, chunk=16, initial_state=s0)
+    assert yg.grad_fn is not None and sg.grad_fn is not None
+    assert torch.equal(yg, want_y) and torch.equal(sg, want_s)
+    with pytest.raises(ValueError, match="c must divide T"):
+        ops.ssm_scan(q, k, v, w, u, chunk=32)
 
 
 # ------------------------------------------------------------------ modules

@@ -44,7 +44,8 @@ from repro_torch.rollout import RolloutDriver, SlotDraws
 from repro_torch.train import (restore_agent_state, restore_checkpoint,
                                save_agent_state)
 from repro_torch.train._msgpack import packb, unpackb
-from repro_torch.train.checkpoint import _encode_tree, read_payload
+from repro_torch.train.checkpoint import (_encode_tree, read_flat,
+                                          read_payload)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -720,10 +721,72 @@ def test_port_checkpoint_restores_in_the_reference(trained_jax_state, defs,
     payload = read_payload(path)
     flat = _encode_tree(jax_ckpt.restore_checkpoint(path, like=st))
     assert payload == packb(flat) == msgpack.packb(flat)
-    assert list(restore_checkpoint(path)) == list(
-        jax_ckpt._encode_tree(st))
+    assert list(read_flat(path)) == list(jax_ckpt._encode_tree(st))
     again = restore_agent_state(path, defs[1], device="cpu")
     assert_tree_close(again.params, port.params, rtol=0, atol=0)
+
+
+def same_tree(got, want, path=""):
+    """``got`` (torch leaves) has ``want``'s structure (JAX leaves): dict
+    keys, sequence types and lengths, and every leaf's dtype, shape and
+    values."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            same_tree(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_tree(g, w, f"{path}/{i}")
+    else:
+        w = np.asarray(want)
+        assert isinstance(got, torch.Tensor), path
+        assert str(got.dtype).removeprefix("torch.") == str(w.dtype), path
+        np.testing.assert_array_equal(got.numpy(), w, err_msg=path)
+
+
+@pytest.mark.parametrize("with_like", [False, True])
+def test_restore_checkpoint_nests_as_the_reference(tmp_path, with_like):
+    """A reference ``save_checkpoint`` of a nested param dict reads back
+    in both packages as the same tree: nested dicts without ``like``,
+    ``like``'s structure with it."""
+    tree = {"embed": {"table": np.ones((3, 2), np.float32)},
+            "blocks": {"ln1": {"scale": np.zeros(4, np.float32)}}}
+    path = str(tmp_path / "params.ckpt")
+    jax_ckpt.save_checkpoint(path, jax.tree_util.tree_map(jnp.asarray,
+                                                          tree))
+    if with_like:
+        like = {"blocks": {"ln1": {"scale": torch.full((4,), 7.0)}},
+                "embed": {"table": torch.full((3, 2), 7.0)}}
+        want = jax_ckpt.restore_checkpoint(path, like=tree)
+        got = restore_checkpoint(path, like=like)
+    else:
+        want = jax_ckpt.restore_checkpoint(path)
+        got = restore_checkpoint(path)
+    assert sorted(got) == sorted(want) == ["blocks", "embed"]
+    same_tree(got, want)
+
+
+def test_restore_checkpoint_like_an_agent_state(trained_jax_state,
+                                                tmp_path):
+    """A reference ``save_agent_state`` file restored with an
+    ``AgentState``-shaped NamedTuple of zero tensors as ``like``: the
+    NamedTuples (the state's and its replay ring's) come back with the
+    stored leaves, as the reference's ``restore_checkpoint(like=)`` gives
+    them; without ``like``, the reference's nesting (the root tuple's
+    items under ``""`` and ``__seq{i}`` keys)."""
+    _, st = trained_jax_state
+    path = str(tmp_path / "agent.ckpt")
+    jax_ckpt.save_agent_state(path, st)
+    like = jax.tree_util.tree_map(
+        lambda x: torch.zeros(np.shape(x)), st)
+    got = restore_checkpoint(path, like=like)
+    assert type(got) is type(st) and type(got.replay) is type(st.replay)
+    same_tree(got, jax_ckpt.restore_checkpoint(path, like=st))
+    same_tree(restore_checkpoint(path), jax_ckpt.restore_checkpoint(path))
+    with pytest.raises(KeyError):
+        restore_checkpoint(path, like={"params": like.params, "extra":
+                                       torch.zeros(1)})
 
 
 def test_checkpoint_readers_refuse_what_they_cannot_read(

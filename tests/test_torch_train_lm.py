@@ -52,7 +52,7 @@ sys.path.pop(0)
 torch.set_num_threads(1)
 
 ARCHS = ("llama3_2_1b", "deepseek_moe_16b", "deepseek_v2_236b",
-         "whisper_medium")
+         "whisper_medium", "rwkv6_7b", "zamba2_2_7b")
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4          # of each leaf's max |g|
 FLASH_GRAD_TOL = 1e-5
@@ -82,7 +82,7 @@ def port_run(arch):
     run = ref_run(arch)
     cfg = run["cfg"]
     cfg = get_arch(arch).reduced(exit_layers=cfg.exit_layers,
-                                 remat=cfg.remat)
+                                 remat=cfg.remat, ssm_chunk=cfg.ssm_chunk)
     params = lm_params_from_numpy(lm_params_numpy(cfg, golden_tool.LM_SEED),
                                   cfg, "cpu")
     flat = {k: v.detach().requires_grad_()
@@ -200,14 +200,24 @@ def test_lm_run_is_the_reference_train_step():
 
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_2_7b"])
 def test_ssm_configs_refuse_training(arch):
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
-        make_train_step(get_arch(arch, reduced=True), adamw(1e-3))
+    """RWKV-6 and Zamba2, which once refused training, build a train step
+    and take one: a finite loss, the step counted, every param moved
+    through the differentiable ``ops.ssm_scan``."""
+    cfg = get_arch(arch, reduced=True)
+    params = lm_params_from_numpy(lm_params_numpy(cfg, 0), cfg, "cpu")
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 17))).long()
+    state, opt = make_train_state(cfg, None, adamw(1e-3), params=params)
+    new, metrics = make_train_step(cfg, opt)(
+        state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(metrics["loss"])) and int(new.step) == 1
+    for k, x in flatten_dict(new.params).items():
+        assert not torch.equal(x, flatten_dict(params)[k]), k
 
 
 def test_every_other_config_builds_a_train_step():
+    """Every arch, the SSM ones included, builds a train step."""
     for arch in ARCH_IDS:
-        if arch in ("rwkv6_7b", "zamba2_2_7b"):
-            continue
         assert callable(make_train_step(get_arch(arch, reduced=True),
                                         adamw(1e-3)))
 

@@ -5,7 +5,8 @@ installed.
     PYTHONPATH=src python tools/make_torch_train_golden.py
 
 The LM part: for each arch of ``LM_ARCHS``, ``lm_config(arch)`` (the
-reduced config; Llama with exits (1, 2) of 2 layers and ``remat=True``),
+reduced config; Llama with exits (1, 2) of 2 layers and ``remat=True``,
+RWKV-6 and Zamba2 with ``remat=True`` and chunks of 8 rows),
 float32 params from ``repro_torch.core.bridge.lm_params_numpy(cfg,
 LM_SEED)`` (rebuilt from the seed on the card, so not stored), and
 ``LM_STEPS`` steps of the reference's ``make_train_step`` under
@@ -15,8 +16,8 @@ that the gradients are kept (``lm_run``; ``reference_train_steps`` runs
 the jitted step itself). Per arch ``a``: ``a/tokens``, ``a/labels`` [T,
 B, S] (Whisper also ``a/audio`` [T, B, frames, d]); per step ``a/loss``,
 ``a/ce_<e>``, ``a/moe_aux``, ``a/moe_dropped`` [T]; the config's
-``a/exit_layers`` and ``a/remat``; and, for a sample of ``SAMPLE``
-entries of each param leaf (``a/idx/<path>``, flat indices), each step's
+``a/exit_layers``, ``a/remat`` (and an SSM arch's ``a/ssm_chunk``);
+and, for a sample of ``SAMPLE`` entries of each param leaf (``a/idx/<path>``, flat indices), each step's
 gradient ``a/grads/<t>/<path>`` (of the reference's loss, ``jax.grad``;
 ``a/grad_max/<t>/<path>`` the leaf's max |g|) and the final params
 ``a/params/<path>``.
@@ -61,7 +62,8 @@ from repro_torch.core.bridge import (lm_params_numpy,  # noqa: E402
                                      vgg_params_numpy)
 
 PATH = os.path.join(ROOT, "tests", "data", "torch_train_golden.npz")
-LM_ARCHS = ("llama3_2_1b", "deepseek_moe_16b", "whisper_medium")
+LM_ARCHS = ("llama3_2_1b", "deepseek_moe_16b", "whisper_medium",
+            "rwkv6_7b", "zamba2_2_7b")
 LM_SEED, LM_BATCH_SEED = 0, 1
 LM_B, LM_S, LM_STEPS = 2, 16, 2
 # lr, warm-up steps, decay steps. The lr is small on purpose: Adam's first
@@ -73,7 +75,12 @@ LM_B, LM_S, LM_STEPS = 2, 16, 2
 # the params' rtol.
 LM_SCHEDULE = (1e-5, 1, 4)
 LM_WEIGHT_DECAY = 30.0
-LLAMA_KW = {"exit_layers": (1, 2), "remat": True}
+# each arch's reduced config beyond ``reduced()``'s defaults: Llama with
+# exits and remat; the SSM archs remat'd with chunks of 8 rows, so that
+# LM_S = 16 tokens run two chunks and the state carried between them
+ARCH_KW = {"llama3_2_1b": {"exit_layers": (1, 2), "remat": True},
+           "rwkv6_7b": {"remat": True, "ssm_chunk": 8},
+           "zamba2_2_7b": {"remat": True, "ssm_chunk": 8}}
 VGG_WIDTH, VGG_SEED, VGG_BATCH_SEED = 0.125, 0, 2
 # the lr is small for the reason LM_SCHEDULE's is: at 1e-3 the card's
 # cuDNN convolutions flip near-tied first steps that XLA's do not, and
@@ -91,8 +98,7 @@ def jit(fn):
 
 
 def lm_config(arch: str):
-    return get_arch(arch).reduced(
-        **(LLAMA_KW if arch == "llama3_2_1b" else {}))
+    return get_arch(arch).reduced(**ARCH_KW.get(arch, {}))
 
 
 def lm_optimizer():
@@ -239,6 +245,8 @@ def build_lm(arch: str, run=None) -> dict:
     _sampled(gold, f"{arch}/params", params, idx)
     gold[f"{arch}/exit_layers"] = np.array(cfg.exit_layers, np.int32)
     gold[f"{arch}/remat"] = np.array(cfg.remat)
+    if cfg.ssm_kind != "none":
+        gold[f"{arch}/ssm_chunk"] = np.array(cfg.ssm_chunk, np.int32)
     return gold
 
 
