@@ -2,8 +2,9 @@
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
 GQA, RWKV-6, and the rest of the model zoo: Zamba2, DeepSeek-MoE,
 DeepSeek-V2, Whisper), its serving engines, its experiment sweep, its
-population training, its profiler and cost hooks, LM training and the
-paper's multi-exit VGG-16 pipeline on one NVIDIA GPU and check them.
+population training, its profiler and cost hooks, LM training, the
+paper's multi-exit VGG-16 pipeline, the long-context window decode and
+the one-card dry run on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -323,7 +324,8 @@ order, each fatal on failure:
    llama3_2_1b --steps 20 --batch 8 --seq 256`` in-process (full width and
    depth, bf16, remat, four exits): finite losses, step ms, tokens/s,
    peak memory, and 2 x 16 flash launches a step (the wrapper over the
-   run, the profiler over one more step); then three AdamW steps on one
+   run, the profiler over one more step, up to three windows until one
+   reads them: it drops device records); then three AdamW steps on one
    batch, whose loss must fall at every step;
 36. path B, the paper's pipeline: the golden's VGG run replayed; then
    examples/torch_vgg_offloading.py's stages at VGG-16's full width:
@@ -350,10 +352,40 @@ order, each fatal on failure:
    2 x the layers and flash 9 (Zamba2's shared block), by the wrappers
    and by the profiler; then three AdamW steps on one batch, whose loss
    must fall at every step;
-39. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+39. the long-context window decode: Llama-3.2-1B under
+   ``launch/specs.py::arch_for_shape(..., INPUT_SHAPES["long_500k"])`` (an
+   8192-row window), B=1, random weights from seed 0. In float32: a
+   prefill of 8000 tokens (its ring), then 400 teacher-forced serve_step
+   calls across position 8192 (the ring wraps at step 192), and a prefill
+   of 10000 tokens (the ring rolled by 1808), then 64 steps: every step's
+   logits within CONSIST_TOL (relative L2) of the dense windowed prefill
+   of the same tokens (flash with the window), the ring rows of layers 0
+   and 15 within CONSIST_TOL of that prefill's; exactly 16 flash launches
+   a prefill and 16 decode_attention a step. The same runs in bf16 with
+   layer 0's ring gated (the last logits' relative L2 printed). In both
+   dtypes flash_attention on layer 0's inputs over 10000 tokens with the
+   window and decode_attention on a full 8192-row ring against their
+   plain versions (ATTN_TOL; bf16 flash also against its emulation within
+   FLASH_EMU_TOL; bf16 times beside the plain, library and bound times).
+   In bf16 the params, the init_cache ring over 524288 positions and
+   int32 tokens and positions are built as the dry run counts them (the
+   bytes they request from the caching allocator and memory_allocated's
+   growth kept); a prefill of 10000 tokens timed
+   (exactly 16 flash launches), then 32 steps at each exit (4, 8, 12,
+   16) timed, decode_attention exit x 32 by the wrapper, and exit x 4 by
+   the profiler over 4 more steps;
+40. the one-card dry run: ``python -m repro_torch.launch dryrun --sweep``
+   in-process: 40 ok records, each printed with its roofline time on the
+   H100 (max(flops / 989e12, bytes / 3.35e12)); llama3_2_1b x long_500k's
+   argument_size_in_bytes equal to the bytes phase 39's tensors requested,
+   and their memory_allocated growth within the allocator's rounding (512
+   B a tensor, and a cached block of up to 1 MiB more that it does not
+   split for a tensor above 1 MiB); its roofline beside the measured ms a
+   step at exit 16;
+41. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
    one ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35,
-   36 and 38 and the LM prefills and decodes), the card line again, and
-   last ``{"ok": true, "device": {...}}``.
+   36, 38 and 39 and the LM prefills and decodes), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
@@ -2436,6 +2468,29 @@ def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None,
     return out, ours, graphs
 
 
+def profiled_until(fn, want: dict, label: str):
+    """``fn()`` under ``profiled_call(lead=True)`` until a window reads the
+    kernel counts ``want`` exactly, at most PROFILE_TRIES windows: the
+    profiler drops device records of a window (the same step reads a
+    different total from window to window; in the whole script windows
+    read ~50 fewer, a scan's among them, and phase 35's read 31 of its 32
+    flash kernels once), so a count it reads can only be low, and no
+    window may read more. Returns (the last window's ``busy`` dict, its
+    reading as printed, every window's reading)."""
+    windows = []
+    for _ in range(PROFILE_TRIES):
+        busy = {}
+        _, prof, _ = profiled_call(fn, tuple(want), busy=busy, lead=True)
+        windows.append(f"{prof} of {busy['kernels']}")
+        if any(prof[k] > n for k, n in want.items()):
+            raise SystemExit(f"{label}: the profiler saw {prof} kernels, "
+                             f"more than {want}")
+        if prof == want:
+            return busy, prof, windows
+    raise SystemExit(f"{label}: no profiler window saw {want} kernels: "
+                     f"{windows}")
+
+
 def sweep_phase(dev):
     """24. ``run_sweep`` over the paper's figures, the dynamic scenarios
     and four space draws, four methods, two seeds, at the SweepSpec
@@ -4212,11 +4267,10 @@ def lm_train_phase(dev) -> dict:
                          f"launches, expected {per_step} a step")
     step_ms = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2] * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    busy = {}
     batch = out["next_batch"]()
-    _, prof, _ = profiled_call(
-        lambda: out["step_fn"](out["state"], batch), ("flash_attention",),
-        busy=busy)
+    busy, prof, windows = profiled_until(
+        lambda: out["step_fn"](out["state"], batch),
+        {"flash_attention": per_step}, "path A")
     top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
     split = train_step_split(cfg, out["state"], batch)
     print(f"  {args.arch} B={args.batch} S={args.seq} steps {args.steps}: "
@@ -4228,7 +4282,8 @@ def lm_train_phase(dev) -> dict:
     print(f"  flash launches: {counts['flash_attention']} in the run "
           f"({per_step} a step); one more step by the profiler: "
           f"{prof['flash_attention']} flash kernels of {busy['kernels']} "
-          f"CUDA kernels and copies, device {busy['device_ms']:.2f} of "
+          f"CUDA kernels and copies (windows: {'; '.join(windows)}), "
+          f"device {busy['device_ms']:.2f} of "
           f"{busy['wall_ms']:.2f} ms (busy share "
           f"{busy['device_ms'] / busy['wall_ms']:.1%}); top kernels "
           + "; ".join(f"{n[:48]} {ms:.2f} ms" for n, ms in top), flush=True)
@@ -4236,9 +4291,6 @@ def lm_train_phase(dev) -> dict:
           f"forward {split['forward']:.2f}, backward {split['backward']:.2f} "
           f"(remat and CE recomputed), AdamW {split['optimizer']:.2f}",
           flush=True)
-    if prof["flash_attention"] != per_step:
-        raise SystemExit(f"path A: the profiler saw {prof['flash_attention']}"
-                         f" flash kernels in a step, expected {per_step}")
     before, after = held_out_losses(cfg, args, out)
     print(f"  {HELD_OUT} held-out batches: mean loss {before:.6f} at the "
           f"initial params, {after:.6f} after the run ({after - before:+.6f})",
@@ -4586,27 +4638,8 @@ def ssm_train_report(label, cfg, args, out, wall) -> dict:
                              f"{args.steps} steps, expected {n} a step")
     step_ms = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2] * 1e3
     batch = out["next_batch"]()
-    # the profiler here drops device records of a window (the same step
-    # reads a different total from window to window; in the whole script
-    # windows read ~50 fewer, a scan's among them), so a count it reads can
-    # only be low: each window starts with marker kernels, the step is
-    # profiled until a window reads the wrappers' counts exactly, at most
-    # PROFILE_TRIES times, and no window may read more
-    windows = []
-    for _ in range(PROFILE_TRIES):
-        busy = {}
-        _, prof, _ = profiled_call(
-            lambda: out["step_fn"](out["state"], batch), tuple(want),
-            busy=busy, lead=True)
-        windows.append(f"{prof} of {busy['kernels']}")
-        if any(prof[k] > n for k, n in want.items()):
-            raise SystemExit(f"{label}: the profiler saw {prof} kernels in a "
-                             f"step, more than {want}")
-        if prof == want:
-            break
-    else:
-        raise SystemExit(f"{label}: no profiler window saw the step's "
-                         f"{want} kernels: {windows}")
+    busy, prof, windows = profiled_until(
+        lambda: out["step_fn"](out["state"], batch), want, label)
     top = sorted(busy["by_name"].items(), key=lambda kv: -kv[1])[:6]
     split = train_step_split(cfg, out["state"], batch, reps=2)
     print(f"  {label} B={args.batch} S={args.seq} steps {args.steps}: loss "
@@ -4688,6 +4721,402 @@ def ssm_train_phase(dev) -> dict:
         torch.cuda.empty_cache()
     print(json.dumps({"ssm_training": rows}))
     return totals
+
+
+# the long-context window decode (phase 39): Llama-3.2-1B under
+# launch/specs.py::arch_for_shape(..., INPUT_SHAPES["long_500k"]) (a window
+# of 8192 rows), B = 1, random weights from seed 0; (prefill length,
+# teacher-forced decode steps): (a) 8000 tokens, the ring wrapping at step
+# 8192 - 8000 = 192; (b) 10000 tokens, the prefill ring rolled by 10000 %
+# 8192 = 1808. WINDOW_EXIT_STEPS decode steps a timed exit, from the
+# prefill of WINDOW_RUNS[1]; the layers whose ring rows are gated in f32
+WINDOW_RUNS = ((8000, 400), (10000, 64))
+WINDOW_EXIT_STEPS = 32
+# steps a profiled window holds (the profiler's post-processing of a
+# window's ~2500 kernels a step costs seconds)
+WINDOW_PROFILED_STEPS = 4
+WINDOW_RING_LAYERS = (0, 15)
+# the caching allocator rounds every block up to a multiple of this, and
+# hands a tensor above 1 MiB a cached block whole, without splitting it,
+# when the rest would be at most this (its kSmallSize): memory_allocated
+# then counts the rest too (the whole script read +1 MiB on one tensor)
+ALLOC_ROUND = 512
+ALLOC_UNSPLIT = 1 << 20
+# phase 40's dry run: its records (under build/, which .gitignore lists)
+DRYRUN_OUT = os.path.join(ROOT, "build", "chip_smoke_dryrun.jsonl")
+
+
+def alloc_bytes():
+    """(allocated, requested) bytes of the caching allocator now: what
+    ``memory_allocated`` reads, and what the tensors asked for."""
+    st = torch.cuda.memory_stats()
+    return st["allocated_bytes.all.current"], st["requested_bytes.all.current"]
+
+
+def window_cfg(dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.specs import arch_for_shape
+    from repro_torch.models import INPUT_SHAPES
+
+    cfg = arch_for_shape(get_arch(LM_ARCH), INPUT_SHAPES["long_500k"])
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def counted(fn, want: dict, label: str) -> dict:
+    """``fn()`` with the wrappers' launch counts set to 0 just before and
+    read just after; they must equal ``want`` (other kernels: 0)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect = {k: want.get(k, 0) for k in counts}
+    if counts != expect:
+        raise SystemExit(f"{label}: launches {counts}, expected {expect}")
+    return counts
+
+
+def window_run(dev, cfg, params, gen, prefill_len, steps, launches):
+    """One teacher-forced window run: a prefill of ``prefill_len`` tokens
+    (its ring), then ``steps`` serve_step calls at the last exit, against
+    the dense windowed prefill of all prefill_len + steps tokens (flash,
+    window 8192). Returns the largest and the last step's relative L2 of
+    the logits and the relative L2 of each WINDOW_RING_LAYERS layer's ring
+    against the dense prefill's; adds the launches to ``launches``."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_serve_step
+
+    s, n = prefill_len, prefill_len + steps
+    toks = torch.randint(0, cfg.vocab, (1, n), generator=gen, device=dev)
+    out = {}
+
+    def dense():
+        h, out["dense"], _ = DecoderLM.prefill(params, cfg, toks)
+        out["want"] = DecoderLM.logits(params, h[:, s:])[0].float()
+
+    def ring():
+        _, out["cache"], _ = DecoderLM.prefill(params, cfg, toks[:, :s])
+
+    def decode():
+        step, cache = make_serve_step(cfg), out["cache"]
+        errs = []
+        for t in range(steps):
+            pos = torch.full((1,), s + t, dtype=torch.int64, device=dev)
+            logits, cache = step(params, cache, toks[:, s + t], pos)
+            want = out["want"][t]
+            errs.append(torch.linalg.vector_norm(logits[0].float() - want)
+                        / torch.linalg.vector_norm(want))
+        out["errs"] = torch.stack(errs).cpu()
+
+    for fn, want in ((dense, {"flash_attention": cfg.n_layers}),
+                     (ring, {"flash_attention": cfg.n_layers}),
+                     (decode, {"decode_attention": cfg.n_layers * steps})):
+        counted(fn, want, f"window run S={s}")
+        for k, v in want.items():
+            launches[k] += v
+    errs = out["errs"]
+    res = {"logits_max": float(errs.max()), "logits_last": float(errs[-1]),
+           "worst_step": int(errs.argmax())}
+    for i in WINDOW_RING_LAYERS:
+        for f in ("k", "v"):
+            res[f"{f}[{i}]"] = rel_l2(getattr(out["cache"]["layers"], f)[i],
+                                      getattr(out["dense"]["layers"], f)[i])
+    return res
+
+
+def window_kernel_checks(dev, cfg, params, gen):
+    """The window path's two kernels at its own shapes against their plain
+    versions (ATTN_TOL; bf16 flash also against its emulation within
+    FLASH_EMU_TOL): flash_attention on layer 0's q/k/v over 10000 tokens
+    with the 8192-row window, the plain version query-chunked (the port's
+    ``sdpa``, float32 softmax: ref.flash_attention_ref's [S, S] logits
+    would take ~13 GB a copy at this S); decode_attention on layer 0's
+    query at position 10063 against a full 8192-row ring. In bf16 the
+    kernels' times beside the plain, library and bound times. Returns each
+    kernel's error by name."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import GQAAttention, sdpa
+    from repro_torch.nn import Embedding, RMSNorm
+
+    dt, w = cfg.torch_dtype, cfg.window
+    s, steps = WINDOW_RUNS[1]
+    toks = torch.randint(0, cfg.vocab, (1, s + steps), generator=gen,
+                         device=dev)
+    layer0 = {k: v[0] for k, v in params["blocks"]["ln1"].items()}
+    attn0 = {k: {n: t[0] for n, t in v.items()}
+             for k, v in params["blocks"]["attn"].items()}
+    h = RMSNorm.apply(layer0, Embedding.apply(params["embed"], toks),
+                      eps=cfg.norm_eps)
+    positions = torch.arange(s + steps, device=dev)[None]
+    q, k, v = GQAAttention._qkv(attn0, cfg, h, positions)
+    tol = ATTN_TOL[dt]
+
+    def check(label, got, want):
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        print(f"  {label} {str(dt)[6:]}: max_abs_err {err:.3e}", flush=True)
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            raise SystemExit(f"{label} {dt}: kernel differs from plain by "
+                             f"more than {tol}; max abs error {err}")
+        return err
+
+    fq, fk, fv = q[:, :s], k[:, :s], v[:, :s]
+    pos = positions[:, :s]
+    got = flash_mod.flash_attention(fq, fk, fv, window=w)
+    torch.cuda.synchronize()
+    plain = lambda: sdpa(fq, fk, fv, pos, pos,  # noqa: E731
+                         scale=1.0 / math.sqrt(cfg.head_dim), window=w)
+    heads = f"{cfg.n_heads}, {cfg.n_kv_heads}, {cfg.head_dim}"
+    flash_label = f"flash_attention [1, {s}, {heads}] window {w}"
+    decode_label = f"decode_attention [1, {heads}, S={w}] the ring"
+    errs = {"flash_attention": check(flash_label, got, plain())}
+    if dt == torch.bfloat16:
+        emu = ref.flash_attention_bf16_emulation(fq, fk, fv, window=w)
+        e = flash_emu_err(got, emu)
+        print(f"  {flash_label} bfloat16 vs emulation {e:.3e} beyond the "
+              f"output's rounding (limit {FLASH_EMU_TOL})", flush=True)
+        if e > FLASH_EMU_TOL:
+            raise SystemExit(f"{flash_label}: kernel differs from its "
+                             f"emulation by {e} (limit {FLASH_EMU_TOL})")
+        del emu
+    # the ring as serve_step leaves it after position s + steps - 1: rows
+    # p % w for the last w positions, the last query's row written
+    last = s + steps - 1
+    slots = torch.arange(last - w + 1, last + 1, device=dev) % w
+    rk = torch.empty_like(k[:, :w])
+    rv = torch.empty_like(v[:, :w])
+    rk[:, slots], rv[:, slots] = k[:, last - w + 1:], v[:, last - w + 1:]
+    dq = q[:, last].contiguous()
+    lengths = torch.full((1,), w, dtype=torch.int32, device=dev)
+    got = decode_mod.decode_attention(dq, rk, rv, lengths)
+    torch.cuda.synchronize()
+    errs["decode_attention"] = check(
+        decode_label, got, ref.decode_attention_ref(dq, rk, rv, lengths))
+    if dt != torch.bfloat16:
+        return errs
+    mask = torch.ones((1, 1, 1, w), dtype=torch.bool, device=dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (fq, fk, fv))
+    q4, rkt, rvt = dq[:, :, None, :], rk.transpose(1, 2), rv.transpose(1, 2)
+    win_mask = ((pos[0, :, None] >= pos[0, None, :])
+                & (pos[0, :, None] - pos[0, None, :] < w))
+    for label, fn, plain_fn, lib, cost, inner in (
+            (flash_label,
+             lambda: flash_mod.flash_attention(fq, fk, fv, window=w), plain,
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=win_mask, enable_gqa=True),
+             flash_cost(fq, fk, w), 2),
+            (decode_label,
+             lambda: decode_mod.decode_attention(dq, rk, rv, lengths),
+             lambda: ref.decode_attention_ref(dq, rk, rv, lengths),
+             lambda: F.scaled_dot_product_attention(
+                 q4, rkt, rvt, attn_mask=mask, enable_gqa=True),
+             decode_cost(dq, rk, lengths), 20)):
+        ms = graph_ms(fn, inner=inner, reps=4)
+        plain_ms = graph_ms(plain_fn, inner=1, reps=2)
+        try:
+            lib_ms = f"{graph_ms(lib, inner=inner, reps=4) * 1e3:.2f} us"
+        except (RuntimeError, ValueError, TypeError) as exc:
+            lib_ms = f"n/a ({type(exc).__name__})"
+        b_ms, b_by = bound(*cost, peak_flops=peak_for(dt))
+        print(f"  {label}: kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, library {lib_ms}, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    return errs
+
+
+def window_phase(dev) -> dict:
+    """Phase 39: the long-context window decode at full width (Llama-3.2-1B,
+    window 8192, B = 1). In float32: WINDOW_RUNS through prefill and
+    serve_step, every step's logits within CONSIST_TOL (relative L2) of the
+    dense windowed prefill of the same tokens across the ring's wrap, the
+    ring rows of layers WINDOW_RING_LAYERS within CONSIST_TOL of the dense
+    prefill's; the two kernels against their plain versions. In bf16 the
+    same runs, layer 0's ring gated (deeper, bf16 drifts; the last logits'
+    relative L2 printed), the kernels again with times; params, the
+    init_cache ring and int32 tokens and positions built as the dry run
+    lays them out, the bytes they requested and memory_allocated's growth
+    kept for phase 40; a prefill
+    of WINDOW_RUNS[1][0] tokens (flash_attention = layers) timed, then
+    WINDOW_EXIT_STEPS steps at each exit timed (every exit before any
+    profiling) with decode_attention = exit a step by the wrappers, then
+    WINDOW_PROFILED_STEPS steps at each exit by the profiler (up to
+    PROFILE_TRIES windows until one reads them). Returns the launches of
+    the runs driven (kernel checks left out), each kernel's largest error at
+    the window's shapes, the bf16 ms a step by exit, the bytes requested,
+    the memory growth, and the count of tensors built (and of those above
+    1 MiB)."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_serve_step
+
+    t_phase = time.perf_counter()
+    out = {"flash_attention": 0, "decode_attention": 0,
+           "max_abs_err": {"flash_attention": 0.0, "decode_attention": 0.0}}
+    for dtype in ("float32", "bfloat16"):
+        cfg = window_cfg(dtype)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = alloc_bytes()
+        params = DecoderLM.init(gen, cfg, device=dev)
+        if dtype == "bfloat16":
+            # what the dry run's decode record counts: the params, the
+            # init_cache ring over long_500k's 524288 positions, int32
+            # tokens and positions [1]
+            cache = DecoderLM.init_cache(cfg, 1, 524288, device=dev)
+            tok_buf = torch.zeros((1,), dtype=torch.int32, device=dev)
+            pos_buf = torch.zeros((1,), dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            out["growth"], out["requested"] = (
+                a - b for a, b in zip(alloc_bytes(), base))
+            built = [*_leaves(params), *cache["layers"], tok_buf, pos_buf]
+            out["n_tensors"] = len(built)
+            out["n_large"] = sum(t.numel() * t.element_size() > ALLOC_UNSPLIT
+                                 for t in built)
+            print(f"{cfg.arch_id} bf16: window {cfg.window}, ring "
+                  f"{tuple(cache['layers'].k.shape)}; params, ring, tokens "
+                  f"and positions: {out['n_tensors']} tensors "
+                  f"({out['n_large']} above 1 MiB), requested "
+                  f"{out['requested']} B, memory_allocated grew "
+                  f"{out['growth']} B", flush=True)
+        for s, steps in WINDOW_RUNS:
+            r = window_run(dev, cfg, params, gen, s, steps, out)
+            rings = {k: v for k, v in r.items() if "[" in k}
+            print(f"  S={s} + {steps} steps (wrap at step "
+                  f"{max(0, cfg.window - s)}): logits relative L2 largest "
+                  f"{r['logits_max']:.3e} (step {r['worst_step']}), last "
+                  f"{r['logits_last']:.3e}; ring vs dense "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rings.items()),
+                  flush=True)
+            gated = dict(rings, logits=r["logits_max"]) \
+                if dtype == "float32" else {k: rings[k] for k in
+                                            ("k[0]", "v[0]")}
+            worst = max(gated.values())
+            if not worst <= CONSIST_TOL:
+                raise SystemExit(f"window {dtype} S={s}: relative L2 {worst} "
+                                 f"above {CONSIST_TOL} ({gated})")
+        print(f"  {dtype} runs done {time.perf_counter() - t_phase:.2f} s "
+              f"into the phase", flush=True)
+        for k, e in window_kernel_checks(dev, cfg, params, gen).items():
+            out["max_abs_err"][k] = max(out["max_abs_err"][k], e)
+        print(f"  {dtype} kernel checks done "
+              f"{time.perf_counter() - t_phase:.2f} s into the phase",
+              flush=True)
+        if dtype == "float32":
+            del params
+            continue
+        # timed: the prefill, then each exit from its ring, with the
+        # tensors built above
+        s = WINDOW_RUNS[1][0]
+        toks = torch.randint(0, cfg.vocab, (1, s + WINDOW_EXIT_STEPS),
+                             generator=gen, device=dev)
+        res = {}
+
+        def prefill():
+            res["t0"] = time.perf_counter()
+            _, res["ring"], _ = DecoderLM.prefill(params, cfg, toks[:, :s])
+            torch.cuda.synchronize()
+            res["ms"] = (time.perf_counter() - res["t0"]) * 1e3
+
+        counts = counted(prefill, {"flash_attention": cfg.n_layers},
+                         "window prefill")
+        out["flash_attention"] += counts["flash_attention"]
+        cache["layers"].k.copy_(res["ring"]["layers"].k)
+        cache["layers"].v.copy_(res["ring"]["layers"].v)
+        del res["ring"]
+        print(f"  prefill S={s}: {res['ms']:.3f} ms, launches {counts}",
+              flush=True)
+
+        def decode(step, steps=WINDOW_EXIT_STEPS):
+            for t in range(steps):
+                tok_buf.copy_(toks[:, s + t])
+                pos_buf.fill_(s + t)
+                step(params, cache, tok_buf, pos_buf)
+
+        steps = {e: make_serve_step(cfg, exit_layer=e)
+                 for e in cfg.exit_layers}
+        decode(steps[cfg.exit_layers[0]])       # warm-up
+        gc.collect()
+        out["ms"] = {}
+        for e, step in steps.items():
+            want = {"decode_attention": e * WINDOW_EXIT_STEPS}
+            t0 = time.perf_counter()
+            counts = counted(lambda: decode(step), want, f"window exit {e}")
+            out["ms"][e] = (time.perf_counter() - t0) / WINDOW_EXIT_STEPS * 1e3
+            out["decode_attention"] += counts["decode_attention"]
+        print(f"  timed runs: {sum(out['ms'].values()) * WINDOW_EXIT_STEPS / 1e3:.2f} s"
+              f" ({time.perf_counter() - t_phase:.2f} s into the phase)",
+              flush=True)
+        for e, step in steps.items():
+            busy, _, windows = profiled_until(
+                lambda: decode(step, WINDOW_PROFILED_STEPS),
+                {"decode_attention": e * WINDOW_PROFILED_STEPS},
+                f"window exit {e}")
+            ms = out["ms"][e]
+            print(f"  exit {e:2d}: {ms:.3f} ms/step ({1e3 / ms:.1f} tokens/s)"
+                  f"; decode_attention {e * WINDOW_EXIT_STEPS} in "
+                  f"{WINDOW_EXIT_STEPS} steps by the wrapper, "
+                  f"{windows[-1]} kernels in {WINDOW_PROFILED_STEPS} steps by "
+                  f"the profiler (windows {'; '.join(windows)}), busy share "
+                  f"{busy['device_ms'] / busy['wall_ms']:.1%}", flush=True)
+        del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(dev, window: dict) -> None:
+    """Phase 40: ``python -m repro_torch.launch dryrun --sweep`` in-process
+    into DRYRUN_OUT: 40 records, every one ok; each printed with its
+    roofline time on the H100 (max(flops / 989e12, bytes / 3.35e12), the
+    figures of mec/profiles.py); llama3_2_1b x long_500k's
+    argument_size_in_bytes equal to the bytes phase 39's tensors requested
+    from the caching allocator in bf16, and its memory_allocated growth
+    within the allocator's rounding (ALLOC_ROUND a tensor, and
+    ALLOC_UNSPLIT a tensor above it); its roofline beside the measured ms a
+    step at the last exit."""
+    from repro_torch.launch.__main__ import main as launch_main
+
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    t0 = time.perf_counter()
+    launch_main(["dryrun", "--sweep", "--out", DRYRUN_OUT])
+    wall = time.perf_counter() - t0
+    with open(DRYRUN_OUT) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [r for r in recs if not r.get("ok")]
+    if len(recs) != 40 or bad:
+        raise SystemExit(f"dryrun: {len(recs)} records, {len(bad)} not ok: "
+                         f"{bad[:1]}")
+    print(f"dryrun --sweep: 40 ok records in {wall:.2f} s (meta device)")
+    for r in recs:
+        roof = max(r["flops"] / PEAK_BF16, r["bytes_accessed"] / PEAK_BYTES)
+        print(f"  {r['arch']:18s} {r['shape']:12s} flops {r['flops']:.4e} "
+              f"bytes {r['bytes_accessed']:.4e} arguments "
+              f"{r['argument_size_in_bytes'] / 1e9:9.3f} GB, roofline "
+              f"{roof * 1e3:.4f} ms")
+    rec = next(r for r in recs
+               if (r["arch"], r["shape"]) == (LM_ARCH, "long_500k"))
+    want, got = rec["argument_size_in_bytes"], window["growth"]
+    slack = (ALLOC_ROUND * window["n_tensors"]
+             + ALLOC_UNSPLIT * window["n_large"])
+    print(f"{LM_ARCH} x long_500k: argument_size_in_bytes {want}; phase 39's "
+          f"tensors requested {window['requested']} B, memory_allocated grew "
+          f"{got} B (allowed {want}..{want + slack}: {window['n_tensors']} "
+          f"tensors x {ALLOC_ROUND} B + {window['n_large']} x "
+          f"{ALLOC_UNSPLIT} B)")
+    if window["requested"] != want or not want <= got <= want + slack:
+        raise SystemExit(f"dryrun: {want} argument bytes, but phase 39's "
+                         f"tensors requested {window['requested']} B and "
+                         f"took {got} B")
+    roof = max(rec["flops"] / PEAK_BF16, rec["bytes_accessed"] / PEAK_BYTES)
+    last = max(window["ms"])
+    print(f"{LM_ARCH} x long_500k: measured {window['ms'][last]:.3f} ms a "
+          f"step at exit {last} (bf16, phase 39) against a roofline of "
+          f"{roof * 1e3:.4f} ms ({window['ms'][last] / (roof * 1e3):.1f}x)")
 
 
 def main() -> int:
@@ -4967,7 +5396,19 @@ def main() -> int:
     ssm_train = ssm_train_phase(dev)
     print(f"phase 38 wall {time.perf_counter() - t0:.2f} s")
 
-    phase(39, "summary")
+    phase(39, "the long-context window decode: Llama-3.2-1B under "
+              "arch_for_shape(long_500k), window 8192, f32 and bf16")
+    t0 = time.perf_counter()
+    window = window_phase(dev)
+    print(f"phase 39 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(40, "the one-card dry run: python -m repro_torch.launch dryrun "
+              "--sweep")
+    t0 = time.perf_counter()
+    dryrun_phase(dev, window)
+    print(f"phase 40 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(41, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -4985,15 +5426,21 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     attn["flash_attention"]["max_abs_err"] = max(
-        attn["flash_attention"]["max_abs_err"], flash_fn["max_abs_err"])
+        attn["flash_attention"]["max_abs_err"], flash_fn["max_abs_err"],
+        window["max_abs_err"]["flash_attention"])
+    attn["decode_attention"]["max_abs_err"] = max(
+        attn["decode_attention"]["max_abs_err"],
+        window["max_abs_err"]["decode_attention"])
     ssm["max_abs_err"] = max(ssm["max_abs_err"], ssm_fn["max_abs_err"])
     launches = {"flash_attention": flash_launches
                 + zoo_totals["flash_attention"]
                 + train_counts["flash_attention"]
-                + ssm_train["flash_attention"],
+                + ssm_train["flash_attention"]
+                + window["flash_attention"],
                 "decode_attention": decode_launches
                 + zoo_totals["decode_attention"]
-                + zoo_serve["decode_attention"]}
+                + zoo_serve["decode_attention"]
+                + window["decode_attention"]}
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:70"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:56")):
@@ -5023,9 +5470,12 @@ def main() -> int:
           "31's serving path (gcn_agg and edge_score: phase 31's only), "
           "flash_attention those of phase 35's training run and of phase "
           "38's Zamba2 run, ssm_scan those of phase 38's two training runs, "
+          "flash_attention and decode_attention those of phase 39's window "
+          "runs, "
           "gcn_agg and edge_score those of phase 36's GRLE run (by the "
           "profiler); flash_attention's error also covers phase 33's "
-          "forwards at the training shapes, ssm_scan's phase 37's; the "
+          "forwards at the training shapes, both attention kernels' errors "
+          "phase 39's at the window's shapes, ssm_scan's phase 37's; the "
           "zoo's new shapes timed in phase 28:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
     print(json.dumps({"kernels": kernels}))

@@ -8,13 +8,15 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """``None`` means the card. Asking for CUDA without one raises: the
-    port never falls back to the CPU on its own; pass ``device="cpu"``."""
+    port never falls back to the CPU on its own; pass ``device="cpu"``.
+    ``"meta"`` builds shapes and dtypes without memory (the shape-only
+    trees of ``launch/specs.py``); nothing computes on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on the GPU unless asked otherwise, and "
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

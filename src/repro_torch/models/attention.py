@@ -13,7 +13,19 @@ Pallas kernel computes it in the reference. It carries MLA's dense pass
 PyTorch as in the reference (``decode_attention`` takes a group of at
 most 8 query heads, MLA has 128 over one latent). ``CrossAttention``'s
 one-token decode is ``ops.decode_attention`` over all ``Se`` encoder rows.
-The sliding-window decode cache is not ported yet and raises.
+
+Under a sliding window (``cfg.window``; ``launch/specs.py::arch_for_shape``
+sets 8192 on ``long_500k``) GQA's cache is a ring of ``min(seq_len,
+window)`` rows holding position p at slot ``p % length``, and its prefill
+cache a ``window``-row ring in the same order. A decode step attends the
+first ``min(pos + 1, length)`` rows through ``ops.decode_attention``, as
+without a window: every written row lies inside the window and softmax
+does not care about row order. This is the reference's dense path
+(``apply_dense``), which its own ring decode is not at three points
+(ROADMAP §3 item 8): an empty ring attends its zero rows, and a prefill
+cache of S rows is kept in position order (S > window) or as an S-row
+ring (S < window). MLA's decode masks rows outside the window, which the
+reference's does not (item 9); its latent cache keeps every position.
 """
 from __future__ import annotations
 
@@ -75,6 +87,19 @@ class GQACache(NamedTuple):
     v: torch.Tensor
 
 
+def ring_rows(rows, window: int):
+    """rows [B, S, ...] of positions 0..S-1 -> the ``window``-row ring that
+    holds position p at slot ``p % window``: the last ``window`` rows
+    rolled by ``S % window``, or, for S < window, rows S.. zero (not yet
+    written, and not attended before they are)."""
+    s = rows.shape[1]
+    if s >= window:
+        return torch.roll(rows[:, s - window:], s % window, dims=1)
+    ring = rows.new_zeros((rows.shape[0], window, *rows.shape[2:]))
+    ring[:, :s] = rows
+    return ring
+
+
 class GQAAttention:
     @staticmethod
     def param_shapes(cfg: ArchConfig) -> dict:
@@ -98,8 +123,9 @@ class GQAAttention:
     def apply_dense(params, cfg: ArchConfig, x, *, want_cache: bool = False):
         """Full-sequence causal attention (prefill) over positions
         ``arange(S)``: x [B,S,d] -> y [B,S,d], and with ``want_cache`` the
-        K/V of these tokens as a ``GQACache`` (the last ``window`` rows
-        under a window, as the reference's ``prefill_cache``)."""
+        K/V of these tokens as a ``GQACache``: S rows in position order,
+        or under a window the ``window``-row ring (``ring_rows``) that
+        ``apply_decode`` continues."""
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         q, k, v = GQAAttention._qkv(params, cfg, x, positions)
@@ -107,8 +133,8 @@ class GQAAttention:
         y = Linear.apply(params["wo"], out.reshape(b, s, -1))
         if not want_cache:
             return y
-        if cfg.window and s > cfg.window:
-            k, v = k[:, -cfg.window:], v[:, -cfg.window:]
+        if cfg.window:
+            k, v = ring_rows(k, cfg.window), ring_rows(v, cfg.window)
         return y, GQACache(k, v)
 
     @staticmethod
@@ -129,15 +155,19 @@ class GQAAttention:
         place** (the reference returns an updated copy); the returned cache
         is the same tensors. Attention covers the first
         ``min(pos + 1, length)`` rows, the reference's mask for a cache
-        without a window, also after ``pos`` wraps.
+        without a window, also after ``pos`` wraps. Under a window the
+        cache is the ring of at most ``window`` rows (a longer one would
+        attend rows outside the window, and raises), and the same rows are
+        the window's: the reference's dense attention.
         """
-        if cfg.window:
-            raise NotImplementedError(
-                "GQAAttention.apply_decode: the sliding-window ring buffer "
-                "is not ported yet (no ported config sets a window)")
+        length = cache.k.shape[1]
+        if cfg.window and length > cfg.window:
+            raise ValueError(
+                f"GQAAttention.apply_decode: a cache of {length} rows under "
+                f"a window of {cfg.window}; the window's cache is a ring of "
+                f"at most {cfg.window} rows (init_cache, apply_dense)")
         b = x.shape[0]
         q, k_new, v_new = GQAAttention._qkv(params, cfg, x, pos[:, None])
-        length = cache.k.shape[1]
         rows = torch.arange(b, device=x.device)
         slot = pos % length
         cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
@@ -223,7 +253,9 @@ class MLAAttention:
         (y [B,1,d], cache). The new latents are written into ``cache`` in
         place at ``min(pos, S - 1)`` (where the reference's
         ``dynamic_update_slice`` clamps), and rows ``<= pos`` are
-        attended."""
+        attended, under a window only those with ``pos - row < window``,
+        as ``apply_dense`` masks (the reference's decode ignores the
+        window: ROADMAP §3 item 9)."""
         b = x.shape[0]
         q_nope, q_pe = MLAAttention._queries(params, cfg, x, pos[:, None])
         c_new, kpe_new = MLAAttention._latents(params, cfg, x, pos[:, None])
@@ -238,7 +270,10 @@ class MLAAttention:
         logits = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c_f)
                   + torch.einsum("bqhd,bsd->bhqs", q_pe.float(),
                                  cache.k_pe.float())) * MLAAttention._scale(cfg)
-        valid = torch.arange(s_len, device=x.device)[None, :] <= pos[:, None]
+        rows_at = torch.arange(s_len, device=x.device)[None, :]
+        valid = rows_at <= pos[:, None]
+        if cfg.window:
+            valid &= pos[:, None] - rows_at < cfg.window
         logits = torch.where(valid[:, None, None, :], logits, _NEG)
         probs = torch.softmax(logits, dim=-1)
         ctx = torch.einsum("bhqs,bsr->bqhr", probs, c_f)

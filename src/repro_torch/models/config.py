@@ -1,9 +1,10 @@
 """Architecture configuration shared by every assigned model family.
 
-A copy of ``repro/models/config.py::ArchConfig`` (fields, defaults,
+A copy of ``repro/models/config.py``: ``ArchConfig`` (fields, defaults,
 ``__post_init__`` and ``reduced``), with ``torch_dtype`` in place of
-``jnp_dtype``. Pure data: a config built here equals the reference's
-field by field.
+``jnp_dtype``, and the assigned input shapes ``ShapeSpec`` /
+``INPUT_SHAPES``. Pure data: a config or shape built here equals the
+reference's field by field.
 """
 from __future__ import annotations
 
@@ -115,3 +116,24 @@ class ArchConfig:
             ch.update(enc_layers=2, n_audio_frames=16)
         ch.update(over)
         return dataclasses.replace(self, **ch)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input shape."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}

@@ -282,7 +282,8 @@ class DecoderLM:
                    dtype=None):
         """Zeroed per-layer caches, stacked: ``{"layers": cache}`` with each
         field of the block's cache NamedTuple on a leading ``n_layers``
-        axis — ``GQACache`` k, v [n_layers, B, seq_len, KVH, hd],
+        axis — ``GQACache`` k, v [n_layers, B, seq_len, KVH, hd] (under a
+        window a ring of min(seq_len, window) rows),
         ``MLACache`` c_kv [n_layers, B, seq_len, r] and k_pe, ``RWKVState``
         or ``MambaState`` (no ``seq_len`` axis); with a shared block also
         ``"shared"``, one ``GQACache`` per application on a leading axis."""
@@ -302,7 +303,10 @@ class DecoderLM:
         """tokens [B, S] -> (final-normed hidden [B,S,D], cache, aux): the
         caches stacked as ``init_cache`` lays them out — the K/V (or MLA
         latents) of each layer's ln1 output over the S tokens (see
-        ``models/blocks.py``), or each layer's recurrent state after them;
+        ``models/blocks.py``; under a window GQA's K/V as the
+        ``window``-row ring that ``serve_step`` continues,
+        ``models/attention.py::ring_rows``), or each layer's recurrent
+        state after them;
         the shared block's K/V per application — and the MoE's load-balance
         loss and dropped fraction summed over the layers (the shared
         block's not counted, as in the reference)."""

@@ -359,6 +359,22 @@ class RolloutDriver:
                          time.perf_counter() - t0)
         return self._episode.run(self, carry, draws, sp, hypers)
 
+    def run_sharded(self, seed_or_generator: Union[int, torch.Generator],
+                    n_slots: int, *, mesh=None,
+                    sp: Optional[ScenarioParams] = None,
+                    agent_state: Optional[AgentState] = None):
+        """The reference's fleet-sharded episode, on one card. With
+        ``mesh=None`` (``sharding.fleet.fleet_mesh()`` on one card) it is
+        ``run(..., mode="scan")``, the reference's own fallback; a mesh
+        raises, as the port has no fleet axis to split across cards."""
+        if mesh is not None:
+            raise ValueError(
+                "RolloutDriver.run_sharded: the port runs on one card and "
+                "shards no fleet axis; pass mesh=None (fleet_mesh() is None "
+                "here)")
+        return self.run(seed_or_generator, n_slots, mode="scan", sp=sp,
+                        agent_state=agent_state)
+
     def _check_draws(self, draws: SlotDraws, n_slots: int) -> None:
         want = (n_slots, self.n_fleets)
         if draws.rand_cands is not None and draws.gumbel is not None:

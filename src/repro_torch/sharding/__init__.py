@@ -1,6 +1,8 @@
 """Sharding (PyTorch port): the fleet/cell axis on one card
-(``sharding/fleet.py``). ``partition.py`` and ``runtime.py`` are not
-ported yet (ROADMAP item 11)."""
+(``sharding/fleet.py``). The reference's ``partition.py`` (param and cache
+partition specs over a TPU mesh) and ``runtime.py`` (its mesh toggles) are
+not ported, by design: one card has no mesh to partition over, and the
+port's remat is ``cfg.remat`` (ROADMAP, "Deliberate differences")."""
 from repro_torch.sharding.fleet import (
     FLEET_AXIS,
     fleet_mesh,

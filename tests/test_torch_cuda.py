@@ -663,6 +663,47 @@ def test_lm_launch_counts(cuda):
         assert not c["layers"].k[e:].any()
 
 
+@pytest.mark.parametrize("s", [0, 20, 40])
+def test_window_decode_on_the_card_matches_the_cpu(cuda, s):
+    """Reduced Llama (f32) under a window of 32: a prefill of ``s`` tokens
+    (none: an empty ring), then serve_step through position 63 across the
+    ring's wrap, on the card (both kernels) against the same on the CPU
+    (their plain versions, which tests/test_torch_window.py holds against
+    the reference's dense attention): logits and the ring within 1e-4;
+    flash launches one a layer, decode_attention one a layer a step."""
+    cfg = get_arch("llama3_2_1b").reduced(n_kv_heads=2, window=32)
+    n = 64
+    toks = torch.randint(0, cfg.vocab, (2, n),
+                         generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = DecoderLM.init(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        params = unflatten_dict({k: v.to(dev) for k, v in
+                                 flatten_dict(params).items()})
+        t = toks.to(dev)
+        ops.reset_launch_counts()
+        if s:
+            _, cache, _ = DecoderLM.prefill(params, cfg, t[:, :s])
+        else:
+            cache = DecoderLM.init_cache(cfg, 2, 1 << 20, device=dev)
+        step = make_serve_step(cfg)
+        out = [step(params, cache, t[:, p],
+                    torch.full((2,), p, dtype=torch.int64, device=dev))[0]
+               for p in range(s, n)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["flash_attention"] == (
+                cfg.n_layers if s else 0)
+            assert ops.launch_counts()["decode_attention"] == \
+                cfg.n_layers * (n - s)
+        runs[dev.type] = (torch.stack(out).cpu(), cache["layers"].k.cpu())
+    assert runs["cpu"][1].shape[2] == 32
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
 # --------------------------------------------------------------- ssm_scan
 # tests/test_kernels.py's ssm tolerances and grid (B, T, H, dk, dv, chunk),
 # a chunk below 16 rows, and RWKV-6-7B's head width at one sequence

@@ -57,6 +57,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.profile, repro_torch.kernels.cost\n"
             "import repro_torch.data, repro_torch.vgg, repro_torch.nn\n"
             "import repro_torch.launch.train, repro_torch.optim.schedules\n"
+            "import repro_torch.launch.specs, repro_torch.launch.analysis\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.__main__\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

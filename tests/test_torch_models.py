@@ -163,11 +163,17 @@ def test_attention_dense_and_decode_match_reference(arch):
 
 
 def test_window_decode_raises():
+    """Under a window the decode cache is a ring of at most ``window`` rows
+    (``init_cache``, the prefill ring); a longer cache would let decode
+    attend rows outside the window, and raises. The ring decode itself is
+    held in tests/test_torch_window.py."""
     cfg = dataclasses.replace(configs("llama3_2_1b")[0], window=4)
     ap = {k: {n: t[0] for n, t in v.items()} for k, v in
           params(cfg)[0]["blocks"]["attn"].items()}
-    c = GQAAttention.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
+    assert GQAAttention.init_cache(cfg, 1, 8, device="cpu").k.shape[1] == 4
+    c = GQAAttention.init_cache(dataclasses.replace(cfg, window=None), 1, 8,
+                                device="cpu")
+    with pytest.raises(ValueError, match="window"):
         GQAAttention.apply_decode(ap, cfg, torch.zeros(1, 1, cfg.d_model), c,
                                   torch.zeros(1, dtype=torch.int64))
 
