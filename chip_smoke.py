@@ -1,10 +1,11 @@
 """Drive repro_torch's GRLE decision and training paths, the paper's
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
 GQA, RWKV-6, and the rest of the model zoo: Zamba2, DeepSeek-MoE,
-DeepSeek-V2, Whisper), its serving engines, its experiment sweep, its
-population training, its profiler and cost hooks, LM training, the
-paper's multi-exit VGG-16 pipeline, the long-context window decode and
-the one-card dry run on one NVIDIA GPU and check them.
+DeepSeek-V2, Whisper; StableLM-3B, InternLM2-20B and Chameleon-34B at
+full width), its serving engines, its experiment sweep, its population
+training, its profiler and cost hooks, LM training, the paper's
+multi-exit VGG-16 pipeline, the long-context window decode, the one-card
+dry run and the examples on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -260,7 +261,7 @@ order, each fatal on failure:
    member-slots/s, ms a slot per member, the first generation's build and
    capture seconds, the evaluation's seconds and rewards;
 27. observability: ``python -m repro_torch.launch.profile --devices 14
-   --episodes 2 --trace`` on the card: its run log holds manifest,
+   --episodes 2 --slots 80 --trace`` on the card: its run log holds manifest,
    episode, episode, compile, the compile event one episode and two
    graphs, and its trace file ``gcn_agg`` kernel records and the
    ``obs/<phase>`` spans; ``obs.cost.hot_program_costs(quick=True)`` on
@@ -382,10 +383,35 @@ order, each fatal on failure:
    B a tensor, and a cached block of up to 1 MiB more that it does not
    split for a tensor above 1 MiB); its roofline beside the measured ms a
    step at exit 16;
-41. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
-   one ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35,
-   36, 38 and 39 and the LM prefills and decodes), the card line again,
-   and last ``{"ok": true, "device": {...}}``.
+41. (run right after phase 2, where the allocator is cleanest) the three
+   dense configs never run elsewhere at full width: first flash_attention
+   at [4, 2048, 48 | 64, 8, 128] causal and decode_attention at [8, 48 |
+   64, 8, 128, S=256] (InternLM2's and Chameleon's GQA; StableLM's shapes
+   are phase 28's) against their plain versions as in phase 28, bf16
+   times; then Chameleon-34B, InternLM2-20B and StableLM-3B one at a
+   time, bf16, random weights from seed 0: DecoderLM.init's peak
+   allocation at most 2 x launch/analysis.py's _param_count + 2 GB, both
+   printed (StableLM's params also equal bit for bit to the old init's
+   stacked draws); a prefill at B=4, S=2048 with exactly n_layers flash
+   launches and its peak memory; greedy decoding as in phase 9 at every
+   exit, prompts of 16..32 tokens (decode_attention exit x steps);
+   prefill against teacher-forced decode over 2 x 128 tokens, every
+   layer's K and V printed, layer 0 within 2e-2; then in float32 at full
+   width with the depth cut to 4 layers, every layer and the logits
+   within 2e-3;
+42. the six examples ported from the reference in-process at their
+   defaults (examples/torch_quickstart.py, torch_scenario_fleet.py,
+   torch_sweep_paper_figures.py, torch_pop_curriculum.py's compare,
+   torch_edge_serving.py --decode, torch_train_100m.py --steps 30),
+   each with its wall time and rate and its wrappers' launches gated (see
+   examples_phase), the population's margin printed and its sign not
+   gated, the 100M trainer's one-batch loss falling and its checkpoint
+   read back equal;
+43. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+   one ``{"dense_kernel_shapes": [...]}`` line (phase 41's), one
+   ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35, 36,
+   38, 39, 41 and 42 and the LM prefills and decodes), the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
@@ -400,6 +426,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -998,7 +1025,8 @@ def _leaves(tree):
 
 
 def prefill_phase(dev, cfg, params, gen):
-    """Phase 8: one full-width prefill, its launches counted."""
+    """Phase 8: one full-width prefill, its launches counted -> (flash
+    launches, ms)."""
     from repro_torch.kernels import ops
     from repro_torch.train import make_prefill_step
 
@@ -1018,15 +1046,16 @@ def prefill_phase(dev, cfg, params, gen):
           f"{counts}")
     if (counts["flash_attention"] != cfg.n_layers
             or counts["decode_attention"] or counts["ssm_scan"]):
-        raise SystemExit(f"prefill launches {counts}: expected "
-                         f"flash_attention {cfg.n_layers}, decode_attention 0")
+        raise SystemExit(f"{cfg.arch_id} prefill launches {counts}: "
+                         f"expected flash_attention {cfg.n_layers}, "
+                         f"decode_attention 0")
     kv = (cfg.n_layers, PREFILL_B, PREFILL_S, cfg.n_kv_heads, cfg.head_dim)
     if (tuple(logits.shape) != (PREFILL_B, cfg.vocab)
             or not bool(torch.isfinite(logits).all())
             or tuple(cache["layers"].k.shape) != kv
             or not bool(torch.isfinite(cache["layers"].k).all())):
-        raise SystemExit("prefill output malformed")
-    return counts["flash_attention"]
+        raise SystemExit(f"{cfg.arch_id} prefill output malformed")
+    return counts["flash_attention"], wall * 1e3
 
 
 def greedy_decode(params, step, cache, prompt_mat, lens, max_new):
@@ -1051,15 +1080,18 @@ def greedy_decode(params, step, cache, prompt_mat, lens, max_new):
             for i in range(b)], total
 
 
-def serve_phase(dev, cfg, params, gen):
-    """Phase 9: greedy decoding at every exit, launches counted; then one
-    serve_step per exit at B=64 against a 4096-row cache."""
+def greedy_exits(dev, cfg, params, prompt_lens=PROMPT_LENS) -> tuple:
+    """Greedy decoding of SERVE_B prompts of ``prompt_lens`` tokens (numpy
+    seed SEED), SERVE_NEW new tokens each, against a SERVE_CACHE-row cache
+    at every exit: decode_attention launches exactly exit x steps, no
+    flash launch, no cache row past the exit written. Returns (the decode
+    launches, {exit: ms a step})."""
     from repro_torch.kernels import ops
     from repro_torch.models import DecoderLM
-    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.train import make_serve_step
 
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_B)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=SERVE_B)
     total = int(lens.max()) + SERVE_NEW
     mat = np.zeros((SERVE_B, total), np.int64)
     for i, n in enumerate(lens):
@@ -1090,14 +1122,26 @@ def serve_phase(dev, cfg, params, gen):
               f"launches {counts}", flush=True)
         if (counts["decode_attention"] != e * steps
                 or counts["flash_attention"]):
-            raise SystemExit(f"exit {e}: launches {counts}, expected "
-                             f"decode_attention {e * steps}")
+            raise SystemExit(f"{cfg.arch_id} exit {e}: launches {counts}, "
+                             f"expected decode_attention {e * steps}")
         if any(len(o) != SERVE_NEW or o.min() < 0 or o.max() >= cfg.vocab
                for o in outs):
-            raise SystemExit(f"exit {e}: generated tokens malformed")
+            raise SystemExit(f"{cfg.arch_id} exit {e}: generated tokens "
+                             f"malformed")
         if cache["layers"].k[e:].any():
-            raise SystemExit(f"exit {e}: a layer past the exit wrote the cache")
+            raise SystemExit(f"{cfg.arch_id} exit {e}: a layer past the exit "
+                             f"wrote the cache")
         del cache
+    return decode_launches, rows
+
+
+def serve_phase(dev, cfg, params, gen):
+    """Phase 9: greedy decoding at every exit, launches counted; then one
+    serve_step per exit at B=64 against a 4096-row cache."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    decode_launches, _ = greedy_exits(dev, cfg, params)
 
     # one serve_step against a 4096-row cache filled by a prefill
     prefill = make_prefill_step(cfg)
@@ -1129,17 +1173,19 @@ def serve_phase(dev, cfg, params, gen):
     return decode_launches
 
 
-def consistency_phase(dev, cfg, params, gen):
-    """Phase 10: prefill against teacher-forced decode on the same tokens."""
+def decode_vs_prefill(dev, cfg, params, gen, n_tokens) -> dict:
+    """A CONSIST_B x ``n_tokens`` prefill against the same tokens
+    teacher-forced through serve_step: relative L2 of the last logits and
+    of every layer's K and V (``k[i]``, ``v[i]``), printed and returned."""
     from repro_torch.models import DecoderLM
     from repro_torch.train import make_prefill_step, make_serve_step
 
-    toks = torch.randint(0, cfg.vocab, (CONSIST_B, CONSIST_P), generator=gen,
+    toks = torch.randint(0, cfg.vocab, (CONSIST_B, n_tokens), generator=gen,
                          device=dev)
     logits_p, cache_p = make_prefill_step(cfg)(params, {"tokens": toks})
     step = make_serve_step(cfg)
-    cache_d = DecoderLM.init_cache(cfg, CONSIST_B, CONSIST_P, device=dev)
-    for t in range(CONSIST_P):
+    cache_d = DecoderLM.init_cache(cfg, CONSIST_B, n_tokens, device=dev)
+    for t in range(n_tokens):
         logits_d, cache_d = step(params, cache_d, toks[:, t],
                                  torch.full((CONSIST_B,), t,
                                             dtype=torch.int64, device=dev))
@@ -1147,8 +1193,15 @@ def consistency_phase(dev, cfg, params, gen):
     for i in range(cfg.n_layers):
         errs[f"k[{i}]"] = rel_l2(cache_d["layers"].k[i], cache_p["layers"].k[i])
         errs[f"v[{i}]"] = rel_l2(cache_d["layers"].v[i], cache_p["layers"].v[i])
-    print("relative L2, decode vs prefill: " + ", ".join(
-        f"{k} {v:.2e}" for k, v in errs.items()))
+    print(f"relative L2, decode vs prefill ({cfg.dtype}, {cfg.n_layers} "
+          f"layers, {CONSIST_B} x {n_tokens} tokens): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    return errs
+
+
+def consistency_phase(dev, cfg, params, gen):
+    """Phase 10: prefill against teacher-forced decode on the same tokens."""
+    errs = decode_vs_prefill(dev, cfg, params, gen, CONSIST_P)
     worst = max(errs.values())
     if not worst <= CONSIST_TOL:
         raise SystemExit(f"consistency: relative L2 {worst} above "
@@ -1838,6 +1891,42 @@ def check_final_state(gold, fin, label):
         raise SystemExit(f"{label}: Adam step count differs")
 
 
+# the records prof.events() leaves out (torch.autograd.profiler_util.
+# _filter_name); none of them is a kernel
+_UNPARSED = frozenset({
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"})
+
+
+class Record(NamedTuple):
+    name: str
+    on_device: bool     # a CUDA kernel, copy or span, not a host call
+    start_ns: int
+    us: float
+    corr: int           # a kernel's and its launch's correlation id
+
+
+def profiler_records(prof) -> list:
+    """A closed torch.profiler window's records, read from the profiler's
+    raw results with the names, device types, times and ids that
+    ``prof.events()`` gives them: ``prof.events()`` builds an event tree at
+    ~70 µs a record, most of the time a window of ~10^5 kernels takes. The
+    tree also drops a host op nested in one of the same name; the readers
+    here count device records and cudaGraphLaunch calls, which it keeps."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.name() in _UNPARSED
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        out.append(Record(e.name(), e.device_type() == cuda, e.start_ns(),
+                          (e.end_ns() - e.start_ns()) / 1e3,
+                          e.correlation_id()))
+    return out
+
+
 def cuda_launches(fn) -> int:
     """CUDA kernels (and copies) one ``fn()`` runs, by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -1847,8 +1936,7 @@ def cuda_launches(fn) -> int:
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILER_TAIL_S)
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for e in prof.events() if e.device_type == cuda)
+    return sum(1 for r in profiler_records(prof) if r.on_device)
 
 
 def train_step_parts(adef, state, gen, reps=20):
@@ -2002,24 +2090,23 @@ def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED, **run_kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(PROFILER_TAIL_S)
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    launches = sorted((e.time_range.start, e.id) for e in events
-                      if e.name == "cudaGraphLaunch")
+    records = profiler_records(prof)
+    launches = sorted((r.start_ns, r.corr) for r in records
+                      if r.name == "cudaGraphLaunch")
     slot_of = {corr: i for i, (_, corr) in enumerate(launches)}
     per_launch = [[0, 0] for _ in launches]
     ours = {"gcn_agg": 0, "edge_score": 0}
     busy_us, kernels = 0.0, 0
-    for e in events:
-        if e.device_type != cuda or e.name in SPANS:
+    for r in records:
+        if not r.on_device or r.name in SPANS:
             continue
         kernels += 1
-        busy_us += e.time_range.elapsed_us()
+        busy_us += r.us
         for j, k in enumerate(ours):
-            if f"{k}_kernel" in e.name:
+            if f"{k}_kernel" in r.name:
                 ours[k] += 1
-                if e.id in slot_of:
-                    per_launch[slot_of[e.id]][j] += 1
+                if r.corr in slot_of:
+                    per_launch[slot_of[r.corr]][j] += 1
     return (out, ours, per_launch, kernels, len(launches),
             busy_us / (wall * 1e6))
 
@@ -2447,21 +2534,19 @@ def profiled_call(fn, names=("gcn_agg", "edge_score"), *, busy=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(PROFILER_TAIL_S)
-    cuda = torch.autograd.DeviceType.CUDA
     ours = {k: 0 for k in names}
     graphs, by_name = 0, {}
     n_kernels = 0
-    for e in prof.events():
-        if e.name == "cudaGraphLaunch":
+    for r in profiler_records(prof):
+        if r.name == "cudaGraphLaunch":
             graphs += 1
-        elif e.device_type == cuda and LEAD_MARKER not in e.name:
+        elif r.on_device and LEAD_MARKER not in r.name:
             for k in ours:
-                ours[k] += any(sym in e.name for sym in
+                ours[k] += any(sym in r.name for sym in
                                KERNEL_SYMBOLS.get(k, (f"{k}_kernel",)))
-            if e.name not in SPANS:
+            if r.name not in SPANS:
                 n_kernels += 1
-                by_name[e.name] = by_name.get(e.name, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3
+                by_name[r.name] = by_name.get(r.name, 0.0) + r.us / 1e3
     if busy is not None:
         busy.update(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
                     kernels=n_kernels, by_name=by_name)
@@ -2955,61 +3040,69 @@ def serve_path_phase(dev):
 
 
 # ------------------------------------------------------------------ the zoo
-def zoo_kernels_phase(dev):
-    """Phase 28: flash_attention, decode_attention and ssm_scan at the
-    zoo's new shapes against their plain versions (ATTN_TOL, SSM_TOL) and,
-    in bf16, their emulations (FLASH_EMU_TOL; ref.SSM_EMU_TOL and
-    SSM_EMU_STATE_TOL); in bf16 kernel (CUDA-graph replay), plain and
-    library times and the bound. Returns one row per timed shape."""
+def normal_on(gen, dtype, *shape, scale=1.0, shift=0.0):
+    """N(shift, scale) from ``gen`` on its device, cast to ``dtype``."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            + shift).to(dtype)
+
+
+def attn_check(kernel, label, dtype, got, want):
+    """A kernel's output against its plain version within ATTN_TOL (atol
+    and rtol); returns the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    tol = ATTN_TOL[dtype]
+    err = float(diff.max())
+    print(f"  {kernel:16s} {label:40s} {str(dtype)[6:]:8s} max_abs_err "
+          f"{err:.3e}", flush=True)
+    if not bool((diff <= tol + tol * want.float().abs()).all()):
+        raise SystemExit(f"{kernel} {label} {dtype}: kernel differs from "
+                         f"plain by more than {tol} (rtol and atol)")
+    return err
+
+
+def timed_row(kernel, label, fn, plain, library, cost, dtype, inner, reps,
+              plain_ms=None):
+    """Kernel, plain and library times (CUDA-graph replay) and the bound of
+    one call, printed; the row of a timed shape."""
+    ms = graph_ms(fn, inner=inner, reps=reps)
+    if plain_ms is None:
+        plain_ms = graph_ms(plain, inner=inner, reps=reps)
+    lib_ms = None if library is None else graph_ms(library, inner=inner,
+                                                   reps=reps)
+    b_ms, b_by = bound(*cost, peak_flops=peak_for(dtype))
+    lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:9.2f} us"
+    print(f"  {kernel:16s} {label:40s} kernel {ms * 1e3:9.2f} us  plain "
+          f"{plain_ms * 1e3:9.2f} us  library {lib}  bound "
+          f"{b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
+          f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
+    return dict(name=kernel, shape=label, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def attention_rows(dev, gen, flash_cases, decode_cases) -> list:
+    """flash_attention at ``flash_cases`` (((B, S, H, KVH, d), causal))
+    and decode_attention at ``decode_cases`` (((B, H, KVH, d, S), lengths
+    "random" from numpy seed SEED in [1, S] or "full")), each in bf16 and
+    float32 on N(0, 1) inputs from ``gen``, against their plain versions
+    (ATTN_TOL) and, flash in bf16, its emulation (FLASH_EMU_TOL); in bf16
+    kernel, plain and library times and the bound. Returns one row per
+    shape (its bf16 times, the larger of its two errors)."""
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels import ssm_scan as ssm_mod
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def normal(dtype, *shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale
-                + shift).to(dtype)
-
-    def attn_check(kernel, label, dtype, got, want):
-        diff = (got.float() - want.float()).abs()
-        tol = ATTN_TOL[dtype]
-        err = float(diff.max())
-        print(f"  {kernel:16s} {label:40s} {str(dtype)[6:]:8s} max_abs_err "
-              f"{err:.3e}", flush=True)
-        if not bool((diff <= tol + tol * want.float().abs()).all()):
-            raise SystemExit(f"{kernel} {label} {dtype}: kernel differs from "
-                             f"plain by more than {tol} (rtol and atol)")
-        return err
-
-    def timed(kernel, label, fn, plain, library, cost, dtype, inner, reps,
-              plain_ms=None):
-        ms = graph_ms(fn, inner=inner, reps=reps)
-        if plain_ms is None:
-            plain_ms = graph_ms(plain, inner=inner, reps=reps)
-        lib_ms = None if library is None else graph_ms(library, inner=inner,
-                                                       reps=reps)
-        b_ms, b_by = bound(*cost, peak_flops=peak_for(dtype))
-        lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:9.2f} us"
-        print(f"  {kernel:16s} {label:40s} kernel {ms * 1e3:9.2f} us  plain "
-              f"{plain_ms * 1e3:9.2f} us  library {lib}  bound "
-              f"{b_ms * 1e3:8.2f} us ({b_by}, {cost[0] / 1e6:.1f} MB, "
-              f"{cost[1] / 1e9:.2f} GFLOP)", flush=True)
-        return dict(name=kernel, shape=label, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
     rows = []
-    for (b, s, h, kvh, d), causal in ((ZAMBA_ATTN, True),
-                                      (WHISPER_ENC, False)):
+    for (b, s, h, kvh, d), causal in flash_cases:
         label = f"[{b}, {s}, {h}, {kvh}, {d}] {'causal' if causal else 'no mask'}"
+        row, errs = None, []
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = normal(dt, b, s, h, d), normal(dt, b, s, kvh, d), \
-                normal(dt, b, s, kvh, d)
+            q, k, v = (normal_on(gen, dt, b, s, h, d),
+                       normal_on(gen, dt, b, s, kvh, d),
+                       normal_on(gen, dt, b, s, kvh, d))
             got = flash_mod.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             plain = ref.flash_attention_ref(q, k, v, causal=causal)
-            err = attn_check("flash_attention", label, dt, got, plain)
+            errs.append(attn_check("flash_attention", label, dt, got, plain))
             del plain
             if dt != torch.bfloat16:
                 continue
@@ -3023,43 +3116,65 @@ def zoo_kernels_phase(dev):
                                  f"from its emulation by {e} (limit "
                                  f"{FLASH_EMU_TOL})")
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            rows.append(dict(timed(
+            row = timed_row(
                 "flash_attention", label,
                 lambda: flash_mod.flash_attention(q, k, v, causal=causal),
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal),
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True),
-                flash_cost(q, k, None, causal), dt, inner=5, reps=4),
-                max_abs_err=err))
-            del q, k, v, qt, kt, vt, got
+                flash_cost(q, k, None, causal), dt, inner=5, reps=4)
+            del qt, kt, vt
+        rows.append(dict(row, max_abs_err=max(errs)))
+        del q, k, v, got
 
     lens_rng = np.random.default_rng(SEED)
-    for (b, h, kvh, d, s), kind in ((ZAMBA_DECODE, "random"),
-                                    (WHISPER_CROSS, "full")):
+    for (b, h, kvh, d, s), kind in decode_cases:
         lens = (np.full(b, s) if kind == "full"
                 else lens_rng.integers(1, s + 1, size=b))
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         label = f"[{b}, {h}, {kvh}, {d}, S={s}] lengths {kind}"
+        row, errs = None, []
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = normal(dt, b, h, d), normal(dt, b, s, kvh, d), \
-                normal(dt, b, s, kvh, d)
+            q, k, v = (normal_on(gen, dt, b, h, d),
+                       normal_on(gen, dt, b, s, kvh, d),
+                       normal_on(gen, dt, b, s, kvh, d))
             got = decode_mod.decode_attention(q, k, v, lengths)
             torch.cuda.synchronize()
-            err = attn_check("decode_attention", label, dt, got,
-                             ref.decode_attention_ref(q, k, v, lengths))
+            errs.append(attn_check("decode_attention", label, dt, got,
+                                   ref.decode_attention_ref(q, k, v,
+                                                            lengths)))
             if dt != torch.bfloat16:
                 continue
             mask = (torch.arange(s, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
             q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-            rows.append(dict(timed(
+            row = timed_row(
                 "decode_attention", label,
                 lambda: decode_mod.decode_attention(q, k, v, lengths),
                 lambda: ref.decode_attention_ref(q, k, v, lengths),
                 lambda: F.scaled_dot_product_attention(
                     q4, kt, vt, attn_mask=mask, enable_gqa=True),
-                decode_cost(q, k, lengths), dt, inner=20, reps=10),
-                max_abs_err=err))
+                decode_cost(q, k, lengths), dt, inner=20, reps=10)
+        rows.append(dict(row, max_abs_err=max(errs)))
+    return rows
+
+
+def zoo_kernels_phase(dev):
+    """Phase 28: flash_attention, decode_attention and ssm_scan at the
+    zoo's new shapes against their plain versions (ATTN_TOL, SSM_TOL) and,
+    in bf16, their emulations (FLASH_EMU_TOL; ref.SSM_EMU_TOL and
+    SSM_EMU_STATE_TOL); in bf16 kernel (CUDA-graph replay), plain and
+    library times and the bound. Returns one row per timed shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(dtype, *shape, scale=1.0, shift=0.0):
+        return normal_on(gen, dtype, *shape, scale=scale, shift=shift)
+
+    rows = attention_rows(dev, gen, ((ZAMBA_ATTN, True), (WHISPER_ENC, False)),
+                          ((ZAMBA_DECODE, "random"), (WHISPER_CROSS, "full")))
 
     # ssm_scan with Mamba-2's read-out (no bonus) at Zamba2's prefill
     # shape: one decay per head, as Mamba-2's dt a; fast decays, then slow
@@ -3098,7 +3213,7 @@ def zoo_kernels_phase(dev):
         del emu_y, emu_s, want_s
         if not slow:
             plain_ms = event_ms(lambda: ref.ssm_scan_ref(q, k, v, log_w))
-            rows.append(dict(timed(
+            rows.append(dict(timed_row(
                 "ssm_scan", label,
                 lambda: ssm_mod.ssm_scan(q, k, v, log_w, None, chunk=c),
                 None, None, ssm_cost(q, v, log_w, None, None), dt, inner=5,
@@ -3756,6 +3871,12 @@ def pop_phase(dev):
     print(f"phase 26 wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# phase 27's profiled episodes: 80 slots each, cut from the CLI's 200 to
+# keep the script inside its time limit (reading the trace was most of
+# the phase)
+PROFILE_CLI_SLOTS = 80
+
+
 def obs_phase(dev):
     """27. The profile CLI's trace and run log; hot program costs, card and
     CPU."""
@@ -3766,7 +3887,8 @@ def obs_phase(dev):
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.profile", "--devices",
-           "14", "--episodes", "2", "--trace", "--out", out]
+           "14", "--episodes", "2", "--slots", str(PROFILE_CLI_SLOTS),
+           "--trace", "--out", out]
     p = subprocess.run(cmd, capture_output=True, text=True, env=env,
                        cwd=ROOT, timeout=600)
     print(p.stdout.strip())
@@ -4316,11 +4438,11 @@ def lm_train_phase(dev) -> dict:
     return counts
 
 
-def _vgg_example():
+def load_example(name):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
     import importlib.util
-    path = os.path.join(ROOT, "examples", "torch_vgg_offloading.py")
-    spec = importlib.util.spec_from_file_location("torch_vgg_offloading",
-                                                  path)
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4343,7 +4465,7 @@ def vgg_path_phase(dev) -> dict:
     print(f"  VGG golden: loss rel err {out['loss_err']:.3e}, params by the "
           f"Adam rule, near-ties {out['ties']} of {out['params']} sampled "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    ex = _vgg_example()
+    ex = load_example("torch_vgg_offloading")
     args = ex.parse_args(["--slots", str(VGG_SLOTS)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5119,6 +5241,446 @@ def dryrun_phase(dev, window: dict) -> None:
           f"{roof * 1e3:.4f} ms ({window['ms'][last] / (roof * 1e3):.1f}x)")
 
 
+# ------------------------------------------- the three dense configs (41)
+# StableLM-3B, InternLM2-20B and Chameleon-34B at full width, bf16, one at
+# a time, Chameleon first: its 68.6 GB of weights run right after the
+# build, where the allocator is cleanest (RWKV-6 at 11 layers ran out of
+# memory after the script's earlier phases)
+DENSE_MODELS = ("chameleon_34b", "internlm2_20b", "stablelm_3b")
+# their float32 consistency runs at full width with the depth cut to this
+DENSE_F32_LAYERS = 4
+# init's peak may pass the bf16 params' bytes (2 x launch/analysis.py's
+# _param_count) by at most this: the float32 draw of one matrix
+INIT_SLACK = 2e9
+# the model whose init is also held against the stacked draws on the card
+# (both sets of params fit beside each other)
+STACK_CHECK_ARCH = "stablelm_3b"
+# the kernels at the GQA configs' shapes: prefill (InternLM2: 48 heads
+# over 8, Chameleon: 64 over 8, d = 128) and decode at the serve batch;
+# StableLM's (32 over 32, d = 80) are phase 28's ZAMBA_ATTN and
+# ZAMBA_DECODE
+DENSE_FLASH = (((PREFILL_B, PREFILL_S, 48, 8, 128), True),
+               ((PREFILL_B, PREFILL_S, 64, 8, 128), True))
+DENSE_DECODE = (((SERVE_B, 48, 8, 128, SERVE_CACHE), "random"),
+                ((SERVE_B, 64, 8, 128, SERVE_CACHE), "random"))
+
+
+def stacked_init(gen, cfg, dev):
+    """``DecoderLM.init`` with every dense ``w`` leaf built as before the
+    init wrote each matrix into its slice: each Xavier matrix drawn and
+    cast, then the list stacked (twice the leaf at once)."""
+    from repro_torch.models import lm
+
+    new_leaf = lm._init_leaf
+
+    def leaf(generator, name, shape, *, device, dtype):
+        if name != "w":
+            return new_leaf(generator, name, shape, device=device,
+                            dtype=dtype)
+        limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+        mats = [(torch.rand(shape[-2:], generator=generator, device=device)
+                 * (2.0 * limit) - limit).to(dtype)
+                for _ in range(math.prod(shape[:-2]))]
+        return torch.stack(mats).reshape(shape)
+
+    lm._init_leaf = leaf
+    try:
+        return lm.DecoderLM.init(gen, cfg, device=dev)
+    finally:
+        lm._init_leaf = new_leaf
+
+
+def same_bits(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                   else torch.int32),
+                            b.view(torch.int16 if b.element_size() == 2
+                                   else torch.int32)))
+
+
+def dense_model_phase(dev, arch) -> tuple:
+    """Phase 41, one model: ``DecoderLM.init`` at full width in bf16
+    (random weights from seed 0), its peak allocation at most the bf16
+    params' bytes + INIT_SLACK (and, for STACK_CHECK_ARCH, equal bit for
+    bit to the stacked draws); a PREFILL_B x PREFILL_S prefill (flash
+    launches one a layer); greedy decoding at every exit (greedy_exits,
+    prompts of ZOO_PROMPT_LENS tokens, 32 new ones); prefill against
+    teacher-forced decode over ZOO_CONSIST_P tokens, every
+    layer printed, layer 0 within CONSIST_TOL; then float32 at full width
+    cut to DENSE_F32_LAYERS layers, every layer and the logits within
+    CONSIST_F32_TOL. Returns (launch totals, a summary row)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.analysis import _param_count
+    from repro_torch.models import DecoderLM
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = DecoderLM.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    leaves = list(_leaves(params))
+    n = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    counted = _param_count(cfg)["total"]
+    limit = 2 * counted + INIT_SLACK
+    print(f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, exits "
+          f"{cfg.exit_layers}, {cfg.dtype}; {n / 1e9:.3f} B params "
+          f"({nbytes / 1e9:.3f} GB) drawn in {init_s:.2f} s; init peak "
+          f"{peak / 1e9:.3f} GB (allocated before it {base / 1e9:.3f} GB), "
+          f"limit 2 x _param_count {counted / 1e9:.3f} B + "
+          f"{INIT_SLACK / 1e9:.0f} GB = {limit / 1e9:.3f} GB", flush=True)
+    if peak > limit:
+        raise SystemExit(f"{arch}: init peaked at {peak} bytes, above "
+                         f"{limit}")
+    torch.cuda.empty_cache()
+    if arch == STACK_CHECK_ARCH:
+        old = stacked_init(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+        same = all(same_bits(a, b) for a, b in zip(leaves, _leaves(old)))
+        print(f"  init == the stacked draws, bit for bit, on the card: "
+              f"{same}", flush=True)
+        if not same:
+            raise SystemExit(f"{arch}: the slice-written init differs from "
+                             f"the stacked draws")
+        del old
+        torch.cuda.empty_cache()
+    row = {"arch": cfg.arch_id, "params_b": n / 1e9, "init_s": init_s,
+           "init_peak_gb": peak / 1e9, "init_limit_gb": limit / 1e9}
+
+    torch.cuda.reset_peak_memory_stats()
+    flash, prefill_ms = prefill_phase(dev, cfg, params, gen)
+    row.update(prefill_ms=prefill_ms,
+               prompt_tok_s=PREFILL_B * PREFILL_S / prefill_ms * 1e3,
+               prefill_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  prefill peak memory {row['prefill_peak_gb']:.3f} GB",
+          flush=True)
+    torch.cuda.empty_cache()
+    decode, row["decode_ms"] = greedy_exits(dev, cfg, params,
+                                            ZOO_PROMPT_LENS)
+
+    errs = decode_vs_prefill(dev, cfg, params, gen, ZOO_CONSIST_P)
+    first = max(errs["k[0]"], errs["v[0]"])
+    if not first <= CONSIST_TOL:
+        raise SystemExit(f"{arch} consistency (bf16, layer 0): relative L2 "
+                         f"{first} above {CONSIST_TOL}")
+    row["consistency_bf16"] = {"layer0": first,
+                               "worst": max(errs.values()),
+                               "logits": errs["logits"]}
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=DENSE_F32_LAYERS, exit_layers=())
+    params = DecoderLM.init(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg32, device=dev)
+    errs = decode_vs_prefill(dev, cfg32, params, gen, ZOO_CONSIST_P)
+    worst = max(errs.values())
+    if not worst <= CONSIST_F32_TOL:
+        raise SystemExit(f"{arch} consistency (float32, {DENSE_F32_LAYERS} "
+                         f"layers): relative L2 {worst} above "
+                         f"{CONSIST_F32_TOL}")
+    row["consistency_f32"] = worst
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {arch} wall {time.perf_counter() - t_phase:.2f} s; memory "
+          f"allocated after it {torch.cuda.memory_allocated() / 1e9:.3f} GB, "
+          f"reserved {torch.cuda.memory_reserved() / 1e9:.3f} GB", flush=True)
+    return {"flash_attention": flash, "decode_attention": decode}, row
+
+
+def dense_phase(dev) -> dict:
+    """Phase 41: the kernels at the GQA configs' new shapes against their
+    plain versions (attention_rows), then dense_model_phase for each of
+    DENSE_MODELS. Returns the launch totals, the kernel rows and the model
+    rows."""
+    rows = attention_rows(dev, torch.Generator(device=dev).manual_seed(SEED),
+                          DENSE_FLASH, DENSE_DECODE)
+    torch.cuda.empty_cache()
+    totals = {"flash_attention": 0, "decode_attention": 0}
+    models = []
+    for arch in DENSE_MODELS:
+        counts, row = dense_model_phase(dev, arch)
+        models.append(row)
+        for k in totals:
+            totals[k] += counts[k]
+    print(json.dumps({"dense_models": models}))
+    return {"launches": totals, "kernel_rows": rows, "models": models}
+
+
+# --------------------------------------------------------- the examples (42)
+EXAMPLES_STORE = os.path.join(ROOT, "build", "chip_smoke_sweep_figures")
+EXAMPLES_CKPT = os.path.join(ROOT, "build", "chip_smoke_llama100m.ckpt")
+# the reference's quickstart, and its scenario fleet, at their defaults
+QUICKSTART_SLOTS = 400
+FLEET_SLOTS, FLEET_FLEETS = 300, 8
+# cuts by the examples' own flags, to keep the script inside its time
+# limit: the scenario fleet's profiled rerun at 30 slots (the profiler's
+# pass over ~1100 kernel records a slot was most of its time; the run at
+# the defaults goes unprofiled) and the 100M trainer at 30 of its 300
+# steps
+FLEET_PROFILED_SLOTS = 30
+TRAIN_100M_STEPS = 30
+
+
+def example_run(name, argv, label, call=None):
+    """``examples/<name>.py``'s ``main(argv)`` (or ``call(module, argv)``)
+    in-process from zeroed launch counts -> (its result, wall s, the
+    wrappers' launches)."""
+    from repro_torch.kernels import ops
+
+    ex = load_example(name)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ex.main(list(argv)) if call is None else call(ex, list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"  [{label}] wall {wall:.2f} s; wrapper launches {counts}",
+          flush=True)
+    return out, wall, counts
+
+
+def actor_ratio(label, counts, *, attention=0):
+    """A GRLE path's wrapper launches: gcn_agg four a forward, edge_score
+    one, some of each; no ssm_scan, and no attention unless ``attention``
+    says how many."""
+    if (counts["gcn_agg"] != 4 * counts["edge_score"]
+            or counts["edge_score"] == 0 or counts["ssm_scan"]
+            or counts["flash_attention"] + counts["decode_attention"]
+            != attention):
+        raise SystemExit(f"{label}: launches {counts}")
+
+
+def check_pop_result(out, args) -> tuple:
+    """``compare_curriculum_dr``'s result as the population example reads
+    it at ``args``: both arms with finite evaluations at each eval point,
+    ``args.regions`` region counts summing to members x generations, a
+    finite margin equal to the arms' difference and the verdict its sign
+    (the sign itself not gated). Returns the arms' (curriculum, DR) eval
+    means."""
+    arms = out.get("arms", {})
+    points = [float(t) for t in args.eval_points.split(",")]
+    if (set(out) != {"eval_points", "arms", "margin", "curriculum_wins"}
+            or sorted(arms) != ["curriculum", "dr"]
+            or out["eval_points"] != points
+            or any(set(r) != {"eval_rewards", "eval_mean", "final_train",
+                              "region_visits"}
+                   or len(r["eval_rewards"]) != len(points)
+                   or not all(math.isfinite(x) for x in r["eval_rewards"])
+                   or len(r["region_visits"]) != args.regions
+                   or sum(r["region_visits"])
+                   != args.members * args.generations
+                   for r in arms.values())):
+        raise SystemExit(f"population: result malformed: {out}")
+    means = (arms["curriculum"]["eval_mean"], arms["dr"]["eval_mean"])
+    if (not math.isfinite(out["margin"])
+            or abs(out["margin"] - (means[0] - means[1])) > 1e-12
+            or out["curriculum_wins"] != (out["margin"] > 0)):
+        raise SystemExit(f"population: margin {out['margin']} and verdict "
+                         f"{out['curriculum_wins']} do not match the arms' "
+                         f"eval means {means}")
+    return means
+
+
+def examples_phase(dev) -> dict:
+    """Phase 42: the six examples ported from the reference, in-process at
+    their defaults (the sweep's store and the trainer's checkpoint under
+    build/; the trainer at TRAIN_100M_STEPS steps), each printed with its
+    wall time and rate, their wrappers' launches gated: the quickstart
+    exactly 4 gcn_agg and 1 edge_score a GRLE forward (decisions and train
+    steps) and none for DROO; the scenario fleet's scan episodes by the
+    profiler's device records in a rerun at FLEET_PROFILED_SLOTS (the
+    captured graphs replay without the wrappers), the same counts, warm-up
+    slots included; the sweep and the population 4:1 (their replays
+    uncounted, so their launches stay out of the sum); the population
+    through the example's ``compare``: its result's layout and finite
+    margin gated, the verdict printed but not gated (the margin's sign
+    moves with the seed, ROADMAP queue 3); the serving example its
+    decisions' actor launches and decode_attention exit x (prompt + new
+    tokens) a group; the 100M
+    trainer 12 flash launches a step, then the loss of one batch trained
+    on three times falling at every step, and the checkpoint read back
+    equal. Returns the exact launches summed: the quickstart's, the
+    serving example's and the trainer's wrapper counts and the scenario
+    fleet's profiled ones."""
+    import shutil
+
+    from repro_torch.train.checkpoint import restore_checkpoint
+
+    totals = {"gcn_agg": 0, "edge_score": 0, "flash_attention": 0,
+              "decode_attention": 0, "ssm_scan": 0}
+    rows = {}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts.get(k, 0)
+
+    # quickstart: GRLE vs DROO, one network of 14 devices, per-slot steps
+    out, wall, counts = example_run("torch_quickstart", (), "quickstart")
+    ts = out["train_steps"]["grle"]
+    want = {"gcn_agg": 4 * (QUICKSTART_SLOTS + ts),
+            "edge_score": QUICKSTART_SLOTS + ts, "flash_attention": 0,
+            "decode_attention": 0, "ssm_scan": 0}
+    print(f"  quickstart: GRLE {out['grle']}, DROO {out['droo']}, train steps "
+          f"{out['train_steps']}; {2 * QUICKSTART_SLOTS / wall:.1f} slots/s; "
+          f"expected {want}", flush=True)
+    if counts != want:
+        raise SystemExit(f"quickstart: launches {counts}, expected {want}")
+    add(counts)
+    rows["quickstart"] = dict(wall_s=wall,
+                              slots_s=2 * QUICKSTART_SLOTS / wall,
+                              grle=out["grle"], droo=out["droo"])
+
+    # scenario fleet: per-fleet scenarios, scan episodes; the profiler
+    # counts the replays' kernels: the training driver's 2 warm-up slots
+    # and 1 warm-up train step, its decisions and train steps; the
+    # evaluation driver's warm-up slot and 3 x slots // 2 decisions
+    out, wall, counts = example_run("torch_scenario_fleet", (),
+                                    "scenario fleet")
+    actor_ratio("scenario fleet", counts)
+    fleet_slots = FLEET_FLEETS * (FLEET_SLOTS + 3 * (FLEET_SLOTS // 2))
+    print(f"  scenario fleet: train {out['train']}; eval {out['eval']}; "
+          f"{fleet_slots / wall:.1f} fleet-slots/s", flush=True)
+    if out["train"]["train_steps"] != FLEET_SLOTS // 10:
+        raise SystemExit(f"scenario fleet: {out['train']['train_steps']} "
+                         f"train steps, expected one every 10 slots")
+    n = FLEET_PROFILED_SLOTS
+    forwards = (n + n // 10 + 3) + (3 * (n // 2) + 1)
+    ex = load_example("torch_scenario_fleet")
+    _, prof, windows = profiled_until(
+        lambda: ex.main(["--slots", str(n)]),
+        {"gcn_agg": 4 * forwards, "edge_score": forwards}, "scenario fleet")
+    print(f"  scenario fleet at --slots {n} under the profiler: {prof} "
+          f"({forwards} actor forwards; windows {windows})", flush=True)
+    add(prof)
+    rows["scenario_fleet"] = dict(wall_s=wall,
+                                  fleet_slots_s=fleet_slots / wall,
+                                  train=out["train"], eval=out["eval"])
+
+    # the paper's figure grid through the sweep
+    shutil.rmtree(EXAMPLES_STORE, ignore_errors=True)
+    try:
+        report, wall, counts = example_run(
+            "torch_sweep_paper_figures",
+            ("--store", EXAMPLES_STORE, "--report",
+             EXAMPLES_STORE + "_report.json"), "sweep")
+    finally:
+        shutil.rmtree(EXAMPLES_STORE, ignore_errors=True)
+        if os.path.exists(EXAMPLES_STORE + "_report.json"):
+            os.unlink(EXAMPLES_STORE + "_report.json")
+    actor_ratio("sweep", counts)
+    cells = report["grid"]["cells"]
+    ratios = {s: e["ratios"] for s, e in report["scenarios"].items()}
+    if cells != 40 or len(ratios) != 5 or any(
+            sorted(r) != ["grle_vs_droo", "grle_vs_drooe", "grle_vs_grl"]
+            or not all(math.isfinite(v) for x in r.values()
+                       for v in x.values()) for r in ratios.values()):
+        raise SystemExit(f"sweep: {cells} cells, ratios {ratios}")
+    print(f"  sweep: {cells} cells, {cells / wall:.3f} cells/s; ratios "
+          f"{json.dumps(ratios)}", flush=True)
+    rows["sweep"] = dict(wall_s=wall, cells_s=cells / wall, ratios=ratios)
+
+    # curriculum vs DR through the example's compare(): its main asserts
+    # the curriculum wins, a sign that moves with the seed
+    out, wall, counts = example_run(
+        "torch_pop_curriculum", (), "population",
+        call=lambda ex, argv: ex.compare(ex.parse_args(argv)))
+    actor_ratio("population", counts)
+    args = load_example("torch_pop_curriculum").parse_args([])
+    means = check_pop_result(out, args)
+    member_slots = 2 * args.members * args.generations * args.slots
+    print(f"  population: margin {out['margin']:+.6f} (curriculum "
+          f"{means[0]:.6f}, DR {means[1]:.6f}), curriculum wins: "
+          f"{out['curriculum_wins']} (not gated); region visits "
+          f"{out['arms']['curriculum']['region_visits']} vs "
+          f"{out['arms']['dr']['region_visits']}; {member_slots / wall:.1f} "
+          f"member-slots/s", flush=True)
+    rows["pop_curriculum"] = dict(wall_s=wall,
+                                  member_slots_s=member_slots / wall,
+                                  margin=out["margin"],
+                                  curriculum_wins=out["curriculum_wins"])
+
+    # edge serving, decoding: reduced Qwen, two replicas, 12 slots of 4
+    out, wall, counts = example_run("torch_edge_serving", ("--decode",),
+                                    "edge serving")
+    decisions = len(out["slots"]) + out["train_steps"]
+    dec = sum(e * (6 + 4) for slot in out["slots"]
+              for e in {e for _, e in slot["assignments"]})
+    want = {"gcn_agg": 4 * decisions, "edge_score": decisions,
+            "flash_attention": 0, "decode_attention": dec, "ssm_scan": 0}
+    print(f"  edge serving: {out['summary']}; "
+          f"{len(out['slots']) / wall:.2f} slots/s; expected {want}",
+          flush=True)
+    if counts != want:
+        raise SystemExit(f"edge serving: launches {counts}, expected {want}")
+    add(counts)
+    rows["edge_serving"] = dict(wall_s=wall,
+                                slots_s=len(out["slots"]) / wall,
+                                summary=out["summary"])
+
+    # the 100M trainer: float32 steps, flash one a layer a step
+    if os.path.exists(EXAMPLES_CKPT):
+        os.unlink(EXAMPLES_CKPT)
+    out, wall, counts = example_run(
+        "torch_train_100m", ("--steps", str(TRAIN_100M_STEPS),
+                             "--checkpoint", EXAMPLES_CKPT), "train 100m")
+    cfg = load_example("torch_train_100m").CONFIG_100M
+    steps = len(out["losses"])
+    want = {"gcn_agg": 0, "edge_score": 0,
+            "flash_attention": cfg.n_layers * steps, "decode_attention": 0,
+            "ssm_scan": 0}
+    step_ms = sorted(out["step_s"][1:])[(steps - 1) // 2] * 1e3
+    print(f"  train 100m: {out['n_params']:,} params, loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, last metrics "
+          f"{out['metrics']}; step {step_ms:.2f} ms (median after the "
+          f"first), {1e3 / step_ms:.1f} steps/s; expected {want}",
+          flush=True)
+    if counts != want or not all(math.isfinite(x) for x in out["losses"]):
+        raise SystemExit(f"train 100m: launches {counts}, expected {want}; "
+                         f"or a loss is not finite")
+    add(counts)
+    fixed = fixed_batch_losses(cfg, out["state"], out["next_batch"]())
+    print(f"  {FIXED_STEPS} AdamW steps (lr {FIXED_LR}) on one batch from "
+          f"the trained params: loss {' -> '.join(f'{x:.4f}' for x in fixed)}",
+          flush=True)
+    if not all(math.isfinite(x) for x in fixed) or not all(
+            b < a for a, b in zip(fixed, fixed[1:])):
+        raise SystemExit(f"train 100m: the loss of a batch trained on did "
+                         f"not fall at every step: {fixed}")
+    back = restore_checkpoint(EXAMPLES_CKPT, like=out["state"].params)
+    same = all(torch.equal(a, b) for a, b in zip(
+        _leaves(back), _leaves(out["state"].params)))
+    del back
+    size = os.path.getsize(EXAMPLES_CKPT)
+    os.unlink(EXAMPLES_CKPT)
+    print(f"  checkpoint: {size / 1e6:.1f} MB (zlib), read back equal: "
+          f"{same}", flush=True)
+    if not same:
+        raise SystemExit("train 100m: the checkpoint does not read back "
+                         "equal to the params")
+    rows["train_100m"] = dict(wall_s=wall, step_ms=step_ms,
+                              steps_s=1e3 / step_ms,
+                              loss_first=out["losses"][0],
+                              loss_last=out["losses"][-1], fixed=fixed)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"examples": rows}))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5156,6 +5718,14 @@ def main() -> int:
                              f"{serialized}); keep every wgmma and its wait "
                              f"out of branches")
     print(f"no wgmma serialized (ptxas warnings {WGMMA_SERIALIZED})")
+
+    # phase 41 runs here, right after the build, where the allocator is
+    # cleanest: Chameleon-34B's weights take 68.6 GB of the card's 80
+    phase(41, "StableLM-3B, InternLM2-20B and Chameleon-34B at full width, "
+              "bf16: init, prefill, early-exit decode, consistency")
+    t0 = time.perf_counter()
+    dense = dense_phase(dev)
+    print(f"phase 41 wall {time.perf_counter() - t0:.2f} s")
 
     phase(3, "kernels vs plain versions on the card")
     env = MECEnv(make_scenario("fig5_baseline"), device=dev)
@@ -5248,7 +5818,7 @@ def main() -> int:
 
     phase(8, "LM prefill: llama3_2_1b, full width, bf16")
     cfg, params, lm_gen = lm_model(dev)
-    flash_launches = prefill_phase(dev, cfg, params, lm_gen)
+    flash_launches, _ = prefill_phase(dev, cfg, params, lm_gen)
 
     phase(9, "LM serve: greedy early-exit decoding, full width, bf16")
     decode_launches = serve_phase(dev, cfg, params, lm_gen)
@@ -5408,7 +5978,12 @@ def main() -> int:
     dryrun_phase(dev, window)
     print(f"phase 40 wall {time.perf_counter() - t0:.2f} s")
 
-    phase(41, "summary")
+    phase(42, "the examples ported from the reference, at their defaults")
+    t0 = time.perf_counter()
+    ex_counts = examples_phase(dev)
+    print(f"phase 42 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(43, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
                "edge_score": ("src/repro_torch/csrc/edge_score.cu",
@@ -5420,27 +5995,37 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[name] + zoo_serve[name] + vgg_counts[name],
+            "launches": counts[name] + zoo_serve[name] + vgg_counts[name]
+            + ex_counts[name],
             "max_abs_err": max(grad_err, *(v["err"]
                                            for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+    dense_err = {k: max(r["max_abs_err"] for r in dense["kernel_rows"]
+                        if r["name"] == k)
+                 for k in ("flash_attention", "decode_attention")}
     attn["flash_attention"]["max_abs_err"] = max(
         attn["flash_attention"]["max_abs_err"], flash_fn["max_abs_err"],
-        window["max_abs_err"]["flash_attention"])
+        window["max_abs_err"]["flash_attention"],
+        dense_err["flash_attention"])
     attn["decode_attention"]["max_abs_err"] = max(
         attn["decode_attention"]["max_abs_err"],
-        window["max_abs_err"]["decode_attention"])
+        window["max_abs_err"]["decode_attention"],
+        dense_err["decode_attention"])
     ssm["max_abs_err"] = max(ssm["max_abs_err"], ssm_fn["max_abs_err"])
     launches = {"flash_attention": flash_launches
                 + zoo_totals["flash_attention"]
                 + train_counts["flash_attention"]
                 + ssm_train["flash_attention"]
-                + window["flash_attention"],
+                + window["flash_attention"]
+                + dense["launches"]["flash_attention"]
+                + ex_counts["flash_attention"],
                 "decode_attention": decode_launches
                 + zoo_totals["decode_attention"]
                 + zoo_serve["decode_attention"]
-                + window["decode_attention"]}
+                + window["decode_attention"]
+                + dense["launches"]["decode_attention"]
+                + ex_counts["decode_attention"]}
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:70"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:56")):
@@ -5473,11 +6058,18 @@ def main() -> int:
           "flash_attention and decode_attention those of phase 39's window "
           "runs, "
           "gcn_agg and edge_score those of phase 36's GRLE run (by the "
-          "profiler); flash_attention's error also covers phase 33's "
+          "profiler); flash_attention and decode_attention those of phase "
+          "41's three dense configs, and every kernel those of phase 42's "
+          "quickstart, serving example and trainer (wrapper counts) and its "
+          "scenario fleet's profiled run (the profiler's device records; "
+          "the sweep's and the population's scan replays go uncounted, so "
+          "they add nothing); flash_attention's error also covers phase 33's "
           "forwards at the training shapes, both attention kernels' errors "
-          "phase 39's at the window's shapes, ssm_scan's phase 37's; the "
-          "zoo's new shapes timed in phase 28:")
+          "phase 39's at the window's shapes and phase 41's at the GQA "
+          "configs' shapes, ssm_scan's phase 37's; the zoo's new shapes "
+          "timed in phase 28, the GQA configs' in phase 41:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
+    print(json.dumps({"dense_kernel_shapes": dense["kernel_rows"]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -129,10 +129,35 @@ def _init_leaf(generator, name: str, shape, *, device, dtype):
         return zeros_init(generator, shape, device=device, dtype=dtype)
     if name != "w":
         raise ValueError(f"no initializer for param leaf {name!r}")
-    # "w": Xavier-uniform per [in, out] matrix, also inside a layer stack
-    mats = [xavier_uniform(generator, shape[-2:], device=device, dtype=dtype)
-            for _ in range(math.prod(shape[:-2]))]
-    return torch.stack(mats).reshape(shape)
+    # "w": Xavier-uniform per [in, out] matrix, also inside a layer stack,
+    # each float32 draw cast into its slice of the leaf, so that init peaks
+    # at the params plus one matrix's draw (Chameleon-34B's 68.6 GB of
+    # bf16 params on an 80 GB card)
+    if math.prod(shape[:-2]) == 1:
+        return _staged_matrix(generator, shape, device=device, dtype=dtype)
+    out = torch.empty(shape, device=device, dtype=dtype)
+    for mat in out.view(-1, *shape[-2:]):
+        mat.copy_(xavier_uniform(generator, shape[-2:], device=device))
+    return out
+
+
+_STAGE_BYTES = 64 << 20
+
+
+def _staged_matrix(generator, shape, *, device, dtype):
+    """One unstacked Xavier matrix, cast on its device a block of rows at a
+    time into host memory and copied back once its float32 draw is freed,
+    so that on the card the draw and the leaf never share the device: the
+    LM head is drawn last, when every other leaf is in place, and its draw
+    is twice the leaf (2.1 GB for Chameleon-34B's 1.1 GB head). On the CPU
+    the copy back is a no-op. Bit for bit the cast of the draw."""
+    draw = xavier_uniform(generator, shape, device=device)
+    host = torch.empty(shape, dtype=dtype)
+    rows = max(1, _STAGE_BYTES // (4 * math.prod(shape[1:])))
+    for i in range(0, shape[0], rows):
+        host[i:i + rows] = draw[i:i + rows].to(dtype).cpu()
+    del draw
+    return host.to(device)
 
 
 def _init_tree(generator, shapes: dict, dtypes: dict, device) -> dict:

@@ -34,7 +34,8 @@ def xavier_uniform(generator: torch.Generator, shape, *, device,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
-    return (u * (2.0 * limit) - limit).to(dtype)
+    # in place: the draw is the one float32 buffer a large matrix takes
+    return u.mul_(2.0 * limit).sub_(limit).to(dtype)
 
 
 def he_normal(generator: torch.Generator, shape, *, device,

@@ -1,5 +1,7 @@
-"""The port stands alone: no file of ``repro_torch`` or ``chip_smoke.py``
-imports JAX or the JAX package, and the port imports with both blocked."""
+"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` or
+the torch examples imports JAX or the JAX package, and the port, the
+modules ``chip_smoke.py`` reaches and the torch examples import with both
+blocked."""
 import ast
 import os
 import subprocess
@@ -9,8 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -59,11 +62,20 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.train, repro_torch.optim.schedules\n"
             "import repro_torch.launch.specs, repro_torch.launch.analysis\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.__main__\n"
+            "import repro_torch.models.lm, repro_torch.nn.initializers\n"
+            "import repro_torch.kernels.decode_attention\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import importlib.util\n"
+            "for path in sys.argv[1:]:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=120, env=env, cwd=ROOT)
+    p = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)],
+                       capture_output=True, text=True, timeout=120, env=env,
+                       cwd=ROOT)
     assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr
+    assert len(EXAMPLES) == 7
 
 
 def test_chip_smoke_refuses_without_a_gpu():

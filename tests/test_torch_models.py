@@ -1,7 +1,8 @@
 """The port's decoder LM against the JAX package, module by module and as
-a whole: prefill and early-exit decode of reduced Llama-3.2-1B (GQA, 4
-heads over 2 KV heads) and Qwen1.5-0.5B (MHA with QKV bias), float32 on
-the CPU, on numpy-drawn params carried across with
+a whole: prefill and early-exit decode of reduced Llama-3.2-1B,
+InternLM2-20B and Chameleon-34B (GQA, 4 heads over 2 KV heads),
+Qwen1.5-0.5B (MHA with QKV bias) and StableLM-3B (MHA), float32 on the
+CPU, on numpy-drawn params carried across with
 ``lm_params_from_numpy``. ``tests/data/torch_lm_golden.npz`` carries such
 a run to the GPU machine, where JAX is not installed; the last test here
 keeps it current.
@@ -35,10 +36,13 @@ from repro_torch.models.rope import apply_rope
 from repro_torch.nn import Embedding, RMSNorm
 from repro_torch.train import make_prefill_step, make_serve_step
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tools"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
 import make_torch_lm_golden as golden_tool  # noqa: E402
 
+sys.path.pop(0)
 sys.path.pop(0)
 torch.set_num_threads(1)
 
@@ -46,14 +50,17 @@ MODULE_TOL = dict(rtol=1e-5, atol=1e-5)   # f32, one module
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)    # f32, logits through the model
 PORTED = ("llama3_2_1b", "qwen1_5_0_5b", "stablelm_3b", "internlm2_20b",
           "chameleon_34b")
+# the configs with fewer KV heads than heads at full width
+GQA = ("llama3_2_1b", "internlm2_20b", "chameleon_34b")
 B, P, T = 2, 8, 16
 
 
 def configs(arch):
     """(port cfg, JAX cfg) of the reduced variant the tests run: 4 layers,
-    exits (1, 2, 3, 4); Llama keeps GQA with 4 heads over 2 KV heads."""
+    exits (1, 2, 3, 4); the GQA configs keep GQA with 4 heads over 2 KV
+    heads."""
     kw = dict(n_layers=4)
-    if arch == "llama3_2_1b":
+    if arch in GQA:
         kw["n_kv_heads"] = 2
     return get_arch(arch).reduced(**kw), jax_get_arch(arch).reduced(**kw)
 
@@ -130,7 +137,7 @@ def test_dense_ffn_matches_reference():
           MODULE_TOL)
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen1_5_0_5b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_attention_dense_and_decode_match_reference(arch):
     cfg, jcfg = configs(arch)
     p, jp = params(cfg)
@@ -179,7 +186,7 @@ def test_window_decode_raises():
 
 
 # ----------------------------------------------------------- whole model
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen1_5_0_5b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_matches_reference(arch):
     cfg, jcfg = configs(arch)
     p, jp = params(cfg)
@@ -217,7 +224,7 @@ def test_reference_prefill_cache_is_not_its_decode_cache():
     assert (dv > 0.25 * per_layer(jv)).all(), (dv, per_layer(jv))
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen1_5_0_5b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_serve_step_every_exit_matches_reference(arch):
     """T=16 teacher-forced steps into a 15-row cache: the last step wraps."""
     cfg, jcfg = configs(arch)
@@ -290,6 +297,45 @@ def test_init_draws_the_reference_layout_on_the_requested_device():
     w = p["blocks"]["ffn"]["w1"]["w"]
     assert float(w.abs().max()) <= (6 / (cfg.d_model + cfg.d_ff)) ** 0.5
     assert not torch.equal(w[0], w[1])      # each layer draws its own
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_equals_stacked_draws_bit_for_bit(dtype, monkeypatch):
+    """Each dense ``w`` leaf is written a matrix at a time into its slice,
+    and each unstacked one (the LM head) goes through ``_staged_matrix``,
+    here in blocks of a few rows, as on the card: the same draws, in the
+    same order, as casting every matrix and stacking them
+    (``chip_smoke.stacked_init``, which phase 41 runs on the card), bit for
+    bit, so a seed's params are unchanged while init's peak drops to the
+    params plus one matrix's draw."""
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(lm, "_STAGE_BYTES", 4096)
+    cfg = dataclasses.replace(configs("internlm2_20b")[0], dtype=dtype)
+    got = DecoderLM.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    want = chip_smoke.stacked_init(torch.Generator().manual_seed(3), cfg,
+                                   "cpu")
+    flat = jax.tree_util.tree_flatten_with_path
+    assert len(flat(got)[0]) == len(flat(want)[0])
+    for (path, a), (_, b) in zip(flat(got)[0], flat(want)[0]):
+        assert a.dtype == cfg.torch_dtype, path
+        assert chip_smoke.same_bits(a, b), path
+
+
+def test_staged_matrix_is_the_cast_draw(monkeypatch):
+    """The LM head's route off the CPU (cast a block of rows at a time into
+    host memory, the draw freed, then copied back) gives the draw's cast
+    bit for bit; here on the CPU with blocks of 7 rows."""
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(lm, "_STAGE_BYTES", 7 * 4 * 70)
+    got = lm._staged_matrix(torch.Generator().manual_seed(5), (61, 70),
+                            device=torch.device("cpu"), dtype=torch.bfloat16)
+    limit = (6.0 / (61 + 70)) ** 0.5
+    u = torch.rand((61, 70), generator=torch.Generator().manual_seed(5))
+    want = (u * (2.0 * limit) - limit).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (61, 70)
+    assert chip_smoke.same_bits(got, want)
 
 
 def test_lm_golden_is_current():

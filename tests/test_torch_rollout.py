@@ -776,3 +776,39 @@ def test_agent_shim_through_the_driver_equals_agent_def():
         RolloutDriver(adef, 2, device="cpu").sync_agent(direct[0])
     dec, info = shim.act(env.reset(), env.sample_slot(shim.generator))
     assert dec.shape == (4,) and "q_est" in info
+
+
+def test_chip_smoke_reads_the_profilers_raw_records_as_its_events():
+    """``chip_smoke.profiler_records`` reads a window's raw results without
+    building ``prof.events()``'s tree, and gives every record the tree
+    gives, with the same name, host or device, duration and correlation
+    id, here for a loop-mode episode on the CPU with the driver's phase
+    spans in it; the records the tree drops are host ops nested in one of
+    the same name (its duplicate removal), never a device record or a
+    graph launch."""
+    import collections
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(root, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    env = MECEnv(make_scenario("fig5_baseline", n_devices=4), device="cpu")
+    drv = RolloutDriver(agent_def("grle", env, device="cpu"), 2,
+                        device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        drv.run(0, 3, mode="loop")
+    cuda = torch.autograd.DeviceType.CUDA
+    got = collections.Counter((r.name, r.on_device, r.corr, round(r.us, 3))
+                              for r in chip_smoke.profiler_records(prof))
+    want = collections.Counter(
+        (e.name, e.device_type == cuda, e.id,
+         round(e.time_range.elapsed_us(), 3)) for e in prof.events())
+    assert sum(want.values()) > 100 and not want - got
+    extra = got - want
+    assert all(not on_device and name != "cudaGraphLaunch"
+               and any(n == name for n, *_ in want)
+               for name, on_device, *_ in extra)
