@@ -2,10 +2,11 @@
 baselines (DROO, DROOE) and dynamic fleets, its LM serving paths (dense
 GQA, RWKV-6, and the rest of the model zoo: Zamba2, DeepSeek-MoE,
 DeepSeek-V2, Whisper; StableLM-3B, InternLM2-20B and Chameleon-34B at
-full width), its serving engines, its experiment sweep, its population
-training, its profiler and cost hooks, LM training, the paper's
-multi-exit VGG-16 pipeline, the long-context window decode, the one-card
-dry run and the examples on one NVIDIA GPU and check them.
+full width), its serving engines and their throughput benchmark
+(serve-bench), its experiment sweep, its population training, its
+profiler and cost hooks, LM training, the paper's multi-exit VGG-16
+pipeline, the long-context window decode, the one-card dry run and the
+examples on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -164,7 +165,7 @@ order, each fatal on failure:
 21. serving at full width: Llama-3.2-1B (bf16, random weights from seed
    0) behind ``EdgeServingEngine`` (replicas fast-pod 1.0 and slow-pod
    0.5, 8 batch slots, a 256-row cache, GRLE with ring 32, minibatch 8, a
-   train step every 5 slots), 30 slots of 8 requests (prompts of 16..64
+   train step every 5 slots), 12 slots of 8 requests (prompts of 16..64
    tokens, 16 new) with decoding: launches exactly gcn_agg 4 and
    edge_score 1 per slot plus as many per train step, decode_attention
    exit x (longest prompt + 16) per exit group; finite losses; slot ms
@@ -394,7 +395,8 @@ order, each fatal on failure:
    printed (StableLM's params also equal bit for bit to the old init's
    stacked draws); a prefill at B=4, S=2048 with exactly n_layers flash
    launches and its peak memory; greedy decoding as in phase 9 at every
-   exit, prompts of 16..32 tokens (decode_attention exit x steps);
+   exit, prompts of 16..32 tokens, 8 new ones (decode_attention exit x
+   steps);
    prefill against teacher-forced decode over 2 x 128 tokens, every
    layer's K and V printed, layer 0 within 2e-2; then in float32 at full
    width with the depth cut to 4 layers, every layer and the logits
@@ -407,10 +409,38 @@ order, each fatal on failure:
    examples_phase), the population's margin printed and its sign not
    gated, the 100M trainer's one-batch loss falling and its checkpoint
    read back equal;
-43. one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
+44. the continuous engine against JAX on the card:
+   ``tests/data/torch_serve_async_golden.npz`` (a JAX
+   ``ContinuousServingEngine`` at the serve-bench's --quick shape: 32
+   slots, the bench's agent knobs, its warm-up and main traces (64 users,
+   arrivals on a grid 8x the engine's slot, slack 600 s) and the main
+   stream's next 512 requests, 26 steps, two train steps, with its draws)
+   through the port's continuous engine with the draws injected: every
+   step's decision equal, or a flip only at a recorded near-tie (<= 1e-5,
+   critic or actor margin, phase 17's rule), after which the comparison
+   stops (fatal before the first train step); every step report's
+   admitted, expired and served rids, hits, slots, replicas and exits
+   equal, served latencies within 1e-6 relative; counts, tokens served,
+   the bench row's fields and the final params (TRAIN_PARAM_TOL) equal;
+   exactly gcn_agg 4 and edge_score 1 a decision and a train step;
+45. the slice's main path: ``python -m repro_torch.launch serve-bench`` at
+   its defaults in-process (launch/__main__.py's main; the rows' file and
+   the run-history store in a temporary directory): the 4-slot sync loop
+   against the 64-slot continuous engine on one MMPP trace of 1200
+   requests (128 users): both rows with the reference's keys, stamped with
+   the card's name and power limit, 1200 requests each, the bench's own
+   assertions (every request served; continuous beats sync on
+   requests/s) and the same read from the rows; over each timed window
+   (and each warm-up) exactly gcn_agg 4 and edge_score 1 a decision and a
+   train step and no other kernel; both rows, the speed-up, ms a step and
+   a slot printed; each engine's five actor launches (M=4 and M=64, O=4)
+   against their plain versions at B=1 and the minibatch (TOL, and every
+   gradient within GRAD_RTOL/GRAD_ATOL), and timed at B=1 beside the plain
+   time and the bound;
+43. (last) one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
    one ``{"dense_kernel_shapes": [...]}`` line (phase 41's), one
    ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35, 36,
-   38, 39, 41 and 42 and the LM prefills and decodes), the card line
+   38, 39, 41, 42 and 45 and the LM prefills and decodes), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -528,10 +558,26 @@ SERVE_ARCH, SERVE_REPLICAS = "qwen1_5_0_5b", (("a", 1.0), ("b", 0.7))
 SERVE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5,
                       n_candidates=8)
 ENGINE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5)
-ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 30, 16
+# 12 decoding slots (cut from 30 to keep the script inside its time
+# limit): the ninth takes the phase's train step
+ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 12, 16
 ASYNC_B, ASYNC_USERS, ASYNC_SLOTS, EQUIV_STEPS = 32, 64, 200, 50
 # a request longer than the engine's cache: decoded over the wrapped cache
 WRAP_PROMPT, WRAP_NEW = 250, 40
+# the serving benchmark (repro_torch.launch.serve_bench): its golden run
+# at the --quick shape (tools/make_torch_port_golden.py's BENCH_*; the
+# file holds its knobs), the rows' keys (benchmarks/serve_throughput.py's,
+# without its stamps) and the full mode's requests; served latencies are
+# float32 on another device than the golden run's, so they are held to a
+# relative tolerance, not to their 9 printed digits
+SERVE_ASYNC_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                  "torch_serve_async_golden.npz")
+BENCH_SYNC_KEYS = {"name", "derived", "wall_s", "requests_per_s",
+                   "tokens_per_s", "n_requests", "n_tokens",
+                   "deadline_hit_rate", "latency_p50_s", "latency_p99_s"}
+BENCH_CONT_KEYS = BENCH_SYNC_KEYS | {"queue_depth_p99", "vs_sync_speedup"}
+BENCH_REQUESTS = 1200
+ASYNC_LATENCY_RTOL = 1e-6
 # dynamic and baseline golden runs (tools/make_torch_port_golden.py's DYN_*)
 DYN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_dyn_golden.npz")
 DYN_RUNS = ("droo_fig8", "drooe_bursty", "grle_space")
@@ -643,11 +689,8 @@ def ptxas_report(log):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0]
+    from repro_torch.obs.log import card_line as first_card
+    return first_card()
 
 
 # ----------------------------------------------------------------- timing
@@ -1080,9 +1123,10 @@ def greedy_decode(params, step, cache, prompt_mat, lens, max_new):
             for i in range(b)], total
 
 
-def greedy_exits(dev, cfg, params, prompt_lens=PROMPT_LENS) -> tuple:
+def greedy_exits(dev, cfg, params, prompt_lens=PROMPT_LENS,
+                 max_new=SERVE_NEW) -> tuple:
     """Greedy decoding of SERVE_B prompts of ``prompt_lens`` tokens (numpy
-    seed SEED), SERVE_NEW new tokens each, against a SERVE_CACHE-row cache
+    seed SEED), ``max_new`` new tokens each, against a SERVE_CACHE-row cache
     at every exit: decode_attention launches exactly exit x steps, no
     flash launch, no cache row past the exit written. Returns (the decode
     launches, {exit: ms a step})."""
@@ -1092,13 +1136,13 @@ def greedy_exits(dev, cfg, params, prompt_lens=PROMPT_LENS) -> tuple:
 
     rng = np.random.default_rng(SEED)
     lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, size=SERVE_B)
-    total = int(lens.max()) + SERVE_NEW
+    total = int(lens.max()) + max_new
     mat = np.zeros((SERVE_B, total), np.int64)
     for i, n in enumerate(lens):
         mat[i, :n] = rng.integers(0, cfg.vocab, size=n)
     prompt_mat = torch.tensor(mat, device=dev)
     print(f"B={SERVE_B} prompts of {sorted(lens.tolist())} tokens, "
-          f"max_new {SERVE_NEW}, cache {SERVE_CACHE} rows, {total} steps")
+          f"max_new {max_new}, cache {SERVE_CACHE} rows, {total} steps")
     warm = DecoderLM.init_cache(cfg, SERVE_B, SERVE_CACHE, device=dev)
     greedy_decode(params, make_serve_step(cfg), warm, prompt_mat[:, :3],
                   lens.clip(max=3), 0)
@@ -1111,20 +1155,20 @@ def greedy_exits(dev, cfg, params, prompt_lens=PROMPT_LENS) -> tuple:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         outs, steps = greedy_decode(params, step, cache, prompt_mat, lens,
-                                    SERVE_NEW)
+                                    max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         decode_launches += counts["decode_attention"]
         rows[e] = wall / steps * 1e3
         print(f"  exit {e:2d}: {wall / steps * 1e3:8.3f} ms/step, "
-              f"{SERVE_B * SERVE_NEW / wall:9.1f} generated tokens/s, "
+              f"{SERVE_B * max_new / wall:9.1f} generated tokens/s, "
               f"launches {counts}", flush=True)
         if (counts["decode_attention"] != e * steps
                 or counts["flash_attention"]):
             raise SystemExit(f"{cfg.arch_id} exit {e}: launches {counts}, "
                              f"expected decode_attention {e * steps}")
-        if any(len(o) != SERVE_NEW or o.min() < 0 or o.max() >= cfg.vocab
+        if any(len(o) != max_new or o.min() < 0 or o.max() >= cfg.vocab
                for o in outs):
             raise SystemExit(f"{cfg.arch_id} exit {e}: generated tokens "
                              f"malformed")
@@ -2737,6 +2781,21 @@ def sweep_phase(dev):
 
 
 # ------------------------------------------------------------- serving
+def inject_serve_draws(eng, data, n_steps):
+    """A golden serve run's draws into ``eng``, one ServeDraws a
+    scheduling step: the tasks, the exploration candidates and, on a
+    train step, the replay rows."""
+    from repro_torch.mec import SlotTasks
+    from repro_torch.serve import ServeDraws
+    takes = dict(zip(data["train_steps"].tolist(), data["replay_take"]))
+    eng.inject_draws(
+        ServeDraws(SlotTasks(*(torch.tensor(data[f"tasks/{f}"][t])
+                               for f in TASK_FIELDS)),
+                   torch.tensor(data["rand_cands"][t].astype(np.int64)),
+                   None if t not in takes else torch.tensor(takes[t]))
+        for t in range(n_steps))
+
+
 def serve_engine_from(data, dev):
     """The port's EdgeServingEngine as tests/data/torch_serve_golden.npz
     records the JAX one: reduced Qwen in f32 with lm_params_numpy weights,
@@ -2745,8 +2804,7 @@ def serve_engine_from(data, dev):
     from repro_torch.configs import get_arch
     from repro_torch.core import agent_state_from_params
     from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
-    from repro_torch.mec import SlotTasks
-    from repro_torch.serve import EdgeServingEngine, Replica, ServeDraws
+    from repro_torch.serve import EdgeServingEngine, Replica
     cfg = get_arch(SERVE_ARCH, reduced=True)
     eng = EdgeServingEngine(
         cfg, [Replica(n, s) for n, s in SERVE_REPLICAS],
@@ -2759,13 +2817,7 @@ def serve_engine_from(data, dev):
         lm_params_numpy(cfg, int(data["lm_seed"])), cfg, dev)
     eng.set_agent_state(agent_state_from_params(
         eng.agent_def, tree_of(data, "init_params"), data["exit_mask"]))
-    takes = dict(zip(data["train_steps"].tolist(), data["replay_take"]))
-    eng.inject_draws(
-        ServeDraws(SlotTasks(*(torch.tensor(data[f"tasks/{f}"][t])
-                               for f in TASK_FIELDS)),
-                   torch.tensor(data["rand_cands"][t].astype(np.int64)),
-                   None if t not in takes else torch.tensor(takes[t]))
-        for t in range(len(data["schedule"])))
+    inject_serve_draws(eng, data, len(data["schedule"]))
     return eng
 
 
@@ -2819,27 +2871,48 @@ def serve_golden_phase(dev):
                          "JAX run")
 
 
-def serve_actor_check(dev, eng, label):
+def serve_actor_check(dev, eng, label, *, timed=False):
     """The five actor launches of ``eng``'s path (its env: M = its batch
     slots, O = N*L; its workload's tasks, its live MECState and its agent
     params) at B=1 (a decision) and at the training minibatch, each
     wrapper against its plain version (TOL) and each gradient against
-    autograd of the plain version (grad_err). Fatal on any difference."""
+    autograd of the plain version (grad_err). Fatal on any difference;
+    returns each kernel's largest forward error. ``timed``: each B=1 case
+    also timed, kernel and plain by CUDA-graph replay beside its bound,
+    and each kernel's sums for a decision printed."""
     adef = eng.agent_def
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {"gcn_agg": 0.0, "edge_score": 0.0}
+    shape = f"{label} M={eng.env.M} O={eng.env.N * eng.env.L}"
+    sums = {}
     for b in (1, adef.batch_size):
-        for kernel, name, args, fn, plain, _ in actor_cases(
+        for kernel, name, args, fn, plain, cost in actor_cases(
                 eng.env, eng.agent_state.params, gen, b,
                 workload=eng._workload, state=eng.mec_state):
             err = float((fn(*args) - plain(*args)).abs().max())
             torch.cuda.synchronize()
-            print(f"  {kernel:10s} {name:14s} {label} M={eng.env.M} "
-                  f"O={eng.env.N * eng.env.L} B={b} max_abs_err {err:.3e}",
-                  flush=True)
+            times = ""
+            if timed and b == 1:
+                ms = graph_ms(lambda: fn(*args))
+                plain_ms = graph_ms(lambda: plain(*args))
+                times = (f", kernel {ms * 1e3:8.2f} us, plain "
+                         f"{plain_ms * 1e3:8.2f} us, bound "
+                         f"{bound(*cost)[0] * 1e3:6.3f} us")
+                s = sums.setdefault(kernel, [0.0, 0.0, 0, 0])
+                for i, v in enumerate((ms * 1e3, plain_ms * 1e3, *cost)):
+                    s[i] += v
+            print(f"  {kernel:10s} {name:14s} {shape} B={b} max_abs_err "
+                  f"{err:.3e}{times}", flush=True)
             if not err <= TOL:
                 raise SystemExit(f"serve {label} {kernel} {name} B={b}: max "
                                  f"abs error {err} above {TOL}")
+            worst[kernel] = max(worst[kernel], err)
             grad_err(dev, kernel, name, args, plain, gen, f"{label} B={b}")
+    for kernel, (us, plain_us, nbytes, flops) in sums.items():
+        print(f"  {kernel:10s} per decision {shape}: kernel {us:.2f} us, "
+              f"plain {plain_us:.2f} us, bound "
+              f"{bound(nbytes, flops)[0] * 1e3:.3f} us", flush=True)
+    return worst
 
 
 def serve_decode_check(dev, cfg, groups):
@@ -3037,6 +3110,309 @@ def serve_path_phase(dev):
           f"steps, params max |diff| {diff:.3e}")
     if same != len(reports) or not excess <= 0:
         raise SystemExit("async and sync engines disagree")
+
+
+# ------------------------------------------------- the serving benchmark
+def stored_trace(data, name):
+    """A golden file's trace ``name`` (``trace/<name>/<field>`` columns)
+    as the JAX engine received it."""
+    from repro_torch.serve import ServeRequest
+    prefix = f"trace/{name}/"
+    cols = {k[len(prefix):]: data[k].tolist() for k in data
+            if k.startswith(prefix)}
+    return [ServeRequest(**dict(zip(cols, vals)))
+            for vals in zip(*cols.values())]
+
+
+def async_golden_replay(gold, dev):
+    """The port's ContinuousServingEngine as a continuous-serving golden
+    file records the JAX one (its knobs, initial agent params and exit
+    mask, the exit table from the stored roofline figures, every draw
+    injected), run over the file's traces in order: (engine, {run: step
+    reports}, each step's decision, the main run's row fields by
+    serve_bench.continuous_fields)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import agent_state_from_params
+    from repro_torch.launch.serve_bench import continuous_fields
+    from repro_torch.serve import ContinuousServingEngine, Replica
+    eng = ContinuousServingEngine(
+        get_arch(SERVE_ARCH, reduced=True),
+        [Replica(n, s) for n, s in SERVE_REPLICAS],
+        scheduler=str(gold["scheduler"]),
+        batch_slots=int(gold["batch_slots"]), seed=int(gold["seed"]),
+        workload="mmpp", scenario="dyn_bursty",
+        agent_kw=json.loads(str(gold["agent_kw"])), init_model=False,
+        profile_kw={k: float(gold[f"profile/{k}"])
+                    for k in ("peak_flops", "hbm_bw")}, device=dev)
+    eng.set_agent_state(agent_state_from_params(
+        eng.agent_def, tree_of(gold, "init_params"), gold["exit_mask"]))
+    inject_serve_draws(eng, gold, len(gold["decisions"]))
+    decisions, price = [], eng._price_slot
+
+    def priced(active):
+        out = price(active)
+        decisions.append(out[1])
+        return out
+
+    eng._price_slot = priced
+    reports, row = {}, None
+    for name in gold["runs"].tolist():
+        served, tokens = eng.counts["served"], eng.tokens_served
+        reports[name] = eng.run(stored_trace(gold, name))
+        if name == "main":
+            row = continuous_fields(eng, served, tokens)
+    return eng, reports, decisions, row
+
+
+def report_diff(got, want) -> tuple:
+    """One step report against the golden's: (what differs, the largest
+    relative latency difference). Everything but the served latencies
+    must be equal; those within ASYNC_LATENCY_RTOL."""
+    bad, worst = [], 0.0
+    for k in want:
+        if k != "served" and got.get(k) != want[k]:
+            bad.append(k)
+    if len(got["served"]) != len(want["served"]):
+        return bad + ["served"], worst
+    for g, w in zip(got["served"], want["served"]):
+        if {k: v for k, v in g.items() if k != "latency_s"} != \
+                {k: v for k, v in w.items() if k != "latency_s"}:
+            bad.append(f"served rid {w['rid']}")
+        elif (g["latency_s"] is None) != (w["latency_s"] is None):
+            bad.append(f"served rid {w['rid']} latency")
+        elif w["latency_s"] is not None:
+            rel = abs(g["latency_s"] - w["latency_s"]) / abs(w["latency_s"])
+            worst = max(worst, rel)
+            if not rel <= ASYNC_LATENCY_RTOL:
+                bad.append(f"served rid {w['rid']} latency {rel:.3e}")
+    return bad, worst
+
+
+def serve_async_golden_phase(dev):
+    """44. tests/data/torch_serve_async_golden.npz (a JAX
+    ContinuousServingEngine at the serve-bench's --quick shape over its
+    warm-up and main traces and the main stream's next 512 requests, with
+    its draws) through the port's continuous engine on the card with the
+    draws injected: every step's decision equal, or a flip only at a
+    recorded near-tie (<= NEAR_TIE), after which the comparison stops
+    (fatal before the first train step); the step reports equal, served
+    latencies within ASYNC_LATENCY_RTOL; without a flip the counts, tokens
+    served, the bench row's fields and the final params (TRAIN_PARAM_TOL)
+    too; gcn_agg 4 and edge_score 1 a decision and a train step. Returns
+    the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn.pytree import flatten_dict
+    gold = load_npz(SERVE_ASYNC_GOLDEN)
+    n_steps = len(gold["decisions"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, reports, decisions, row = async_golden_replay(gold, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = [r for name in gold["runs"].tolist() for r in reports[name]]
+    want = [r for name in gold["runs"].tolist()
+            for r in json.loads(str(gold[f"reports/{name}"]))]
+    n_train = int(eng.agent_state.loss_count)
+    per_run = ", ".join(f"{n} {int(gold['steps/' + n])}"
+                        for n in gold["runs"].tolist())
+    print(f"{len(got)} steps ({per_run}) at batch {eng.batch_slots} in "
+          f"{wall:.3f} s with the engine's build, {n_train} train steps; "
+          f"launches {counts}")
+    if len(got) != n_steps or len(decisions) != n_steps:
+        raise SystemExit(f"serve async golden: {len(got)} steps, the "
+                         f"golden run took {n_steps}")
+    same = (np.stack(decisions) == gold["decisions"]).all(-1)
+    flipped = np.flatnonzero(~same)
+    stop = int(flipped[0]) if flipped.size else n_steps
+    if flipped.size:
+        margin = min(gold["q_margin"][stop], gold["xhat_margin"][stop])
+        print(f"  step {stop}: q margin {gold['q_margin'][stop]:.3e}, x_hat "
+              f"margin {gold['xhat_margin'][stop]:.3e}")
+        if margin > NEAR_TIE:
+            raise SystemExit(f"serve async golden: decision differs at step "
+                             f"{stop}, not at a near-tie")
+        if stop <= int(gold["train_steps"][0]):
+            raise SystemExit(f"serve async golden: a decision flipped at "
+                             f"step {stop}, before the first train step")
+    worst = 0.0
+    for t in range(stop):
+        bad, rel = report_diff(got[t], want[t])
+        worst = max(worst, rel)
+        if bad:
+            raise SystemExit(f"serve async golden: step {t} differs in "
+                             f"{bad}")
+    print(f"decisions equal {int(same[:stop].sum())}/{stop} steps" + (
+        "" if stop == n_steps else f"; a near-tie flip at step {stop}: the "
+        "comparison stops") + f"; step reports equal, served latencies "
+        f"within {worst:.3e} relative (gate {ASYNC_LATENCY_RTOL})")
+    want_counts = {"gcn_agg": 4 * (n_steps + n_train),
+                   "edge_score": n_steps + n_train, "flash_attention": 0,
+                   "decode_attention": 0, "ssm_scan": 0}
+    if counts != want_counts:
+        raise SystemExit(f"serve async golden: launches {counts}, expected "
+                         f"{want_counts}")
+    if stop < n_steps:
+        print("counts, tokens, row and final params not compared (the run "
+              "left the golden one at the flip)")
+        return counts
+    want_c = {k: int(gold[f"counts/{k}"]) for k in eng.counts}
+    want_row = {k[4:]: gold[k].item() for k in gold if k.startswith("row/")}
+    row_bad = [k for k in want_row.keys() | row.keys() if k not in row
+               or k not in want_row or not (
+                   row[k] == want_row[k]
+                   if k not in ("latency_p50_s", "latency_p99_s")
+                   else abs(row[k] - want_row[k])
+                   <= ASYNC_LATENCY_RTOL * want_row[k])]
+    print(f"counts {eng.counts} (golden {want_c}), tokens served "
+          f"{eng.tokens_served} (golden {int(gold['tokens_served'])}), "
+          f"train steps {n_train} (golden {int(gold['train_steps_taken'])})"
+          f"; the bench row's fields {row} (golden {want_row})")
+    if (eng.counts != want_c or eng.in_flight
+            or eng.tokens_served != int(gold["tokens_served"])
+            or n_train != int(gold["train_steps_taken"]) or row_bad):
+        raise SystemExit(f"serve async golden: counts, tokens, train steps "
+                         f"or row fields {row_bad} differ")
+    excess, diff = -math.inf, 0.0
+    want_p = flatten_dict(tree_of(gold, "final/params"))
+    got_p = flatten_dict(eng.agent_state.params)
+    for k, w in want_p.items():
+        w = torch.tensor(w, device=dev)
+        excess = max(excess, close_excess(got_p[k], w, *TRAIN_PARAM_TOL))
+        diff = max(diff, float((got_p[k] - w).abs().max()))
+    print(f"final params max |diff| {diff:.3e} (rtol {TRAIN_PARAM_TOL[0]} "
+          f"atol {TRAIN_PARAM_TOL[1]})")
+    if set(got_p) != set(want_p) or not excess <= 0:
+        raise SystemExit("serve async golden: final params differ")
+    return counts
+
+
+def serve_bench_phase(dev):
+    """45. ``python -m repro_torch.launch serve-bench`` at its defaults,
+    in-process, its rows and history in a temporary directory: both rows
+    with the reference's keys, 1200 requests each in the rows and by
+    each engine's own count of what it served, the bench's own
+    assertions (every request served, continuous beats sync on
+    requests/s; an AssertionError is fatal) and the same two read from the
+    rows; over each timed window exactly gcn_agg 4 and edge_score 1 a
+    decision and a train step, and no other kernel; then each engine's
+    five actor launches against their plain versions and timed at B=1
+    (serve_actor_check). Returns the main windows' launch counts and each
+    actor kernel's largest forward error."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_bench
+    from repro_torch.obs import HistoryStore
+    launcher = __import__("repro_torch.launch.__main__",
+                          fromlist=["main"])
+    windows = []
+
+    def served(eng, kind):
+        """The engine's own count of requests served: the continuous
+        engine's counter; the sync engine's tasks priced (its telemetry
+        counts one for each request it was handed)."""
+        if kind == "continuous":
+            return eng.counts["served"]
+        return int(eng.telemetry_snapshot()["summary"]["tasks"])
+
+    def counted(run, kind):
+        def wrapped(eng, trace):
+            step0 = eng.agent_state.host_step
+            train0 = int(eng.agent_state.loss_count)
+            served0 = served(eng, kind)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            wall = run(eng, trace)
+            windows.append(dict(
+                kind=kind, engine=eng, requests=len(trace), wall=wall,
+                counts=ops.launch_counts(),
+                decisions=eng.agent_state.host_step - step0,
+                train=int(eng.agent_state.loss_count) - train0,
+                served=served(eng, kind) - served0))
+            return wall
+        return wrapped
+
+    saved = (serve_bench._run_sync, serve_bench._run_continuous,
+             os.environ.get("REPRO_HISTORY"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench.json")
+        os.environ["REPRO_HISTORY"] = os.path.join(tmp, "history")
+        serve_bench._run_sync = counted(saved[0], "sync")
+        serve_bench._run_continuous = counted(saved[1], "continuous")
+        try:
+            t0 = time.perf_counter()
+            launcher.main(["serve-bench", "--out", out])
+            wall = time.perf_counter() - t0
+        finally:
+            serve_bench._run_sync, serve_bench._run_continuous = saved[:2]
+            if saved[2] is None:
+                os.environ.pop("REPRO_HISTORY")
+            else:
+                os.environ["REPRO_HISTORY"] = saved[2]
+        with open(out) as f:
+            rows = json.load(f)
+        recs = HistoryStore(os.path.join(tmp, "history")).records(
+            kind="bench")
+    print(f"serve-bench ran in {wall:.2f} s (engines, traces, warm-up and "
+          f"both timed windows)")
+    for row in rows:
+        print(json.dumps(row))
+    names = ["serve_sync_slots4", "serve_continuous_slots64"]
+    if [r["name"] for r in rows] != names or [r["name"] for r in recs] \
+            != names:
+        raise SystemExit(f"serve-bench rows {[r['name'] for r in rows]}, "
+                         f"history {[r['name'] for r in recs]}")
+    sync, cont = rows
+    missing = [(r["name"], sorted(keys - set(r)))
+               for r, keys in ((sync, BENCH_SYNC_KEYS),
+                               (cont, BENCH_CONT_KEYS)) if keys - set(r)]
+    if missing:
+        raise SystemExit(f"serve-bench rows lack keys {missing}")
+    if (sync["backend"] != "cuda" or not sync.get("device_name")
+            or not sync.get("power_limit")):
+        raise SystemExit(f"serve-bench rows not stamped with the card: "
+                         f"{sync}")
+    if len(windows) != 4:
+        raise SystemExit(f"serve-bench ran {len(windows)} windows, not 4")
+    main_sync, main_cont = windows[2], windows[3]
+    # the sync row's n_requests is the trace's length, as the reference
+    # has it; the engines' own counts show what each served
+    if (sync["n_requests"], cont["n_requests"], main_sync["served"],
+            main_cont["served"]) != (BENCH_REQUESTS,) * 4:
+        raise SystemExit(f"serve-bench rows give {sync['n_requests']} / "
+                         f"{cont['n_requests']} requests, the engines "
+                         f"served {main_sync['served']} / "
+                         f"{main_cont['served']}, not {BENCH_REQUESTS}")
+    if not cont["requests_per_s"] > sync["requests_per_s"]:
+        raise SystemExit(f"serve-bench: continuous {cont['requests_per_s']} "
+                         f"req/s does not beat sync {sync['requests_per_s']}")
+    for w in windows:
+        n = w["decisions"] + w["train"]
+        want = {"gcn_agg": 4 * n, "edge_score": n, "flash_attention": 0,
+                "decode_attention": 0, "ssm_scan": 0}
+        each = w["wall"] / w["decisions"] * 1e3
+        print(f"  {w['kind']:10s} {w['requests']:5d} requests, "
+              f"{w['served']} served: {w['decisions']} decisions "
+              f"({each:.3f} ms each), {w['train']} train steps, launches "
+              f"{w['counts']}")
+        if w["counts"] != want:
+            raise SystemExit(f"serve-bench {w['kind']} window: launches "
+                             f"{w['counts']}, expected {want}")
+    print(f"speed-up x{cont['requests_per_s'] / sync['requests_per_s']:.2f} "
+          f"(row: x{cont['vs_sync_speedup']}); continuous: "
+          f"{main_cont['decisions']} steps, "
+          f"{main_cont['wall'] / main_cont['decisions'] * 1e3:.3f} ms a "
+          f"step; sync: {main_sync['wall'] / main_sync['decisions'] * 1e3:.3f}"
+          f" ms a slot; {card_line()}")
+    err = {"gcn_agg": 0.0, "edge_score": 0.0}
+    for w in (main_sync, main_cont):
+        label = f"bench {w['kind']}"
+        for k, e in serve_actor_check(dev, w["engine"], label,
+                                      timed=True).items():
+            err[k] = max(err[k], e)
+    launches = {k: main_sync["counts"][k] + main_cont["counts"][k]
+                for k in ("gcn_agg", "edge_score")}
+    return launches, err
 
 
 # ------------------------------------------------------------------ the zoo
@@ -5304,7 +5680,7 @@ def dense_model_phase(dev, arch) -> tuple:
     params' bytes + INIT_SLACK (and, for STACK_CHECK_ARCH, equal bit for
     bit to the stacked draws); a PREFILL_B x PREFILL_S prefill (flash
     launches one a layer); greedy decoding at every exit (greedy_exits,
-    prompts of ZOO_PROMPT_LENS tokens, 32 new ones); prefill against
+    prompts of ZOO_PROMPT_LENS tokens, ZOO_NEW new ones); prefill against
     teacher-forced decode over ZOO_CONSIST_P tokens, every
     layer printed, layer 0 within CONSIST_TOL; then float32 at full width
     cut to DENSE_F32_LAYERS layers, every layer and the logits within
@@ -5365,7 +5741,7 @@ def dense_model_phase(dev, arch) -> tuple:
           flush=True)
     torch.cuda.empty_cache()
     decode, row["decode_ms"] = greedy_exits(dev, cfg, params,
-                                            ZOO_PROMPT_LENS)
+                                            ZOO_PROMPT_LENS, ZOO_NEW)
 
     errs = decode_vs_prefill(dev, cfg, params, gen, ZOO_CONSIST_P)
     first = max(errs["k[0]"], errs["v[0]"])
@@ -5983,6 +6359,19 @@ def main() -> int:
     ex_counts = examples_phase(dev)
     print(f"phase 42 wall {time.perf_counter() - t0:.2f} s")
 
+    phase(44, "the continuous engine: golden replay of a JAX "
+              "ContinuousServingEngine run at the serve-bench's --quick "
+              "shape")
+    t0 = time.perf_counter()
+    serve_async_golden_phase(dev)
+    print(f"phase 44 wall {time.perf_counter() - t0:.2f} s")
+
+    phase(45, "the slice's main path: python -m repro_torch.launch "
+              "serve-bench, the sync slot loop against continuous batching")
+    t0 = time.perf_counter()
+    bench_counts, bench_err = serve_bench_phase(dev)
+    print(f"phase 45 wall {time.perf_counter() - t0:.2f} s")
+
     phase(43, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
@@ -5996,9 +6385,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": counts[name] + zoo_serve[name] + vgg_counts[name]
-            + ex_counts[name],
-            "max_abs_err": max(grad_err, *(v["err"]
-                                           for v in stats[name].values())),
+            + ex_counts[name] + bench_counts[name],
+            "max_abs_err": max(grad_err, bench_err[name],
+                               *(v["err"] for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     dense_err = {k: max(r["max_abs_err"] for r in dense["kernel_rows"]
@@ -6066,8 +6455,11 @@ def main() -> int:
           "they add nothing); flash_attention's error also covers phase 33's "
           "forwards at the training shapes, both attention kernels' errors "
           "phase 39's at the window's shapes and phase 41's at the GQA "
-          "configs' shapes, ssm_scan's phase 37's; the zoo's new shapes "
-          "timed in phase 28, the GQA configs' in phase 41:")
+          "configs' shapes, ssm_scan's phase 37's; gcn_agg and edge_score "
+          "also those of phase 45's two timed serve-bench windows, and "
+          "their error phase 45's at the engines' shapes (M=4 and M=64); "
+          "the zoo's new shapes timed in phase 28, the GQA configs' in "
+          "phase 41:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))
     print(json.dumps({"dense_kernel_shapes": dense["kernel_rows"]}))
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,7 @@ Commands:
   sweep       (scenario x method x seed) experiment grids, packed on one card
   pop         population training: PBT + scenario auto-curriculum
   serve       GRLE-scheduled early-exit LM serving driver
-  serve-bench serving throughput (not ported yet: ROADMAP item 11b)
+  serve-bench serving throughput: the sync slot loop vs continuous batching
   train       LLM training-step driver
   dryrun      one-card dry run: static bytes and analytic cost per arch x shape
   profile     instrumented rollout: telemetry + compile/trace + JSONL log
@@ -33,12 +33,8 @@ def main(argv=None) -> None:
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; choose from {', '.join(COMMANDS)}")
         raise SystemExit(2)
-    if cmd == "serve-bench":
-        print("serve-bench: the port's serving benchmark is not ported yet; "
-              "it comes with ROADMAP item 11b (launch/serve_bench.py over "
-              "the port's serving throughput benchmark)", file=sys.stderr)
-        raise SystemExit(2)
-    importlib.import_module(f"repro_torch.launch.{cmd}").main(rest)
+    module = cmd.replace("-", "_")
+    importlib.import_module(f"repro_torch.launch.{module}").main(rest)
 
 
 if __name__ == "__main__":

@@ -60,6 +60,18 @@ def git_rev(root: str = ".") -> str:
         return "unknown"
 
 
+def card_line(index: int = 0) -> str:
+    """Card ``index``'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``. Raises where ``nvidia-smi``
+    cannot be run."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[index]
+
+
 def run_manifest(config_signature=None, *, backend: Optional[str] = None,
                  **extra) -> dict:
     """The who/what/where header every run log starts with. ``backend``

@@ -62,6 +62,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.train, repro_torch.optim.schedules\n"
             "import repro_torch.launch.specs, repro_torch.launch.analysis\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.__main__\n"
+            "import repro_torch.launch.serve_bench\n"
             "import repro_torch.models.lm, repro_torch.nn.initializers\n"
             "import repro_torch.kernels.decode_attention\n"
             "import repro_torch.kernels.flash_attention\n"

@@ -1,14 +1,16 @@
 """Write ``tests/data/torch_port_golden.npz``,
 ``tests/data/torch_port_train_golden.npz``,
 ``tests/data/torch_serve_golden.npz``,
-``tests/data/torch_port_dyn_golden.npz`` and
-``tests/data/torch_pop_golden.npz``: JAX traces with the random draws
+``tests/data/torch_port_dyn_golden.npz``,
+``tests/data/torch_pop_golden.npz`` and
+``tests/data/torch_serve_async_golden.npz``: JAX traces with the random draws
 that produced them, for holding the PyTorch port (``repro_torch``)
 against the JAX package where JAX is not installed.
 
     PYTHONPATH=src python tools/make_torch_port_golden.py [--out PATH]
         [--train-out PATH] [--serve-out PATH] [--dyn-out PATH]
-        [--pop-out PATH] [--only decision|train|serve|dyn|pop]
+        [--pop-out PATH] [--serve-async-out PATH]
+        [--only decision|train|serve|dyn|pop|serve_async]
 
 Runs on the CPU with JAX only. The decision file:
 
@@ -76,6 +78,22 @@ margins; the members' metrics, PBT's coin and jitters and its stats, the
 hypers, curriculum state and report after it; the final params, the
 telemetry counters and the history records.
 
+The continuous-serving file (``build_serve_async``): a JAX
+``ContinuousServingEngine`` at the serve-bench's ``--quick`` shape
+(``benchmarks/serve_throughput.py``: 32 slots, ``BENCH_AGENT_KW``, trace
+users 64 on a grid 8x denser than the engine's slot, slack 600 s) running,
+each shifted onto its clock, the bench's warm-up trace, its main trace
+(192 requests) and the next 512 requests of the main trace's stream
+(``BENCH_TRACES``, ``BENCH_TAIL``), so that the run takes train steps. It
+holds the agent's knobs (``agent_kw``, JSON), the traces as the engine
+received them, the draws
+(``record_draws``/``serve_draws``), the initial and final params, each
+step's decision with the critic's and the actor's margins
+(``serve_margins``), the step reports as JSON, the counts, the tokens
+served and the continuous row's deterministic fields after the main trace
+(``BENCH_ROW_KEYS``). ``serve_bench_sync_run`` is the sync side of the
+bench's ``--quick`` comparison on the same traces, for the tests.
+
 For the sweep (no file): ``sweep_cell_reference`` rebuilds the initial
 params and draws the reference's ``sweep.run_cell`` uses for a cell, and
 ``port_slot_draws`` turns them into the port's ``SlotDraws``.
@@ -83,6 +101,8 @@ params and draws the reference's ``sweep.run_cell`` uses for a cell, and
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 
@@ -135,6 +155,23 @@ DYN_RUNS = {
 }
 DYN_SPACE_SEED = 6
 POP_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_pop_golden.npz")
+SERVE_ASYNC_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                  "torch_serve_async_golden.npz")
+# the serve-bench's knobs and --quick shape (benchmarks/serve_throughput.py)
+BENCH_AGENT_KW = dict(n_candidates=16, buffer_size=64, batch_size=16,
+                      train_every=5)
+BENCH_SLOTS_SYNC, BENCH_SLOTS_CONT, BENCH_USERS = 4, 32, 64
+BENCH_GRID, BENCH_SLACK_S = 8, 600.0
+# trace -> (n_slots, seed, max_requests): the bench's warm-up and main
+# traces; the tail is the main trace's stream past its 192nd request,
+# which takes the continuous run past its 20th step, where the ring first
+# holds a minibatch on a train slot
+BENCH_TRACES = {"warm": (4, 99, 32), "main": (4000, 7, 192)}
+BENCH_TAIL = 512
+BENCH_ROW_KEYS = ("n_requests", "n_tokens", "deadline_hit_rate",
+                  "latency_p50_s", "latency_p99_s", "queue_depth_p99")
+TRACE_FIELDS = ("rid", "arrival_s", "deadline_s", "priority", "prompt_len",
+                "max_new")
 # The population golden run: GRLE on fig5_baseline..fig8_csi at M=5, P=4
 # members with sampled hypers, 2 fleets, 15 slots (3 train steps), 4
 # curriculum regions, PBT every generation. Its margins (critic, actor,
@@ -1020,6 +1057,172 @@ def build_serve() -> dict:
     return serve_run("grle")[0]
 
 
+# ------------------------------------------------------- continuous serving
+def bench_traces(slot_s: float) -> dict:
+    """The serve-bench's ``--quick`` traces (``BENCH_TRACES``) for an
+    engine whose slot is ``slot_s``, and the tail: the next ``BENCH_TAIL``
+    requests of the main trace's stream, their instants moved back so
+    that the first arrives at 0."""
+    from repro.serve import make_trace
+    kw = dict(n_users=BENCH_USERS, slot_s=slot_s / BENCH_GRID,
+              deadline_slack_s=BENCH_SLACK_S, scenario="dyn_bursty")
+    (n_w, seed_w, r_w), (n_m, seed_m, r_m) = BENCH_TRACES.values()
+    warm = make_trace(n_slots=n_w, seed=seed_w, max_requests=r_w, **kw)
+    stream = make_trace(n_slots=n_m, seed=seed_m,
+                        max_requests=r_m + BENCH_TAIL, **kw)
+    tail = stream[r_m:]
+    return {"warm": warm, "main": stream[:r_m],
+            "tail": shifted(tail, -tail[0].arrival_s)}
+
+
+def shifted(trace, t0: float) -> list:
+    """A trace's absolute instants shifted onto a clock already at t0
+    (the bench's ``_shifted``)."""
+    return [dataclasses.replace(r, arrival_s=r.arrival_s + t0,
+                                deadline_s=r.deadline_s + t0)
+            for r in trace]
+
+
+def trace_arrays(prefix: str, trace) -> dict:
+    return {f"{prefix}/{f}": np.asarray([getattr(r, f) for r in trace])
+            for f in TRACE_FIELDS}
+
+
+def record_inputs(eng) -> list:
+    """Wrap a JAX engine's agent step so that every call appends the
+    inputs its decision reads (params, exit mask, key, MEC state and the
+    overlaid tasks) and the decision it made."""
+    rec, step = [], eng._agent_step
+
+    def rec_step(state, mec_state, tasks, key=None, sp=None):
+        out = step(state, mec_state, tasks, key, sp)
+        rec.append((state.params, state.exit_mask, state.key, mec_state,
+                    tasks, out[1]))
+        return out
+
+    eng._agent_step = rec_step
+    return rec
+
+
+def serve_margins(adef, inputs) -> dict:
+    """Each recorded step's decision [T, M] replayed from its inputs (held
+    against the engine's own), the critic's margin between the best
+    candidate and the best one with another decision (``q_margin``) and
+    the smallest per-device gap between the actor's top two scores
+    (``xhat_margin``), [T] each."""
+    env = adef.env
+
+    @jax.jit
+    def margins(params, exit_mask, key, mec_state, tasks):
+        _, key = jax.random.split(key)
+        g = build_graph(env.observe(mec_state, tasks), env.N, env.L)
+        x_hat, _ = adef.scores(params, g, exit_mask)
+        cands = one_hot_candidates(x_hat, adef.n_candidates)
+        allowed = (exit_mask[None, :] > 0.5) & (g.mask > 0.5)
+        gumbel = jax.random.gumbel(key, (adef.n_random, *allowed.shape))
+        rand = jnp.argmax(jnp.where(allowed[None], gumbel, -jnp.inf),
+                          axis=-1).astype(jnp.int32)
+        cands = jnp.concatenate([cands, rand], axis=0)
+        q = env.evaluate(mec_state, tasks, cands)
+        best = jnp.argmax(q)
+        dec = cands[best]
+        other = (cands != dec[None]).any(-1)
+        q_other = jnp.where(other, q, -jnp.inf).max()
+        xs = jnp.sort(x_hat, axis=-1)
+        return dec, q[best] - q_other, (xs[..., -1] - xs[..., -2]).min()
+
+    out = {"decisions": [], "q_margin": [], "xhat_margin": []}
+    for params, mask, key, mec_state, tasks, decision in inputs:
+        dec, qm, xm = margins(params, mask, key, mec_state, tasks)
+        assert (np.asarray(dec) == np.asarray(decision)).all(), \
+            "the margins' replay does not make the engine's decision"
+        out["decisions"].append(np.asarray(decision, np.int32))
+        out["q_margin"].append(np.asarray(qm, np.float32))
+        out["xhat_margin"].append(np.asarray(xm, np.float32))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def serve_async_run() -> tuple:
+    """The JAX continuous engine at the serve-bench's ``--quick`` shape
+    over the warm-up, main and tail traces: (the golden file's arrays,
+    the traces before they were shifted onto the engine's clock)."""
+    from repro.mec.profiles import TPU_V5E_HBM_BW, TPU_V5E_PEAK_FLOPS
+
+    eng = serve_engine("grle", "async", batch_slots=BENCH_SLOTS_CONT,
+                       agent_kw=BENCH_AGENT_KW)
+    state0 = jax.tree_util.tree_map(np.asarray, eng.agent_state)
+    rec = record_draws(eng)
+    inputs = record_inputs(eng)
+    data = {"seed": np.asarray(SERVE_SEED),
+            "scheduler": np.asarray("grle"),
+            "batch_slots": np.asarray(BENCH_SLOTS_CONT),
+            "agent_kw": np.asarray(json.dumps(BENCH_AGENT_KW,
+                                              sort_keys=True)),
+            "profile/peak_flops": np.asarray(TPU_V5E_PEAK_FLOPS),
+            "profile/hbm_bw": np.asarray(TPU_V5E_HBM_BW),
+            "exit_mask": np.asarray(state0.exit_mask),
+            "runs": np.asarray(["warm", "main", "tail"])}
+    traces = bench_traces(float(eng.env.cfg.slot_s))
+    for name, trace in traces.items():
+        trace = shifted(trace, eng.clock.now())
+        served, tokens = eng.counts["served"], eng.tokens_served
+        reports = eng.run(trace)
+        data.update(trace_arrays(f"trace/{name}", trace))
+        data[f"reports/{name}"] = np.asarray(json.dumps(reports,
+                                                        sort_keys=True))
+        data[f"steps/{name}"] = np.asarray(len(reports))
+        if name == "main":
+            snap = eng.telemetry_snapshot()["summary"]
+            row = dict(n_requests=eng.counts["served"] - served,
+                       n_tokens=eng.tokens_served - tokens,
+                       deadline_hit_rate=snap["deadline_hit_rate_exact"],
+                       latency_p50_s=snap["latency_p50_s_exact"],
+                       latency_p99_s=snap["latency_p99_s_exact"],
+                       queue_depth_p99=snap["queue_depth_p99"])
+            data.update({f"row/{k}": np.asarray(row[k])
+                         for k in BENCH_ROW_KEYS})
+    data.update({f"counts/{k}": np.asarray(v) for k, v in eng.counts.items()})
+    data["tokens_served"] = np.asarray(eng.tokens_served)
+    data["train_steps_taken"] = np.asarray(int(eng.agent_state.loss_count))
+    data.update(serve_draws(eng, rec))
+    data.update(serve_margins(eng.agent_def, inputs))
+    final = jax.tree_util.tree_map(np.asarray, eng.agent_state.params)
+    for prefix, tree in (("init_params", state0.params),
+                         ("final/params", final)):
+        data.update(flat_tree(prefix, tree))
+    assert len(data["train_steps"]) >= 1
+    return data, traces
+
+
+def build_serve_async() -> dict:
+    """Everything the continuous-serving golden file holds, flat."""
+    return serve_async_run()[0]
+
+
+def serve_bench_sync_run(warm, main) -> dict:
+    """The sync side of the serve-bench's ``--quick`` comparison in JAX:
+    a 4-slot ``EdgeServingEngine`` fed ``warm`` then ``main`` in 4-request
+    chunks (the bench's ``_run_sync``). Returns its initial ``AgentState``
+    (numpy), draws, the sync row's deterministic fields and the engine."""
+    eng = serve_engine("grle", "sync", batch_slots=BENCH_SLOTS_SYNC,
+                       agent_kw=BENCH_AGENT_KW, init_model=False)
+    state0 = jax.tree_util.tree_map(np.asarray, eng.agent_state)
+    rec = record_draws(eng)
+    for trace in (warm, main):
+        tokens = eng.tokens_served
+        for i in range(0, len(trace), BENCH_SLOTS_SYNC):
+            eng.serve_slot([eng.make_request(prompt_len=r.prompt_len,
+                                             max_new=r.max_new)
+                            for r in trace[i: i + BENCH_SLOTS_SYNC]])
+    snap = eng.telemetry_snapshot()["summary"]
+    row = dict(n_requests=len(main), n_tokens=eng.tokens_served - tokens,
+               deadline_hit_rate=snap["deadline_hit_rate"],
+               latency_p50_s=snap["latency_p50_s_exact"],
+               latency_p99_s=snap["latency_p99_s_exact"])
+    return {"state0": state0, "draws": serve_draws(eng, rec), "row": row,
+            "engine": eng}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=GOLDEN)
@@ -1027,14 +1230,16 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-out", default=SERVE_GOLDEN)
     ap.add_argument("--dyn-out", default=DYN_GOLDEN)
     ap.add_argument("--pop-out", default=POP_GOLDEN)
+    ap.add_argument("--serve-async-out", default=SERVE_ASYNC_GOLDEN)
     ap.add_argument("--only", choices=("decision", "train", "serve", "dyn",
-                                       "pop"))
+                                       "pop", "serve_async"))
     args = ap.parse_args(argv)
     jobs = {"decision": (build, args.out),
             "train": (build_train, args.train_out),
             "serve": (build_serve, args.serve_out),
             "dyn": (build_dyn, args.dyn_out),
-            "pop": (build_pop, args.pop_out)}
+            "pop": (build_pop, args.pop_out),
+            "serve_async": (build_serve_async, args.serve_async_out)}
     for name, (fn, out) in jobs.items():
         if args.only not in (None, name):
             continue

@@ -10,7 +10,6 @@ own overhead.
 """
 from __future__ import annotations
 
-import subprocess
 import time
 
 import torch
@@ -19,9 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
+    from repro_torch.obs.log import card_line
+    return card_line()
 
 
 def device_us(evt) -> float:
