@@ -5,8 +5,9 @@ DeepSeek-V2, Whisper; StableLM-3B, InternLM2-20B and Chameleon-34B at
 full width), its serving engines and their throughput benchmark
 (serve-bench), its experiment sweep, its population training, its
 profiler and cost hooks, LM training, the paper's multi-exit VGG-16
-pipeline, the long-context window decode, the one-card dry run and the
-examples on one NVIDIA GPU and check them.
+pipeline, the long-context window decode, the one-card dry run, the
+examples and the fleet, member and cell axes over the cards (one rank a
+card) on the NVIDIA GPUs of one machine and check them.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,7 @@ order, each fatal on failure:
 21. serving at full width: Llama-3.2-1B (bf16, random weights from seed
    0) behind ``EdgeServingEngine`` (replicas fast-pod 1.0 and slow-pod
    0.5, 8 batch slots, a 256-row cache, GRLE with ring 32, minibatch 8, a
-   train step every 5 slots), 12 slots of 8 requests (prompts of 16..64
+   train step every 5 slots), 10 slots of 8 requests (prompts of 16..64
    tokens, 16 new) with decoding: launches exactly gcn_agg 4 and
    edge_score 1 per slot plus as many per train step, decode_attention
    exit x (longest prompt + 16) per exit group; finite losses; slot ms
@@ -290,7 +291,7 @@ order, each fatal on failure:
    S=2048), Whisper-medium (the encoder over 4 x 1500 frames, the
    decoder's dense pass over S=448) and DeepSeek-V2-236B with its depth
    cut to 4 layers (B=1, S=2048): prefill ms and prompt tokens/s; greedy
-   decoding of 8 requests (prompts of 16..32 tokens, 8 new, a 256-row
+   decoding of 8 requests (prompts of 16..24 tokens, 8 new, a 256-row
    cache; Whisper against its encoder's output) at every exit, ms a step
    and tokens/s; the hand kernels' launches of each call exactly as
    ``zoo_launches`` counts them; a 128-token prefill at B=2 against the
@@ -395,7 +396,7 @@ order, each fatal on failure:
    printed (StableLM's params also equal bit for bit to the old init's
    stacked draws); a prefill at B=4, S=2048 with exactly n_layers flash
    launches and its peak memory; greedy decoding as in phase 9 at every
-   exit, prompts of 16..32 tokens, 8 new ones (decode_attention exit x
+   exit, prompts of 16..24 tokens, 8 new ones (decode_attention exit x
    steps);
    prefill against teacher-forced decode over 2 x 128 tokens, every
    layer's K and V printed, layer 0 within 2e-2; then in float32 at full
@@ -437,16 +438,40 @@ order, each fatal on failure:
    against their plain versions at B=1 and the minibatch (TOL, and every
    gradient within GRAD_RTOL/GRAD_ATOL), and timed at B=1 beside the plain
    time and the bound;
+46. the fleet, member and cell axes over the cards: one rank a card
+   (``torch.cuda.device_count()`` processes, NCCL, ``repro_torch.sharding.
+   ranks.RankPool``, rank r on cuda:r, the kernels of phase 2 loaded, not
+   rebuilt), each on a ``fleet`` ``DeviceMesh`` over the group, against
+   this process's unsharded runs (``fleet_run``, ``fleet_check``): (a)
+   ``RolloutDriver.run_sharded`` on GRLE fig5_baseline at full width (M=14,
+   ring 128, minibatch 64, omega 10), B=64, 40 slots with training, scan
+   then loop: the decisions, the trace, the replay ring, the params and
+   the whole final carry bit for bit on every rank, the metrics equal,
+   scan equal to loop, exactly gcn_agg 4 and edge_score 1 a slot and a
+   train step a rank (the wrappers' counts in loop mode; in scan mode the
+   profiler's, with 2 cudaGraphLaunch a slot sharded and 1 unsharded);
+   (b) one population generation, P = 4 x world members at POP_FULL's
+   width (M=14), 20 slots: the report, the agents and the [P] metrics
+   bit for bit; (c) one sweep pack of world + 1 fig5
+   GRLE cells (3 on one card: padded to the rank count with world > 1),
+   30 slots: the rows equal to ``run_cell``'s. On one card two gloo
+   ranks sharing it run the same and are held to the same. The ranks
+   start once this process's timed runs are done. Prints the world size
+   (and on one card that the law across ranks is held by the CPU tests),
+   slot ms sharded and unsharded and the graph launches a slot (2
+   sharded: the fleets' half and the learner's, the all-gather between
+   them outside the graphs; 1 unsharded);
 43. (last) one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
    one ``{"dense_kernel_shapes": [...]}`` line (phase 41's), one
    ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35, 36,
-   38, 39, 41, 42 and 45 and the LM prefills and decodes), the card line
+   38, 39, 41, 42, 45 and 46 and the LM prefills and decodes), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -558,9 +583,9 @@ SERVE_ARCH, SERVE_REPLICAS = "qwen1_5_0_5b", (("a", 1.0), ("b", 0.7))
 SERVE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5,
                       n_candidates=8)
 ENGINE_AGENT_KW = dict(buffer_size=32, batch_size=8, train_every=5)
-# 12 decoding slots (cut from 30 to keep the script inside its time
-# limit): the ninth takes the phase's train step
-ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 12, 16
+# 10 decoding slots (cut from 30, then 12, to keep the script inside its
+# time limit): the ninth takes the phase's train step
+ENGINE_B, ENGINE_SLOTS, ENGINE_NEW = 8, 10, 16
 ASYNC_B, ASYNC_USERS, ASYNC_SLOTS, EQUIV_STEPS = 32, 64, 200, 50
 # a request longer than the engine's cache: decoded over the wrapped cache
 WRAP_PROMPT, WRAP_NEW = 250, 40
@@ -605,6 +630,20 @@ POP_FULL = dict(POP_GOLDEN_CONFIG, n_devices=14, members=16, fleets=1,
                 slots=80, regions=6, replay=64, batch=16, train_every=5)
 POP_GENERATIONS = 3
 POP_EVAL_POINTS = (0.8, 0.9, 1.0)
+# phase 46, the fleet axis over the cards: (a) the paper's learner at full
+# width (fig5_baseline, M=14, ring 128, minibatch 64, omega 10) on B=64
+# fleets for 40 slots; (b) one generation of P = 4 x world members at
+# POP_FULL's width for FLEET_POP_SLOTS slots; (c) one pack of world + 1
+# fig5 GRLE cells (3 on one card), padded to the rank count
+FLEET_B, FLEET_T = 64, 40
+FLEET_POP_SLOTS = 20
+FLEET_CELL_SLOTS = 30
+# a rank's wait for its group and its collectives, and the parent's wait
+# for each rank's answer (on one card two gloo ranks share it as well:
+# gloo's all-gather, broadcast and object gather carry CUDA tensors of two
+# processes on one card, as one try on an H100 showed; NCCL refuses two
+# ranks a card)
+FLEET_TIMEOUT_S = 240
 # the rest of the model zoo: its golden run (tools/make_torch_lm_golden.py
 # zoo) and its models at full width, bf16, random weights from seed 0:
 # (arch, prefill batch, prompt length, layers kept). DeepSeek-V2-236B's
@@ -615,11 +654,12 @@ ZOO_MODELS = (("zamba2_2_7b", PREFILL_B, PREFILL_S, None),
               ("deepseek_moe_16b", PREFILL_B, PREFILL_S, None),
               ("whisper_medium", PREFILL_B, 448, None),
               ("deepseek_v2_236b", 1, PREFILL_S, 4))
-# the zoo's decode runs: prompts of 16..32 tokens, 8 new tokens a request;
-# its consistency runs over 128 tokens (one chunk of Zamba2's scan: the
+# the zoo's decode runs (and phase 41's): prompts of 16..24 tokens (cut
+# from 16..32 for phase 46's time), 8 new tokens a request; its
+# consistency runs over 128 tokens (one chunk of Zamba2's scan: the
 # carried state across chunks is held by phases 28 and 29); both cut so
 # that the whole script stays well inside its time limit
-ZOO_PROMPT_LENS, ZOO_NEW, ZOO_CONSIST_P = (16, 32), 8, 128
+ZOO_PROMPT_LENS, ZOO_NEW, ZOO_CONSIST_P = (16, 24), 8, 128
 # the MoE models' consistency runs with the capacity factor raised until
 # no slot drops: a decode step routes all B tokens as one group, a prefill
 # each row as its own, so with drops the two compute different functions
@@ -2157,8 +2197,8 @@ def profiled_episode(drv, mode, n_slots=N_SLOTS, seed=SEED, **run_kw):
 
 def same_run(a, b) -> bool:
     """Two (carry, trace) pairs equal bit for bit (NaN equal to NaN)."""
-    from repro_torch.rollout.driver import _tensors
-    xs, ys = _tensors(a), _tensors(b)
+    from repro_torch.nn.pytree import tree_tensors
+    xs, ys = tree_tensors(a), tree_tensors(b)
     return len(xs) == len(ys) and all(
         x.shape == y.shape and x.dtype == y.dtype
         and bool(((x == y) | (x != x) & (y != y)).all())
@@ -4123,8 +4163,8 @@ def pop_golden_phase(dev):
 
 def same_leaves(a, b) -> bool:
     """Every tensor of two trees equal bit for bit (NaN equal to NaN)."""
-    from repro_torch.rollout.driver import _tensors
-    xs, ys = _tensors(a), _tensors(b)
+    from repro_torch.nn.pytree import tree_tensors
+    xs, ys = tree_tensors(a), tree_tensors(b)
     return len(xs) == len(ys) and all(
         x.shape == y.shape and x.dtype == y.dtype
         and bool(((x == y) | (x != x) & (y != y)).all())
@@ -5794,6 +5834,269 @@ def dense_phase(dev) -> dict:
     return {"launches": totals, "kernel_rows": rows, "models": models}
 
 
+# ------------------------------------------ the fleet axis over the cards (46)
+def fleet_run(dev, mesh, spec: dict, timed=None) -> dict:
+    """Phase 46's three runs on ``mesh`` (None: the unsharded reference,
+    in this process), the timed ones first: (a) ``run_sharded`` in scan
+    mode, timed on a second run; (b) one population generation; (c) one
+    sweep pack (unsharded: ``run_cell`` per cell); then ``timed()``, if
+    given; then (a) again in loop mode for the wrappers' launch counts and
+    in scan mode under the profiler. Returns host copies."""
+    from repro_torch.core import agent_def
+    from repro_torch.kernels import ops
+    from repro_torch.mec import MECEnv, make_scenario
+    from repro_torch.mec.scenarios import scenario_space
+    from repro_torch.nn.pytree import tree_tensors
+    from repro_torch.pop import Curriculum, PopulationTrainer
+    from repro_torch.rollout import RolloutDriver
+    from repro_torch.sweep import SweepSpec, pack_cells, run_cell, run_pack
+
+    def host(tree):
+        return [x.cpu().numpy() for x in tree_tensors(tree)]
+
+    out = {}
+    env = MECEnv(make_scenario("fig5_baseline"), device=dev)
+    drv = RolloutDriver(agent_def("grle", env, device=dev), spec["B"],
+                        train=True, device=dev)
+    run = (drv.run if mesh is None else
+           lambda *a, **k: drv.run_sharded(*a, mesh=mesh, **k))
+    carry, trace = run(SEED, spec["T"], mode="scan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, trace = run(SEED, spec["T"], mode="scan")
+    torch.cuda.synchronize()
+    out["slot_ms"] = (time.perf_counter() - t0) / spec["T"] * 1e3
+    out["graphs"] = drv.graphs_captured
+
+    c = dict(POP_FULL, members=spec["P"], slots=spec["pop_slots"])
+    penv = MECEnv(make_scenario(c["space"][0], n_devices=c["n_devices"]),
+                  device=dev)
+    space = scenario_space(*c["space"], n_devices=c["n_devices"], device=dev)
+    tr = PopulationTrainer(
+        agent_def(c["method"], penv, device=dev),
+        Curriculum(space.lo, space.hi, n_regions=c["regions"]),
+        n_members=c["members"], n_fleets=c["fleets"], n_slots=c["slots"],
+        seed=c["seed"], mesh=mesh, replay_capacity=c["replay"],
+        batch_size=c["batch"], train_every=c["train_every"], telemetry=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, out["pop_report"], det = tr.generation(tr.init_state(), detail=True)
+    torch.cuda.synchronize()
+    out["pop_s"] = time.perf_counter() - t0
+    out["pop_agents"] = host(ts.pop.agents)
+    out["pop_metrics"] = host(det.metrics)
+    del tr, ts, det
+
+    sweep = SweepSpec.from_names(
+        "fig5_baseline", "grle", spec["cells"], n_devices=14,
+        n_slots=spec["cell_slots"], replay_capacity=64, batch_size=16,
+        train_every=10)
+    (pack,) = pack_cells(sweep.expand())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["rows"] = ([run_cell(cell, device=dev) for cell in pack.cells]
+                   if mesh is None else run_pack(pack, mesh=mesh,
+                                                 device=dev))
+    torch.cuda.synchronize()
+    out["cells_s"] = time.perf_counter() - t0
+    if timed is not None:
+        timed()
+
+    ops.reset_launch_counts()
+    loop = run(SEED, spec["T"], mode="loop")
+    torch.cuda.synchronize()
+    out["counts"] = ops.launch_counts()
+    out["loop_same"] = same_run(loop, (carry, trace))
+    out["trace"] = host(trace)
+    out["ring"] = host(carry.agent_state.replay)
+    out["params"] = host(carry.agent_state.params)
+    out["carry"] = host(carry)
+    out["metrics"] = drv.metrics(carry)
+    out["n_train"] = int((~torch.isnan(trace.loss)).sum())
+    # the scan episode under the profiler: its actor kernels on the device
+    # and its cudaGraphLaunch calls, until a window reads them all (a
+    # window can drop records; fleet_check gates the last one)
+    n = spec["T"] + out["n_train"]
+    want = {"gcn_agg": 4 * n, "edge_score": n}
+    graphs = spec["T"] * (1 if mesh is None else 2)
+    out["scan_windows"] = []
+    for _ in range(PROFILE_TRIES):
+        _, prof, seen = profiled_call(
+            lambda: run(SEED, spec["T"], mode="scan"), tuple(want),
+            lead=True)
+        out["scan_windows"].append((prof, seen))
+        if prof == want and seen == graphs:
+            break
+    out["scan_want"] = (want, graphs)
+    return out
+
+
+def fleet_rank(spec: dict) -> dict:
+    """One rank of phase 46 (``RankPool`` runs it on every rank, its card
+    current): ``fleet_run`` on a ``fleet`` mesh over the whole group,
+    which has one rank on a one-card machine."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding import FLEET_AXIS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = init_device_mesh(kind, (dist.get_world_size(),),
+                            mesh_dim_names=(FLEET_AXIS,))
+    out = fleet_run(torch.device("cuda"), mesh, spec)
+    out["rank"], out["device"] = dist.get_rank(), torch.cuda.current_device()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def fleet_profile_check(tag: str, run: dict) -> str:
+    """The gate on ``fleet_run``'s profiled scan episode: no window reads
+    more actor kernels or graph launches than expected, and the last one
+    reads them all (4 gcn_agg and 1 edge_score a slot and a train step;
+    one cudaGraphLaunch a slot unsharded, two sharded). Returns its
+    reading as printed."""
+    (want, graphs), windows = run["scan_want"], run["scan_windows"]
+    if any(seen > graphs or any(prof[k] > n for k, n in want.items())
+           for prof, seen in windows):
+        raise SystemExit(f"{tag}: the profiler saw more than {want} and "
+                         f"{graphs} graph launches: {windows}")
+    if windows[-1] != (want, graphs):
+        raise SystemExit(f"{tag}: no profiler window of the scan episode "
+                         f"saw {want} and {graphs} graph launches: "
+                         f"{windows}")
+    return (f"profiled scan: {want['gcn_agg']} gcn_agg, "
+            f"{want['edge_score']} edge_score, {graphs} cudaGraphLaunch "
+            f"({len(windows)} window(s))")
+
+
+def fleet_check(label, spec: dict, want: dict, ranks: list) -> None:
+    """Phase 46's gates on every rank's runs against the unsharded ones:
+    (a) the trace (decisions first), the ring, params and the whole final
+    carry bit for bit, the metrics summary equal, scan equal to loop, and
+    exactly 4 gcn_agg and 1 edge_score launches a slot and a train step,
+    no other kernel, in the loop (the wrappers' counts) and on the device
+    in the scan (the profiler's, with two graph launches a slot); (b) the
+    population's report, agents and [P] metrics bit for bit; (c) the
+    pack's rows equal to ``run_cell``'s."""
+    n = spec["T"] + want["n_train"]
+    launches = {"gcn_agg": 4 * n, "edge_score": n,
+                "flash_attention": 0, "decode_attention": 0, "ssm_scan": 0}
+
+    def same_arrays(xs, ys):
+        return len(xs) == len(ys) and all(
+            x.dtype == y.dtype and x.shape == y.shape and np.array_equal(
+                np.atleast_1d(x).view(np.uint8),
+                np.atleast_1d(y).view(np.uint8)) for x, y in zip(xs, ys))
+
+    for r in ranks:
+        tag = f"{label} rank {r['rank']} (cuda:{r['device']})"
+        if not np.array_equal(r["trace"][0], want["trace"][0]):
+            bad = np.argwhere((r["trace"][0] != want["trace"][0]).any(-1))
+            raise SystemExit(f"{tag}: decisions differ at (slot, fleet) "
+                             f"{bad[:5].tolist()}")
+        for key in ("trace", "ring", "params", "carry", "pop_agents",
+                    "pop_metrics"):
+            if not same_arrays(r[key], want[key]):
+                raise SystemExit(f"{tag}: {key} differs from the unsharded "
+                                 f"run")
+        if r["metrics"] != want["metrics"] or not r["loop_same"]:
+            raise SystemExit(f"{tag}: metrics {r['metrics']} vs "
+                             f"{want['metrics']}, scan == loop "
+                             f"{r['loop_same']}")
+        if r["counts"] != launches:
+            raise SystemExit(f"{tag}: launches {r['counts']}, expected "
+                             f"{launches}")
+        if r["pop_report"] != want["pop_report"]:
+            raise SystemExit(f"{tag}: population report differs")
+        if r["rows"] != want["rows"]:
+            raise SystemExit(f"{tag}: sweep rows differ from run_cell's")
+        profiled = fleet_profile_check(tag, r)
+        print(f"  {tag}: decisions, ring, params, carry, metrics equal; "
+              f"launches {r['counts']['gcn_agg']} gcn_agg, "
+              f"{r['counts']['edge_score']} edge_score; {profiled}; slot "
+              f"{r['slot_ms']:.4f} ms (scan, {r['graphs']} graphs "
+              f"captured); population generation {r['pop_s']:.4f} s; "
+              f"{len(r['rows'])} cell rows in {r['cells_s']:.4f} s",
+              flush=True)
+
+
+def fleet_phase(dev) -> dict:
+    """Phase 46: the fleet, member and cell axes over the cards. One rank a
+    card (``torch.cuda.device_count()``, NCCL, ``RankPool``: rank r on
+    cuda:r) runs ``fleet_run`` on a ``fleet`` mesh over the group, after
+    phase 2 built the kernels (the ranks load them); this process runs the
+    same unsharded, and ``fleet_check`` holds every rank against it. On one
+    card two gloo ranks sharing it run it next. The ranks start once this
+    process's timed runs are done, and all have joined their groups before
+    the NCCL ranks' runs, so no rank starts beside a timed run. Returns the
+    ranks' launch counts, summed."""
+    from repro_torch.sharding.ranks import RankPool
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    spec = dict(B=FLEET_B, T=FLEET_T, P=4 * world,
+                cells=world + 1 if world > 1 else 3,
+                pop_slots=FLEET_POP_SLOTS, cell_slots=FLEET_CELL_SLOTS)
+    print(f"world {world} (one NCCL rank a card): GRLE fig5_baseline M=14, "
+          f"ring 128, minibatch 64, omega 10, B={FLEET_B}, T={FLEET_T}; "
+          f"population P={spec['P']} x {FLEET_POP_SLOTS} slots at M=14; "
+          f"{spec['cells']} cells x {FLEET_CELL_SLOTS} slots")
+    if world == 1:
+        print("one card: the group has one rank, so the all-gathers carry "
+              "one block; the law across several ranks is held by the CPU "
+              "tests (tests/test_torch_sharded_rollout.py, gloo, 2 and 4 "
+              "ranks) and by two gloo ranks sharing this card below (the "
+              "same runs: P=4 is 2 members a rank, 3 cells pad to 4)")
+    with contextlib.ExitStack() as stack:
+        pools = []
+
+        def start_ranks():
+            pools.append(stack.enter_context(RankPool(
+                world, backend="nccl", cuda_devices=list(range(world)),
+                init_method=f"tcp://localhost:{free_port()}", threads=4,
+                timeout_s=FLEET_TIMEOUT_S)))
+            if world == 1:
+                pools.append(stack.enter_context(RankPool(
+                    2, backend="gloo", cuda_devices=[0, 0],
+                    init_method=f"tcp://localhost:{free_port()}",
+                    threads=4, timeout_s=FLEET_TIMEOUT_S)))
+
+        want = fleet_run(dev, None, spec, timed=start_ranks)
+        profiled = fleet_profile_check("unsharded", want)
+        print(f"  unsharded: slot {want['slot_ms']:.4f} ms (scan, "
+              f"{want['graphs']} graphs captured), {want['n_train']} train "
+              f"steps; {profiled}; population generation "
+              f"{want['pop_s']:.4f} s; {len(want['rows'])} run_cell rows "
+              f"in {want['cells_s']:.4f} s", flush=True)
+        t0 = time.perf_counter()
+        for pool in pools:
+            pool.run(os.getpid)
+        print(f"  every rank joined {time.perf_counter() - t0:.2f} s after "
+              f"the unsharded runs", flush=True)
+        runs = []
+        for label, pool in zip(("nccl", "gloo, shared card"), pools):
+            t0 = time.perf_counter()
+            runs.append(pool.run(fleet_rank, spec))
+            pool.close()
+            print(f"  {pool.world} {label} rank(s) run and ended in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            fleet_check(label, spec, want, runs[-1])
+    counts = {k: sum(r["counts"][k] for run in runs for r in run)
+              for k in runs[0][0]["counts"]}
+    print(f"graph launches a slot: sharded 2 (the fleets' half, then the "
+          f"learner's; the all-gather between them outside the graphs), "
+          f"unsharded 1")
+    print(f"phase 46 wall {time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
 # --------------------------------------------------------- the examples (42)
 EXAMPLES_STORE = os.path.join(ROOT, "build", "chip_smoke_sweep_figures")
 EXAMPLES_CKPT = os.path.join(ROOT, "build", "chip_smoke_llama100m.ckpt")
@@ -6372,6 +6675,11 @@ def main() -> int:
     bench_counts, bench_err = serve_bench_phase(dev)
     print(f"phase 45 wall {time.perf_counter() - t0:.2f} s")
 
+    phase(46, "the fleet axis over the cards: run_sharded, a population "
+              "generation and a sweep pack on one rank a card (NCCL) "
+              "against the unsharded runs")
+    fleet_counts = fleet_phase(dev)
+
     phase(43, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
@@ -6385,7 +6693,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": counts[name] + zoo_serve[name] + vgg_counts[name]
-            + ex_counts[name] + bench_counts[name],
+            + ex_counts[name] + bench_counts[name] + fleet_counts[name],
             "max_abs_err": max(grad_err, bench_err[name],
                                *(v["err"] for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
@@ -6458,6 +6766,8 @@ def main() -> int:
           "configs' shapes, ssm_scan's phase 37's; gcn_agg and edge_score "
           "also those of phase 45's two timed serve-bench windows, and "
           "their error phase 45's at the engines' shapes (M=4 and M=64); "
+          "gcn_agg and edge_score also those of phase 46's sharded loop "
+          "episodes, summed over the ranks; "
           "the zoo's new shapes timed in phase 28, the GQA configs' in "
           "phase 41:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))

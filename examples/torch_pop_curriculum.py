@@ -22,7 +22,10 @@ curriculum arm wins, as the reference's does:
         --members 4 --generations 2 --slots 10 --devices 4
 
 The members of a population share one rollout driver and its CUDA
-graphs (``PopulationDriver``). Runs on the GPU unless ``--device cpu``;
+graphs (``PopulationDriver``); run as one process per card (``torchrun
+--nproc-per-node N examples/torch_pop_curriculum.py``, ``--members``
+divisible by N) the members are split over the cards and only rank 0
+prints. Runs on the GPU unless ``--device cpu``;
 the draws come from generators seeded from ``--seed`` (the port's RNG,
 not the reference's threefry streams).
 """
@@ -40,6 +43,9 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.mec import MECEnv, make_scenario, scenario_space  # noqa: E402
 from repro_torch.pop import (compare_curriculum_dr,  # noqa: E402
                              format_comparison)
+from repro_torch.sharding.fleet import (fleet_mesh,  # noqa: E402
+                                        init_from_env, is_lead, leave,
+                                        mesh_note)
 
 
 def parse_args(argv=None):
@@ -63,9 +69,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def compare(args) -> dict:
+def compare(args, mesh=None) -> dict:
     """Both arms trained and evaluated -> ``compare_curriculum_dr``'s
-    result (margin and ``curriculum_wins`` included)."""
+    result (margin and ``curriculum_wins`` included); ``mesh`` splits the
+    members over its ranks."""
     dev = resolve_device(args.device)
     cfg = make_scenario(args.space_lo, n_devices=args.devices)
     adef = agent_def("grle", MECEnv(cfg, device=dev), buffer_size=32,
@@ -77,13 +84,26 @@ def compare(args) -> dict:
         n_slots=args.slots, generations=args.generations,
         n_regions=args.regions, temperature=args.temperature,
         eval_points=tuple(float(t) for t in args.eval_points.split(",")),
-        seed=args.seed, replay_capacity=32, batch_size=8, train_every=5)
+        seed=args.seed, mesh=mesh, replay_capacity=32, batch_size=8,
+        train_every=5)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    result = compare(args)
+    started = init_from_env(resolve_device(args.device))
+    try:
+        return run(args)
+    finally:
+        leave(started)
 
+
+def run(args) -> dict:
+    mesh = fleet_mesh()
+    result = compare(args, mesh)
+    if not is_lead(mesh):
+        return result
+
+    print(f"members: {mesh_note(mesh, 'member', 'pop')}")
     print(f"{args.space_lo} -> {args.space_hi}, {args.members} members x "
           f"{args.generations} generations x {args.slots} slots")
     print(format_comparison(result))

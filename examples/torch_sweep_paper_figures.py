@@ -19,10 +19,14 @@ of
 Defaults are scaled down (--slots 150, M=8), as the reference's; pass
 --paper-scale for the §VI-A shape (M=14, 1000 slots), or --device-grid
 6,10,14 for Fig 5's x-axis (fig5_baseline at each fleet size M). The
-reference shards the cells over a fleet mesh; the port packs them on one
-card (``repro_torch.sharding.fleet_mesh()`` is None). Re-running resumes
-from the store; a row stored by another backend is refused. Runs on the
-GPU unless ``--device cpu``.
+cells are split over a fleet mesh (``repro_torch.sharding.fleet_mesh()``)
+when the script runs as one process per card, and only rank 0 prints and
+writes:
+
+    torchrun --nproc-per-node 4 examples/torch_sweep_paper_figures.py
+
+Re-running resumes from the store; a row stored by another backend is
+refused. Runs on the GPU unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,13 +37,17 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
+from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.mec import PAPER_FIGURES, expand_grid  # noqa: E402
+from repro_torch.sharding.fleet import (fleet_mesh,  # noqa: E402
+                                        init_from_env, is_lead, leave,
+                                        mesh_note)
 from repro_torch.sweep import (SweepSpec, SweepStore,  # noqa: E402
                                build_report, format_markdown, run_sweep,
                                write_report)
 
 
-def device_grid(args) -> dict:
+def device_grid(args, mesh) -> dict:
     """Fig 5's x-axis: the same comparison at several fleet sizes M."""
     counts = tuple(int(m) for m in args.device_grid.split(","))
     store = SweepStore(args.store)
@@ -50,13 +58,15 @@ def device_grid(args) -> dict:
             seeds=tuple(range(args.seeds)), n_devices=ov["n_devices"],
             n_slots=args.slots, replay_capacity=64, batch_size=16,
             train_every=10)
-        rows = run_sweep(spec, store=store, device=args.device)
+        rows = run_sweep(spec, store=store, mesh=mesh, device=args.device)
         report = build_report(rows)
         combined[f"M={ov['n_devices']}"] = report
-        print(f"## M = {ov['n_devices']}")
-        print(format_markdown(report))
-    write_report(combined, args.report)
-    print(f"report -> {args.report}   (one entry per device count)")
+        if is_lead(mesh):
+            print(f"## M = {ov['n_devices']}")
+            print(format_markdown(report))
+    if is_lead(mesh):
+        write_report(combined, args.report)
+        print(f"report -> {args.report}   (one entry per device count)")
     return combined
 
 
@@ -78,8 +88,19 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    started = init_from_env(resolve_device(args.device))
+    try:
+        return run(args)
+    finally:
+        leave(started)
+
+
+def run(args) -> dict:
+    mesh = fleet_mesh()
+    if is_lead(mesh):
+        print(f"cells: {mesh_note(mesh, 'cell', 'sweep')}")
     if args.device_grid:
-        return device_grid(args)
+        return device_grid(args, mesh)
 
     n_devices, n_slots = (14, 1000) if args.paper_scale else (8, args.slots)
     spec = SweepSpec(
@@ -89,11 +110,14 @@ def main(argv=None) -> dict:
         n_devices=n_devices, n_slots=n_slots,
         replay_capacity=64, batch_size=16, train_every=10)
 
-    rows = run_sweep(spec, store=SweepStore(args.store), device=args.device)
+    rows = run_sweep(spec, store=SweepStore(args.store), mesh=mesh,
+                     device=args.device)
     report = build_report(rows)
-    write_report(report, args.report)
-    print(format_markdown(report))
-    print(f"report -> {args.report}   (re-running resumes from {args.store})")
+    if is_lead(mesh):
+        write_report(report, args.report)
+        print(format_markdown(report))
+        print(f"report -> {args.report}   (re-running resumes from "
+              f"{args.store})")
     return report
 
 

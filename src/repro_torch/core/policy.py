@@ -319,9 +319,7 @@ class AgentDef:
                 raise ValueError("decide_with needs a generator or rand_cands "
                                  "(or gumbel) for its exploration "
                                  "candidates")
-            u = torch.rand(shape, generator=generator, device=allowed.device)
-            tiny = torch.finfo(u.dtype).tiny
-            gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+            gumbel = self.gumbel_noise(generator, tuple(allowed.shape[:-2]))
         elif tuple(gumbel.shape) != shape:
             raise ValueError(f"gumbel shape {tuple(gumbel.shape)}, expected "
                              f"{shape}")
@@ -329,6 +327,17 @@ class AgentDef:
                  else x_hat[..., None, :, :] * gain + gumbel)
         noise = torch.where(allowed[..., None, :, :], noise, -torch.inf)
         return torch.argmax(noise, dim=-1).to(torch.int32)
+
+    def gumbel_noise(self, generator: torch.Generator,
+                     batch: Tuple[int, ...]) -> torch.Tensor:
+        """The exploration draw's Gumbel noise [*batch, K, M, N*L] from
+        ``generator``, as ``decide_with`` draws it itself (drawn for every
+        fleet and sliced, it is what a slice of the fleets draws)."""
+        env = self.env
+        u = torch.rand(batch + (self.n_random, env.M, env.N * env.L),
+                       generator=generator, device=self.device)
+        tiny = torch.finfo(u.dtype).tiny
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
 
     def decide(self, state: AgentState, mec_state: MECState,
                tasks: SlotTasks, *, generator=None, rand_cands=None,

@@ -17,7 +17,13 @@ per-member hyperparameters (lr / explore_gain / exit_tau — all state
 data, no new capture). ``--checkpoint`` makes the run resumable bit for
 bit: re-invoking with the same flags continues where the saved
 generation counter left off. Runs on the GPU unless ``--device cpu``;
-history records default to ``results/torch_history``.
+history records default to ``results/torch_history``. Under ``torchrun
+--nproc-per-node N`` (one process per card; gloo processes with
+``--device cpu``) the member axis is split over the N ranks
+(``sharding.fleet.fleet_mesh``; ``--members`` must divide N) and rank 0
+alone prints and writes the checkpoint and the history:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch pop --members 16
 """
 from __future__ import annotations
 
@@ -74,15 +80,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    from repro_torch.core.policy import agent_def
     from repro_torch.device import resolve_device
+    from repro_torch.sharding.fleet import init_from_env, leave
+
+    device = resolve_device(args.device)
+    started = init_from_env(device)
+    try:
+        return _main(args, device)
+    finally:
+        leave(started)
+
+
+def _main(args, device) -> dict:
+    from repro_torch.core.policy import agent_def
     from repro_torch.mec.env import MECEnv
     from repro_torch.mec.scenarios import (interpolate_params, make_scenario,
                                            scenario_space)
     from repro_torch.pop import Curriculum, PBTConfig, PopulationTrainer
+    from repro_torch.sharding.fleet import fleet_mesh, is_lead, mesh_note
     from repro_torch.train import restore_population, save_population
 
-    device = resolve_device(args.device)
+    mesh = fleet_mesh()
+    lead = is_lead(mesh)
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     cfg = make_scenario(args.space_lo, n_devices=args.devices)
     adef = agent_def(args.method, MECEnv(cfg, device=device),
                      buffer_size=args.replay, batch_size=args.batch,
@@ -99,34 +123,34 @@ def main(argv=None) -> dict:
                          uniform=args.dr),
         n_members=args.members, n_fleets=args.fleets, n_slots=args.slots,
         pbt=PBTConfig(frac=args.pbt_frac), pbt_every=args.pbt_every,
-        seed=args.seed, telemetry=True, history=history,
+        seed=args.seed, mesh=mesh, telemetry=True, history=history,
         history_name=f"pop_{'dr' if args.dr else 'curriculum'}")
     ts = trainer.init_state()
     if args.checkpoint and os.path.exists(args.checkpoint):
         ts = restore_population(args.checkpoint, like=ts)
-        print(f"[pop] resumed {args.checkpoint} at generation "
-              f"{int(ts.pop.generation)}", flush=True)
+        say(f"[pop] resumed {args.checkpoint} at generation "
+            f"{int(ts.pop.generation)}")
     arm = "dr" if args.dr else "curriculum"
-    print(f"[pop] {arm} arm: P={args.members} members x {args.fleets} "
-          f"fleets x {args.slots} slots, {args.generations} generations "
-          f"on {device}", flush=True)
+    say(f"[pop] {arm} arm: P={args.members} members x {args.fleets} "
+        f"fleets x {args.slots} slots, {args.generations} generations "
+        f"on {device}, {mesh_note(mesh, 'member', 'pop')}")
 
     reports = []
     for _ in range(args.generations):
         ts, rep = trainer.generation(ts)
         m = rep["metrics"]
-        print(f"[pop] gen {rep['generation']:>3}: "
-              f"reward mean {m['mean_reward']:.4f} "
-              f"best {m['best_reward']:.4f} (member {rep['best_member']}) "
-              f"exploits {int(m['exploits'])} "
-              f"regions {rep['region_visits']}", flush=True)
+        say(f"[pop] gen {rep['generation']:>3}: "
+            f"reward mean {m['mean_reward']:.4f} "
+            f"best {m['best_reward']:.4f} (member {rep['best_member']}) "
+            f"exploits {int(m['exploits'])} "
+            f"regions {rep['region_visits']}")
         reports.append(rep)
-        if args.checkpoint:
+        if args.checkpoint and lead:
             save_population(args.checkpoint, ts)
     if args.checkpoint:
-        print(f"[pop] checkpoint -> {args.checkpoint}", flush=True)
+        say(f"[pop] checkpoint -> {args.checkpoint}")
     if history is not None:
-        print(f"[pop] history -> {history.path}", flush=True)
+        say(f"[pop] history -> {history.path}")
 
     evals = {}
     points = [float(t) for t in args.eval_points.split(",") if t]
@@ -134,8 +158,7 @@ def main(argv=None) -> dict:
         sp = interpolate_params(space.lo, space.hi, t)
         mets = trainer.evaluate(ts.pop, (args.seed, i), sp)
         evals[t] = float(mets["avg_reward"].mean())
-        print(f"[pop] eval t={t:g}: population mean reward "
-              f"{evals[t]:.4f}", flush=True)
+        say(f"[pop] eval t={t:g}: population mean reward {evals[t]:.4f}")
     return {"arm": arm, "reports": reports, "evals": evals}
 
 

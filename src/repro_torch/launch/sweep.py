@@ -14,7 +14,14 @@ one pack per actor family, each replaying one driver's two captured CUDA
 graphs cell after cell — and writes per-cell results (resumable store)
 plus an aggregate report with GRLE-vs-baseline ratios. Re-invoking with
 the same grid skips finished cells. Runs on the GPU unless ``--device
-cpu``. The store and report default to ``results/torch_sweep`` and
+cpu``. Under ``torchrun --nproc-per-node N`` (one process per card; gloo
+processes with ``--device cpu``) the cell axis is split over the N ranks
+(``sharding.fleet.fleet_mesh``) and rank 0 alone prints, writes the store,
+the report and the history:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch sweep \\
+        --scenarios fig5_baseline,fig8_csi --seeds 2
+ The store and report default to ``results/torch_sweep`` and
 ``results/torch_sweep_report.json``, apart from the reference's, and a
 store holding another backend's rows is refused.
 """
@@ -24,6 +31,8 @@ import argparse
 import os
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.fleet import (fleet_mesh, init_from_env, is_lead,
+                                        leave, mesh_note)
 from repro_torch.sweep import (SweepSpec, SweepStore, build_report,
                                format_markdown, format_telemetry, run_sweep,
                                write_report)
@@ -70,6 +79,21 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    started = init_from_env(device)
+    try:
+        return _main(args, device)
+    finally:
+        leave(started)
+
+
+def _main(args, device) -> dict:
+    mesh = fleet_mesh()
+    lead = is_lead(mesh)
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     spec = SweepSpec.from_names(
         args.scenarios, args.methods, args.seeds, n_devices=args.devices,
         slot_ms=args.slot_ms, n_slots=args.slots, n_fleets=args.fleets,
@@ -77,32 +101,31 @@ def main(argv=None) -> dict:
         train_every=args.train_every)
     store = SweepStore(args.store) if args.store else None
     n_cells = len(spec.expand())
-    print(f"[sweep] {len(spec.scenarios)} scenarios x "
-          f"{len(spec.methods)} methods x {len(spec.seeds)} seeds "
-          f"= {n_cells} cells on {device}", flush=True)
+    say(f"[sweep] {len(spec.scenarios)} scenarios x "
+        f"{len(spec.methods)} methods x {len(spec.seeds)} seeds "
+        f"= {n_cells} cells on {device}, "
+        f"{mesh_note(mesh, 'cell', 'sweep')}")
 
     history = None
     if args.history:
         from repro_torch.obs.history import HistoryStore, default_store
         history = (default_store() if args.history == "default"
                    else HistoryStore(args.history))
-    rows = run_sweep(spec, store=store, packed=not args.sequential,
-                     telemetry=args.telemetry, history=history,
-                     device=device,
-                     log=lambda msg: print(msg, flush=True))
+    rows = run_sweep(spec, store=store, mesh=mesh,
+                     packed=not args.sequential, telemetry=args.telemetry,
+                     history=history, device=device, log=say)
     if history is not None:
-        print(f"[sweep] history -> {history.path}", flush=True)
+        say(f"[sweep] history -> {history.path}")
     if store is not None:
-        print(f"[sweep] store {store.root}: {store.completed()} cells "
-              f"on disk", flush=True)
+        say(f"[sweep] store {store.root}: {store.completed()} cells on disk")
     report = build_report(rows)
-    if args.report:
+    if args.report and lead:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         path = write_report(report, args.report)
-        print(f"[sweep] report -> {path}", flush=True)
-    print(format_markdown(report), flush=True)
+        say(f"[sweep] report -> {path}")
+    say(format_markdown(report))
     if args.telemetry:
-        print(format_telemetry(rows), flush=True)
+        say(format_telemetry(rows))
     return report
 
 

@@ -63,10 +63,6 @@ def _scale(u: torch.Tensor, lo, hi) -> torch.Tensor:
     return lo + (hi - lo) * u
 
 
-def _uniform(gen: torch.Generator, shape, lo, hi, device) -> torch.Tensor:
-    return _scale(torch.rand(shape, generator=gen, device=device), lo, hi)
-
-
 def _knob(x: torch.Tensor, n_trailing: int) -> torch.Tensor:
     """A ``ScenarioParams`` value (a shared one, or one with fleet axes in
     front) with ``n_trailing`` unit axes appended, so it broadcasts
@@ -156,27 +152,36 @@ class MECEnv:
         )
 
     # ------------------------------------------------------------- task draws
-    def sample_slot(self, generator: torch.Generator,
+    def sample_slot(self, generator: Optional[torch.Generator],
                     batch: Tuple[int, ...] = (),
-                    sp: Optional[ScenarioParams] = None) -> SlotTasks:
+                    sp: Optional[ScenarioParams] = None, *,
+                    draws=None) -> SlotTasks:
         """One slot's iid task draw (paper §VI-A) for ``batch`` networks,
         knobs from ``sp`` (None: this env's own; shared, or with ``batch``
         in front).
 
-        The draws come from ``generator`` (on this env's device); they
-        follow the reference's distributions, not its threefry bits.
+        The uniforms come from ``generator`` (on this env's device): the
+        rates' [*batch, M, N], the capacities' [*batch, N], then
+        ``assemble_slot``'s; or ``draws`` gives them as (rate, capacity,
+        ``SlotUniforms``). They follow the reference's distributions, not
+        its threefry bits.
         """
         sp, dev = self._sp(sp), self.device
-        rate_true = _uniform(generator, batch + (self.M, self.N),
-                             _knob(sp.rate_mbps[..., 0], 2),
-                             _knob(sp.rate_mbps[..., 1], 2), dev) * 1e6
-        capacity = _uniform(generator, batch + (self.N,),
-                            _knob(sp.capacity_range[..., 0], 1),
-                            _knob(sp.capacity_range[..., 1], 1), dev)
+        if draws is None:
+            draws = (torch.rand(batch + (self.M, self.N), generator=generator,
+                                device=dev),
+                     torch.rand(batch + (self.N,), generator=generator,
+                                device=dev), None)
+        u_rate, u_cap, slot = draws
+        batch = tuple(u_cap.shape[:-1])
+        rate_true = _scale(u_rate, _knob(sp.rate_mbps[..., 0], 2),
+                           _knob(sp.rate_mbps[..., 1], 2)) * 1e6
+        capacity = _scale(u_cap, _knob(sp.capacity_range[..., 0], 1),
+                          _knob(sp.capacity_range[..., 1], 1))
         return assemble_slot(sp, self.M, rate_true=rate_true,
                              capacity=capacity,
                              active=torch.ones(batch + (self.M,), device=dev),
-                             generator=generator)
+                             generator=generator, draws=slot)
 
     # ------------------------------------------------------------ core physics
     def _simulate(self, state: MECState, tasks: SlotTasks,
@@ -248,8 +253,13 @@ class MECEnv:
         link = torch.take_along_dim(connect, n_idx[..., None], -1)[..., 0]
         t_total = torch.where(link > 0.5, t_total, math.inf)
 
-        # reciprocal-multiply (not /), as the reference spells it
-        psi = 1.0 - torch.sigmoid(5.0 * t_total * (1.0 / deadline))
+        # reciprocal-multiply (not /), as the reference spells it; the
+        # logistic as 1 / (1 + exp(-z)): on the CPU torch.sigmoid rounds
+        # differently in its vectorized loop and its scalar tail, so a
+        # fleet's reward would hang on its place in the batch (a slice of
+        # the fleets, the fleet-sharded episode, must see the same bits)
+        z = 5.0 * t_total * (1.0 / deadline)
+        psi = 1.0 - 1.0 / (1.0 + torch.exp(-z))
         psi = torch.where(torch.isinf(t_total), 0.0, psi)
         reward = torch.where(act, phi * psi, 0.0).sum(-1)         # Eq (9)
         success = act & (t_total <= deadline)                     # Eq (11)

@@ -4,6 +4,9 @@ A flat ``{path: leaf}`` view of a param tree and back (checkpoint paths),
 zeros shaped like a tree (the optimizers' moments), and the reference's
 size, bytes, cast, path-map and global-norm helpers. A leaf is a tensor;
 ``tree_map_with_path`` also walks lists and tuples, as the reference's.
+``tree_tensors``/``tree_refill`` walk the carries of the rollout driver
+(NamedTuples, tuples and dicts, with host ints and None beside the
+tensors).
 """
 from __future__ import annotations
 
@@ -83,3 +86,28 @@ def tree_global_norm(tree) -> torch.Tensor:
         return torch.zeros(())
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in leaves))
+
+
+def tree_tensors(tree) -> list:
+    """The tensors of a tree of NamedTuples, tuples and dicts, in a fixed
+    order; host ints and None are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_tensors(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_tensors(v)]
+    return []
+
+
+def tree_refill(tree, leaves):
+    """``tree`` with its tensors replaced, in ``tree_tensors`` order, by
+    the items of the iterator ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: tree_refill(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [tree_refill(v, leaves) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree

@@ -27,6 +27,15 @@ hypers are copied into the episode's static buffers. The reference
 set per launch. Member scores come from the driver's device-resident
 accumulator (``metrics_finalize``), stacked to [P] tensors.
 
+With a ``fleet`` mesh (``mesh="auto"``: ``sharding.fleet.fleet_mesh()``,
+a process group of one rank per card) the member axis is split over the
+ranks as the reference's ``shard_leading_axis`` splits it: each rank runs
+its contiguous block of P / world members through its own driver's
+graphs, and the trained agents and the [P] metrics are all-gathered in
+member order, so every rank holds the whole population and ``pbt_update``
+runs the same on each. P must divide the rank count: padding with phantom
+members would distort PBT's ranks.
+
 Every episode starts from ``adef.episode_state`` (an empty ring, step 0),
 so all members share one host schedule of train steps. Draws come from
 the driver's generator, seeded per member with ``member_seed``, or are
@@ -42,9 +51,11 @@ import torch
 
 from repro_torch.core.policy import AgentDef, AgentState
 from repro_torch.mec.config import ScenarioParams
-from repro_torch.rollout.driver import (RolloutDriver, SlotDraws, _refill,
-                                        _tensors)
+from repro_torch.nn.pytree import tree_refill, tree_tensors
+from repro_torch.rollout.driver import RolloutDriver, SlotDraws
 from repro_torch.rollout.metrics import metrics_finalize
+from repro_torch.sharding.fleet import (fleet_mesh, gather_leading,
+                                        local_slice, mesh_size)
 from repro_torch.sweep.spec import seed_of
 
 # Default search box for sampled member hyperparameters (lr is drawn
@@ -93,19 +104,20 @@ def n_members(pop: Population) -> int:
 def stack_states(states: Sequence[AgentState]) -> AgentState:
     """P member states -> one state with a leading [P] on every tensor; the
     host mirrors are the first's (members share a schedule)."""
-    cols = zip(*(_tensors(s) for s in states))
-    return _refill(states[0], (torch.stack(c) for c in cols))
+    cols = zip(*(tree_tensors(s) for s in states))
+    return tree_refill(states[0], (torch.stack(c) for c in cols))
 
 
 def member_state(agents: AgentState, i: int) -> AgentState:
     """Member ``i`` of stacked agents (views of the stacked tensors)."""
-    return _refill(agents, (x[i] for x in _tensors(agents)))
+    return tree_refill(agents, (x[i] for x in tree_tensors(agents)))
 
 
 def gather_members(tree, index: torch.Tensor):
     """``tree`` (stacked agents or hypers) with every tensor's member axis
     reordered by ``index`` [P] (one ``index_select`` per leaf)."""
-    return _refill(tree, (x.index_select(0, index) for x in _tensors(tree)))
+    return tree_refill(tree, (x.index_select(0, index)
+                              for x in tree_tensors(tree)))
 
 
 def hypers_row(hypers: MemberHypers, i: int) -> MemberHypers:
@@ -195,12 +207,13 @@ class PopulationDriver:
     training episode: one scan episode built and, on the card, two graphs
     captured per driver, however many members and generations. The
     evaluation driver (``train=False``, ``pop_eval``: one episode, one
-    graph) is built at the first ``evaluate``. There is no ``mesh=``: one
-    card.
+    graph) is built at the first ``evaluate``. ``mesh`` splits the member
+    axis over the ranks of a ``fleet`` mesh ("auto": ``fleet_mesh()``,
+    None on one rank).
     """
 
     def __init__(self, adef: AgentDef, *, n_fleets: int = 1,
-                 n_slots: int = 100,
+                 n_slots: int = 100, mesh="auto",
                  replay_capacity: Optional[int] = None,
                  batch_size: Optional[int] = None,
                  train_every: Optional[int] = None):
@@ -214,6 +227,7 @@ class PopulationDriver:
         self.device = self.adef.device
         self.n_fleets = n_fleets
         self.n_slots = int(n_slots)
+        self.mesh = fleet_mesh() if mesh == "auto" else mesh
         self._eval_drv: Optional[RolloutDriver] = None
 
     def tracked_programs(self) -> dict:
@@ -233,13 +247,19 @@ class PopulationDriver:
 
     def _members(self, drv: RolloutDriver, pop: Population, seed: Seed,
                  sp_of, draws, mode: str):
-        """Run every member's episode on ``drv``: ([final carries],
-        [traces])."""
+        """Run this rank's members' episodes on ``drv`` (every member
+        without a mesh): ([final carries], [traces])."""
         n = n_members(pop)
         if draws is not None and len(draws) != n:
             raise ValueError(f"{len(draws)} draws for {n} members")
+        if n % mesh_size(self.mesh):
+            raise ValueError(
+                f"population size {n} not divisible by "
+                f"{mesh_size(self.mesh)} devices (padding would distort PBT "
+                f"ranks)")
         carries, traces = [], []
-        for i in range(n):
+        mine = local_slice(n, self.mesh)
+        for i in range(mine.start, mine.stop):
             agent = member_state(pop.agents, i)
             agent = agent._replace(exit_mask=exit_mask_from_tau(
                 self.adef, pop.hypers.exit_tau[i]))
@@ -252,11 +272,13 @@ class PopulationDriver:
         return carries, traces
 
     def _metrics(self, carries) -> dict:
-        """The members' ``metrics_finalize`` dicts as one of [P] tensors."""
+        """The members' ``metrics_finalize`` dicts as one of [P] tensors,
+        every rank's in member order."""
         mets = [metrics_finalize(c.metrics,
                                  slot_s=float(self.adef.env.cfg.slot_s),
                                  n_fleets=self.n_fleets) for c in carries]
-        return {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+        return gather_leading({k: torch.stack([m[k] for m in mets])
+                               for k in mets[0]}, self.mesh)
 
     def run_generation(self, pop: Population, seed: Seed,
                        sps: ScenarioParams, *,
@@ -274,9 +296,18 @@ class PopulationDriver:
         carries, member_traces = self._members(
             self.drv, pop, seed,
             lambda i: ScenarioParams(*(x[i] for x in sps)), draws, mode)
-        agents = stack_states([c.agent_state for c in carries])
+        agents = gather_leading(stack_states([c.agent_state
+                                              for c in carries]), self.mesh)
         out = pop._replace(agents=agents), self._metrics(carries)
-        return out + (member_traces,) if traces else out
+        if not traces:
+            return out
+        if self.mesh is not None:
+            stacked = gather_leading(
+                type(member_traces[0])(*map(torch.stack,
+                                            zip(*member_traces))), self.mesh)
+            member_traces = [member_state(stacked, i)
+                             for i in range(n_members(pop))]
+        return out + (member_traces,)
 
     def evaluate(self, pop: Population, seed: Seed, sp: ScenarioParams, *,
                  n_slots: Optional[int] = None,

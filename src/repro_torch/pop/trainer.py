@@ -37,6 +37,7 @@ from repro_torch.pop.population import (Population, PopulationDriver,
                                         generator_of, init_population,
                                         sample_hypers)
 from repro_torch.rollout.driver import SlotDraws
+from repro_torch.sharding.fleet import is_lead
 
 
 class PopTrainState(NamedTuple):
@@ -74,22 +75,25 @@ class PopulationTrainer:
     domain-randomized control arm. ``telemetry=True`` attaches a
     ``pop_telemetry`` registry (member-rank / region-visitation
     histograms, exploit counters); ``history`` (an
-    ``obs.history.HistoryStore``) gets one ``pop`` record per generation.
-    Runs on the agent def's device.
+    ``obs.history.HistoryStore``) gets one ``pop`` record per generation,
+    from rank 0 only. Runs on the agent def's device; ``mesh`` splits the
+    members over the ranks of a ``fleet`` mesh (``PopulationDriver``).
     """
 
     def __init__(self, adef: AgentDef, curriculum: Curriculum, *,
                  n_members: int = 8, n_fleets: int = 1, n_slots: int = 60,
                  pbt: PBTConfig = PBTConfig(), pbt_every: int = 1,
-                 seed: int = 0, replay_capacity: Optional[int] = None,
+                 seed: int = 0, mesh="auto",
+                 replay_capacity: Optional[int] = None,
                  batch_size: Optional[int] = None,
                  train_every: Optional[int] = None,
                  telemetry: bool = False, history=None,
                  history_name: str = "pop_train"):
         self.driver = PopulationDriver(
-            adef, n_fleets=n_fleets, n_slots=n_slots,
+            adef, n_fleets=n_fleets, n_slots=n_slots, mesh=mesh,
             replay_capacity=replay_capacity, batch_size=batch_size,
             train_every=train_every)
+        self.mesh = self.driver.mesh
         self.adef = self.driver.adef
         self.device = self.adef.device
         self.curriculum = curriculum
@@ -159,7 +163,7 @@ class PopulationTrainer:
                     stats.src.to(torch.int64)],
                 copied=None if stats is None else stats.copied)
         report = self._report(g, mets, region, stats)
-        if self.history is not None:
+        if self.history is not None and is_lead(self.mesh):
             self.history.append(
                 "pop", self.history_name, report["metrics"],
                 generation=report["generation"], arm=report["arm"])
@@ -215,7 +219,7 @@ def compare_curriculum_dr(adef: AgentDef, space, *, n_members: int = 8,
                           pbt: PBTConfig = PBTConfig(),
                           pbt_every: int = 1,
                           eval_points=(0.8, 0.9, 1.0),
-                          eval_seed: int = 7,
+                          eval_seed: int = 7, mesh="auto",
                           replay_capacity: Optional[int] = None,
                           batch_size: Optional[int] = None,
                           train_every: Optional[int] = None) -> dict:
@@ -234,7 +238,7 @@ def compare_curriculum_dr(adef: AgentDef, space, *, n_members: int = 8,
         tr = PopulationTrainer(
             adef, cur, n_members=n_members, n_fleets=n_fleets,
             n_slots=n_slots, pbt=pbt, pbt_every=pbt_every, seed=seed,
-            replay_capacity=replay_capacity, batch_size=batch_size,
+            mesh=mesh, replay_capacity=replay_capacity, batch_size=batch_size,
             train_every=train_every)
         ts, reports = tr.train(tr.init_state(), generations)
         evals = []

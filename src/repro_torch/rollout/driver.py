@@ -53,6 +53,14 @@ with 0-d tensor attributes ``lr`` and ``explore_gain``: the population's
 beside ``sp``, so members of one population replay the same graphs;
 ``hypers=None`` is the def's own settings, the path as it was.
 
+``run_sharded(..., mesh=)`` splits the fleets over the ranks of a
+``fleet`` mesh (``sharding.fleet``: one process a card). The slot body is
+two halves, ``_fleets`` (sample, actor, env step: each rank on its block
+of the fleets, with what it draws drawn for all B and sliced) and
+``_learner`` (ring add, train step, metrics: every rank on all B), with
+one all-gather of the fleets' rows between them; unsharded, ``_slot``
+runs both halves back to back.
+
 Phases are wrapped in ``obs.profile.phase`` (``obs/sample``,
 ``obs/actor``, ``obs/env_step``, ``obs/train``: ``torch.profiler.
 record_function`` spans), as the reference wraps them in ``phase()``;
@@ -71,7 +79,9 @@ import torch
 from repro_torch.core.policy import AgentDef, AgentState
 from repro_torch.device import resolve_device
 from repro_torch.mec.config import ScenarioParams
-from repro_torch.mec.env import MECState, SlotTasks
+from repro_torch.core.graph import MECGraph
+from repro_torch.mec.env import MECState, SlotResult, SlotTasks
+from repro_torch.nn.pytree import tree_refill, tree_tensors
 from repro_torch.obs.compile import (CAPTURE_EVENT, EPISODE_EVENT,
                                      record_build)
 from repro_torch.obs.profile import phase
@@ -83,6 +93,9 @@ from repro_torch.rollout.metrics import (CellMetrics, metrics_finalize,
 from repro_torch.rollout.vecenv import VecMECEnv
 from repro_torch.rollout.workloads import (InitDraws, WorkloadDraws,
                                            WorkloadState, make_workload)
+from repro_torch.sharding.fleet import (gather_leading, gather_rows,
+                                        local_slice, pack_rows, replicate,
+                                        unpack_rows)
 
 
 class SlotDraws(NamedTuple):
@@ -132,19 +145,6 @@ class RolloutTrace(NamedTuple):
     loss: torch.Tensor        # [T], NaN on slots without a train step
 
 
-# ------------------------------------------------------------ carry leaves
-def _tensors(tree) -> List[torch.Tensor]:
-    """The tensors of a carry (NamedTuples, dicts), in a fixed order; host
-    ints and None are skipped."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _tensors(v)]
-    if isinstance(tree, tuple):
-        return [x for v in tree for x in _tensors(v)]
-    return []
-
-
 def _signature(tree):
     """The structure and shapes of a tree of tensors (a cache key)."""
     if isinstance(tree, torch.Tensor):
@@ -160,21 +160,9 @@ def _at(tree, t):
     """Row ``t`` of every tensor of ``tree``: an int, or a [1] device
     index (read on the device, as a captured graph must)."""
     if isinstance(t, int):
-        return _refill(tree, (x[t] for x in _tensors(tree)))
-    return _refill(tree, (x.index_select(0, t)[0] for x in _tensors(tree)))
-
-
-def _refill(tree, leaves):
-    """``tree`` with its tensors replaced, in ``_tensors`` order, by the
-    items of the iterator ``leaves``."""
-    if isinstance(tree, torch.Tensor):
-        return next(leaves)
-    if isinstance(tree, dict):
-        return {k: _refill(v, leaves) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [_refill(v, leaves) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree
+        return tree_refill(tree, (x[t] for x in tree_tensors(tree)))
+    return tree_refill(tree, (x.index_select(0, t)[0]
+                              for x in tree_tensors(tree)))
 
 
 def _with_mirrors(carry: RolloutCarry, host_step: int,
@@ -196,6 +184,48 @@ def _copy_into(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
             pair[1].append(s)
     for d, s in groups.values():
         torch._foreach_copy_(d, s)
+
+
+class _SlotOut(NamedTuple):
+    """What a slot's fleets hand its learner, leaves [B, ...] (a rank's
+    block of the fleets before the all-gather of a sharded episode)."""
+    decision: torch.Tensor            # [B, M] int32
+    q_best: torch.Tensor              # [B]
+    graphs: Optional[MECGraph]        # the actor's input graphs; with train
+    result: SlotResult                # the env step's [B, ...] outcome
+    active: torch.Tensor              # [B, M] float32
+
+
+class _Shard:
+    """This rank's block of a driver's fleet axis on a ``fleet`` mesh."""
+
+    def __init__(self, mesh, n_fleets: int, per_fleet_scenarios: bool):
+        self.mesh = mesh
+        self.slice = local_slice(n_fleets, mesh)
+        self.n = n_fleets // mesh.size()
+        self.per_fleet = per_fleet_scenarios
+
+    def take(self, tree, dim: int = 0):
+        """This rank's fleets of every tensor of ``tree`` (fleets on
+        ``dim``)."""
+        index = (slice(None),) * dim + (self.slice,)
+        return tree_refill(tree, (x[index] for x in tree_tensors(tree)))
+
+    def sp(self, sp):
+        """``sp`` for this rank's fleets: sliced when per fleet."""
+        return self.take(sp) if (sp is not None and self.per_fleet) else sp
+
+    def draws(self, draws: Optional[SlotDraws]) -> Optional[SlotDraws]:
+        """Injected draws for this rank's fleets: [T, B, ...] leaves on
+        their B, ``init`` [B, ...] on its leading axis; the minibatch rows
+        are every rank's."""
+        if draws is None:
+            return None
+        return draws._replace(
+            tasks=self.take(draws.tasks, 1),
+            rand_cands=self.take(draws.rand_cands, 1),
+            init=self.take(draws.init), workload=self.take(draws.workload, 1),
+            gumbel=self.take(draws.gumbel, 1))
 
 
 class RolloutDriver:
@@ -349,42 +379,97 @@ class RolloutDriver:
             return self._run_loop(carry, gen, n_slots, draws, sp, hypers)
         key = (n_slots, id(gen), _signature(draws), _signature(sp),
                _signature(hypers))
+        return self._episode_for(key, carry, n_slots, draws, gen, sp,
+                                 hypers).run(self, carry, draws, sp, hypers)
+
+    def _episode_for(self, key, carry, n_slots, draws, gen, sp, hypers,
+                     shard: Optional[_Shard] = None) -> "_ScanEpisode":
+        """The compiled episode for ``key``: the cached one, or a new one
+        built in its place (the old graphs and buffers freed first)."""
         if self._episode is None or self._episode.key != key:
-            self._episode = None        # free the old graphs and buffers
+            self._episode = None
             t0 = time.perf_counter()
             self._episode = _ScanEpisode(self, key, carry, n_slots, draws,
-                                         gen, sp, hypers)
+                                         gen, sp, hypers, shard)
             self.episodes_built += 1
             record_build(self.label, EPISODE_EVENT,
                          time.perf_counter() - t0)
-        return self._episode.run(self, carry, draws, sp, hypers)
+        return self._episode
 
     def run_sharded(self, seed_or_generator: Union[int, torch.Generator],
                     n_slots: int, *, mesh=None,
                     sp: Optional[ScenarioParams] = None,
-                    agent_state: Optional[AgentState] = None):
-        """The reference's fleet-sharded episode, on one card. With
-        ``mesh=None`` (``sharding.fleet.fleet_mesh()`` on one card) it is
-        ``run(..., mode="scan")``, the reference's own fallback; a mesh
-        raises, as the port has no fleet axis to split across cards."""
-        if mesh is not None:
-            raise ValueError(
-                "RolloutDriver.run_sharded: the port runs on one card and "
-                "shards no fleet axis; pass mesh=None (fleet_mesh() is None "
-                "here)")
-        return self.run(seed_or_generator, n_slots, mode="scan", sp=sp,
-                        agent_state=agent_state)
+                    agent_state: Optional[AgentState] = None,
+                    draws: Optional[SlotDraws] = None, mode: str = "scan"):
+        """The episode with the fleet axis split over ``mesh``'s ranks
+        (``sharding.fleet.fleet_mesh()``), the reference's
+        ``run_sharded``; ``mesh=None`` is ``run(..., mode=mode)``, its
+        single-device fallback.
+
+        Each rank runs every slot's fleets' half (sample, actor, env step)
+        on its contiguous block of B / world fleets: the env and workload
+        state, a per-fleet ``sp`` and injected draws are sliced, and what
+        comes from the generator (every rank seeds the same one) is drawn
+        for all B fleets and sliced, so each fleet sees the numbers of the
+        unsharded run. The B-fleets -> one-learner fan-in is one
+        all-gather a slot of the fleets' (graph, decision, outcome) rows
+        in fleet order; every rank then runs the same learner's half
+        (ring add, the Eq-16 train step when due, the metrics and
+        telemetry over all B in fleet order), so the ``AgentState`` (from
+        rank 0, ``replicate``), the metrics and the [T, B] trace are the
+        same on every rank and equal the unsharded run's bit for bit where
+        the fleets' halves agree. The final carry's env and workload
+        states are gathered back to all B. On the card ``mode="scan"``
+        replays two CUDA graphs a slot, the fleets' half and the learner's
+        half, with the all-gather between them outside the graphs;
+        ``mode="loop"`` runs the same halves from Python.
+        """
+        if mesh is None:
+            return self.run(seed_or_generator, n_slots, mode=mode,
+                            agent_state=agent_state, draws=draws, sp=sp)
+        if mode not in ("scan", "loop"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if self.n_fleets % mesh.size() != 0:
+            raise ValueError(f"n_fleets={self.n_fleets} not divisible by "
+                             f"{mesh.size()} devices")
+        if draws is not None:
+            self._check_draws(draws, n_slots)
+        gen = self._generator(seed_or_generator)
+        carry = self.init_carry(gen, agent_state=agent_state, sp=sp,
+                                draws=None if draws is None else draws.init)
+        shard = _Shard(mesh, self.n_fleets, self.per_fleet_scenarios)
+        shared = None if self.per_fleet_scenarios else sp
+        agent, shared = replicate((carry.agent_state, shared), mesh)
+        if not self.per_fleet_scenarios:
+            sp = shared
+        carry = carry._replace(env_state=shard.take(carry.env_state),
+                               wl_state=shard.take(carry.wl_state),
+                               agent_state=agent)
+        draws = shard.draws(draws)
+        if mode == "loop":
+            carry, trace = self._run_loop(carry, gen, n_slots, draws, sp,
+                                          None, shard)
+        else:
+            key = ("fleet", mesh.size(), mesh.get_local_rank(), n_slots,
+                   id(gen), _signature(draws), _signature(sp))
+            carry, trace = self._episode_for(
+                key, carry, n_slots, draws, gen, sp, None, shard).run(
+                    self, carry, draws, sp, None)
+        env_state, wl_state = gather_leading(
+            (carry.env_state, carry.wl_state), mesh)
+        return carry._replace(env_state=env_state, wl_state=wl_state), trace
 
     def _check_draws(self, draws: SlotDraws, n_slots: int) -> None:
         want = (n_slots, self.n_fleets)
         if draws.rand_cands is not None and draws.gumbel is not None:
             raise ValueError("draws carry rand_cands or the gumbel noise "
                              "that picks them, not both")
-        per_slot = _tensors((draws.rand_cands, draws.gumbel)) + _tensors(
-            draws.tasks) + _tensors(draws.workload)
+        per_slot = (tree_tensors((draws.rand_cands, draws.gumbel))
+                    + tree_tensors(draws.tasks)
+                    + tree_tensors(draws.workload))
         if any(tuple(x.shape[:2]) != want for x in per_slot):
             raise ValueError(f"draws must lead with [T, B] = {want}")
-        if any(x.shape[0] != self.n_fleets for x in _tensors(draws.init)):
+        if any(x.shape[0] != self.n_fleets for x in tree_tensors(draws.init)):
             raise ValueError(f"init draws must lead with [B] = "
                              f"{self.n_fleets}")
         if self.workload.kind == "iid" and (draws.workload is not None
@@ -405,7 +490,8 @@ class RolloutDriver:
                 "the trained state — thread it explicitly")
         self._shim.state = carry.agent_state
 
-    def _run_loop(self, carry, gen, n_slots, draws, sp, hypers=None):
+    def _run_loop(self, carry, gen, n_slots, draws, sp, hypers=None,
+                  shard: Optional[_Shard] = None):
         no_loss = torch.full((), torch.nan, device=self.device)
         outs, n_train = [], 0
         for t in range(n_slots):
@@ -420,8 +506,17 @@ class RolloutDriver:
             if draws is not None:
                 tasks, wdraws = _at(draws.tasks, t), _at(draws.workload, t)
                 rand, gumbel = _at((draws.rand_cands, draws.gumbel), t)
-            carry, out = self._slot(carry, gen, tasks, wdraws, rand, take,
-                                    no_loss, sp, hypers, gumbel)
+            if shard is None:
+                carry, out = self._slot(carry, gen, tasks, wdraws, rand,
+                                        take, no_loss, sp, hypers, gumbel)
+            else:
+                env_state, wl_state, mine = self._fleets(
+                    carry, gen, tasks, wdraws, rand, shard.sp(sp), hypers,
+                    gumbel, shard)
+                carry, out = self._learner(
+                    carry, env_state, wl_state,
+                    gather_leading(mine, shard.mesh), gen, take, no_loss, sp,
+                    hypers)
             outs.append(out)
         trace = RolloutTrace(*(torch.stack(xs) for xs in zip(*outs)))
         return carry, trace
@@ -449,46 +544,79 @@ class RolloutDriver:
         state (on the injected uniforms ``wdraws``, or ``gen``'s),
         exploration candidates ``rand`` (None: picked by the Gumbel noise
         ``gumbel``, or by noise drawn from ``gen``) and, on a train step,
-        its minibatch rows ``take`` (None: drawn)."""
+        its minibatch rows ``take`` (None: drawn). The fleets' half
+        (``_fleets``) hands the learner's half (``_learner``) its
+        [B]-leading ``_SlotOut``; the fleet-sharded episode all-gathers it
+        in between."""
+        env_state, wl_state, out = self._fleets(carry, gen, tasks, wdraws,
+                                                rand, sp, hypers, gumbel)
+        return self._learner(carry, env_state, wl_state, out, gen, take,
+                             no_loss, sp, hypers)
+
+    def _fleets(self, carry: RolloutCarry, gen, tasks, wdraws, rand, sp,
+                hypers, gumbel, shard: Optional["_Shard"] = None):
+        """The fleets' half of a slot: sample, decide and step the envs of
+        ``carry``'s fleets -> (env state, workload state, ``_SlotOut``).
+        With ``shard`` the carry, ``sp`` and the injected draws are this
+        rank's block of the fleets, and what is drawn from ``gen`` is
+        drawn for every fleet and sliced, so that each fleet sees the
+        numbers of the unsharded run."""
+        n = self.n_fleets if shard is None else shard.n
         wl_state = carry.wl_state
         with phase("sample"):
             if tasks is None:
+                if shard is not None and wdraws is None:
+                    wdraws = shard.take(self.workload.draws(
+                        gen, (self.n_fleets,)))
                 wl_state, tasks = self.workload.sample(
-                    wl_state, gen, sp, batch=(self.n_fleets,), draws=wdraws)
-        agent = carry.agent_state
+                    wl_state, gen, sp, batch=(n,), draws=wdraws)
         with phase("actor"):
+            if (shard is not None and rand is None and gumbel is None
+                    and self.adef.n_random):
+                gumbel = shard.take(self.adef.gumbel_noise(
+                    gen, (self.n_fleets,)))
             decision, q_best, graphs = self.adef.decide(
-                agent, carry.env_state, tasks, generator=gen,
+                carry.agent_state, carry.env_state, tasks, generator=gen,
                 rand_cands=rand, sp=sp, gumbel=gumbel,
                 explore_gain=None if hypers is None else hypers.explore_gain)
         with phase("env_step"):
             env_state, result = self.env.step(carry.env_state, tasks,
                                               decision, sp)
+        out = _SlotOut(decision.to(torch.int32), q_best,
+                       graphs if self.train else None, result,
+                       tasks.active.to(torch.float32))
+        return env_state, wl_state, out
+
+    def _learner(self, carry: RolloutCarry, env_state, wl_state,
+                 out: "_SlotOut", gen, take, no_loss, sp, hypers):
+        """The learner's half of a slot, on every fleet's ``out``: absorb
+        the (graph, decision) pairs in fleet order (and train when due),
+        fold the metrics and telemetry -> (new carry, trace row)."""
+        agent = carry.agent_state
         loss = no_loss
         if self.train:
             with phase("train"):
                 agent, loss = self.adef.absorb(
-                    agent, graphs, decision,
+                    agent, out.graphs, out.decision,
                     None if hypers is None else hypers.lr, generator=gen,
                     take=take)
-        decision = decision.to(torch.int32)
-        active = tasks.active.to(torch.float32)
+        result = out.result
         metrics = metrics_update(carry.metrics, reward=result.reward,
                                  success=result.success,
-                                 accuracy=result.accuracy, active=active,
+                                 accuracy=result.accuracy, active=out.active,
                                  loss=loss)
         telemetry = carry.telemetry
         if telemetry is not None:
             replay_frac = (agent.replay.size.to(torch.float32)
                            / float(self.replay_capacity))
             telemetry = telemetry_update(
-                telemetry, decisions=decision, result=result, active=active,
-                deadline_s=self.env._sp(sp).deadline_s,
+                telemetry, decisions=out.decision, result=result,
+                active=out.active, deadline_s=self.env._sp(sp).deadline_s,
                 replay_frac=replay_frac, loss=loss, n_exits=self.env.L)
-        out = RolloutTrace(decision, result.reward, result.success,
-                           result.accuracy, active, q_best, loss)
+        row = RolloutTrace(out.decision, result.reward, result.success,
+                           result.accuracy, out.active, out.q_best, loss)
         return RolloutCarry(env_state, wl_state, agent, metrics,
-                            telemetry), out
+                            telemetry), row
 
     def metrics(self, carry: RolloutCarry) -> dict:
         """Host-side §VI-D summary of the carry's running metrics."""
@@ -500,21 +628,32 @@ class RolloutDriver:
 class _ScanEpisode:
     """The compiled episode of one driver at one shape: static carry, trace
     and draw buffers, device counters, and on the card the two captured
-    slot graphs (see the module docstring). It holds no reference to its
-    driver, so that a dropped driver frees its graphs at once, not in a
-    later pass of the cyclic collector, which could fall inside another
-    capture (CUDA forbids destroying a graph while a stream captures)."""
+    slot graphs (see the module docstring); fleet-sharded, three: the
+    fleets' half and the learner's half of each kind, with the all-gather
+    of the fleets' rows between them outside any graph. It holds no
+    reference to its driver, so that a dropped driver frees its graphs at
+    once, not in a later pass of the cyclic collector, which could fall
+    inside another capture (CUDA forbids destroying a graph while a
+    stream captures)."""
 
     def __init__(self, drv: RolloutDriver, key, carry: RolloutCarry,
                  n_slots: int, draws: Optional[SlotDraws], gen,
-                 sp: Optional[ScenarioParams], hypers):
+                 sp: Optional[ScenarioParams], hypers,
+                 shard: Optional[_Shard] = None):
         self.key, self.n_slots, self.gen = key, n_slots, gen
+        # fleet-sharded: this rank's block of the fleets (the static carry's
+        # env and workload state, the draws), and the fleets' packed
+        # _SlotOut rows sent and every rank's received, built at the first
+        # slot (the rows' layout is the fleets' half's output)
+        self.shard = shard
+        self.send = self.recv = self.out_like = None
         dev = drv.device
-        self.static = _refill(carry, iter(
-            [torch.empty_like(x) for x in _tensors(carry)]))
-        self.sp, self.hypers = (None if x is None else _refill(x, iter(
-            [torch.empty_like(y) for y in _tensors(x)])) for x in (sp, hypers))
-        self.leaves = _tensors(self.static)
+        self.static = tree_refill(carry, iter(
+            [torch.empty_like(x) for x in tree_tensors(carry)]))
+        self.sp, self.hypers = (None if x is None else tree_refill(x, iter(
+            [torch.empty_like(y) for y in tree_tensors(x)]))
+            for x in (sp, hypers))
+        self.leaves = tree_tensors(self.static)
         b, m = drv.n_fleets, drv.env.M
 
         def z(shape, dtype=torch.float32):
@@ -523,8 +662,8 @@ class _ScanEpisode:
         self.trace = RolloutTrace(z((b, m), torch.int32), z((b,)),
                                   z((b, m), torch.bool), z((b, m)),
                                   z((b, m)), z((b,)), z(()))
-        self.draws = (None if draws is None else _refill(draws, iter(
-            [torch.empty_like(x) for x in _tensors(draws)])))
+        self.draws = (None if draws is None else tree_refill(draws, iter(
+            [torch.empty_like(x) for x in tree_tensors(draws)])))
         self.t_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.n_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.no_loss = torch.full((), torch.nan, device=dev)
@@ -536,27 +675,97 @@ class _ScanEpisode:
         static carry with its host mirrors set), then, with ``write``, the
         new carry copied into the static one, the trace row written at the
         slot counter and the counters advanced."""
-        tasks = wdraws = rand = gumbel = take = None
-        t = self.t_dev
-        if self.draws is not None:
-            tasks = _at(self.draws.tasks, t)
-            wdraws = _at(self.draws.workload, t)
-            rand, gumbel = _at((self.draws.rand_cands, self.draws.gumbel), t)
-        due = drv.train and drv.adef.train_due(carry.agent_state,
-                                                drv.n_fleets)
-        if due and self.draws is not None \
-                and self.draws.replay_take is not None:
-            take = self.draws.replay_take.index_select(0, self.n_dev)[0]
+        tasks, wdraws, rand, gumbel = self._draws_at()
+        take = self._take(drv, carry)
         new, out = drv._slot(carry, gen, tasks, wdraws, rand, take,
                              self.no_loss, self.sp, self.hypers, gumbel)
-        if not write:
-            return
-        _copy_into(self.leaves, _tensors(new))
-        for buf, row in zip(self.trace, out):
-            buf.index_copy_(0, t, row.unsqueeze(0))
+        if write:
+            self._write(new, out, take)
+
+    def _draws_at(self):
+        """The injected draws of the slot at the slot counter."""
+        if self.draws is None:
+            return None, None, None, None
+        t = self.t_dev
+        rand, gumbel = _at((self.draws.rand_cands, self.draws.gumbel), t)
+        return (_at(self.draws.tasks, t), _at(self.draws.workload, t), rand,
+                gumbel)
+
+    def _take(self, drv: RolloutDriver, carry: RolloutCarry):
+        """The injected minibatch rows at the train-step counter when a
+        train step is due (by ``carry``'s host mirrors), else None."""
+        if (drv.train and self.draws is not None
+                and self.draws.replay_take is not None
+                and drv.adef.train_due(carry.agent_state, drv.n_fleets)):
+            return self.draws.replay_take.index_select(0, self.n_dev)[0]
+        return None
+
+    def _fleets_body(self, drv: RolloutDriver, carry: RolloutCarry, gen,
+                     write: bool) -> None:
+        """The fleets' half of a sharded slot on the static buffers: with
+        ``write``, the new env and workload states copied into the static
+        carry and the ``_SlotOut`` rows packed into ``send``."""
+        tasks, wdraws, rand, gumbel = self._draws_at()
+        env_state, wl_state, out = drv._fleets(
+            carry, gen, tasks, wdraws, rand, self.shard.sp(self.sp),
+            self.hypers, gumbel, self.shard)
+        if self.send is None:
+            self.out_like = out
+            self.send = pack_rows(tree_tensors(out))
+            self.recv = self.send.new_zeros(
+                (self.shard.mesh.size() * self.send.shape[0],
+                 self.send.shape[1]))
+        if write:
+            _copy_into(tree_tensors((self.static.env_state,
+                                 self.static.wl_state)),
+                       tree_tensors((env_state, wl_state)))
+            self.send.copy_(pack_rows(tree_tensors(out)))
+
+    def _learner_body(self, drv: RolloutDriver, carry: RolloutCarry, gen,
+                      write: bool) -> None:
+        """The learner's half of a sharded slot on every rank's rows in
+        ``recv``; with ``write`` as ``_body`` writes."""
+        out = tree_refill(self.out_like, iter(unpack_rows(
+            self.recv, tree_tensors(self.out_like))))
+        take = self._take(drv, carry)
+        new, row = drv._learner(carry, carry.env_state, carry.wl_state, out,
+                                gen, take, self.no_loss, self.sp,
+                                self.hypers)
+        if write:
+            self._write(new, row, take)
+
+    def _write(self, new: RolloutCarry, row: RolloutTrace, take) -> None:
+        """The new carry into the static one, the trace row at the slot
+        counter, the counters advanced."""
+        t = self.t_dev
+        _copy_into(self.leaves, tree_tensors(new))
+        for buf, x in zip(self.trace, row):
+            buf.index_copy_(0, t, x.unsqueeze(0))
         t.add_(1)
         if take is not None:
             self.n_dev.add_(1)
+
+    def _exchange(self) -> None:
+        """Every rank's packed fleet rows into ``recv``, in fleet order
+        (outside any graph)."""
+        gather_rows(self.recv, self.send, self.shard.mesh)
+
+    def _sharded_slot(self, drv: RolloutDriver, carry: RolloutCarry, gen,
+                      write: bool) -> None:
+        """A whole sharded slot uncaptured: both halves and the exchange."""
+        self._fleets_body(drv, carry, gen, write)
+        self._exchange()
+        self._learner_body(drv, carry, gen, write)
+
+    def _bodies(self, kinds: dict) -> dict:
+        """The graphs to capture, {name: (body, static carry)}: a whole
+        slot per train_due kind, or, sharded, the fleets' half (first: it
+        sizes the packed rows) and the learner's half per kind."""
+        if self.shard is None:
+            return {due: (self._body, c) for due, c in kinds.items()}
+        out = {"fleets": (self._fleets_body, next(iter(kinds.values())))}
+        out.update({due: (self._learner_body, c) for due, c in kinds.items()})
+        return out
 
     def _capture(self, drv: RolloutDriver, kinds: dict) -> dict:
         """Warm up one eager slot of each kind on a side stream under the
@@ -570,11 +779,12 @@ class _ScanEpisode:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         prev = torch.cuda.get_sync_debug_mode()
+        bodies = self._bodies(kinds)
         with torch.cuda.stream(side):
             torch.cuda.set_sync_debug_mode("error")
             try:
-                for carry in kinds.values():
-                    self._body(drv, carry, warm, write=False)
+                for body, carry in bodies.values():
+                    body(drv, carry, warm, write=False)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -585,12 +795,12 @@ class _ScanEpisode:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            for due, carry in kinds.items():
+            for name, (body, carry) in bodies.items():
                 g = torch.cuda.CUDAGraph()
                 g.register_generator_state(self.gen)
                 with torch.cuda.graph(g, pool=pool):
-                    self._body(drv, carry, self.gen, write=True)
-                graphs[due] = g
+                    body(drv, carry, self.gen, write=True)
+                graphs[name] = g
         finally:
             if collecting:
                 gc.enable()
@@ -599,11 +809,11 @@ class _ScanEpisode:
     def run(self, drv: RolloutDriver, carry: RolloutCarry,
             draws: Optional[SlotDraws], sp: Optional[ScenarioParams],
             hypers):
-        _copy_into(self.leaves, _tensors(carry))
+        _copy_into(self.leaves, tree_tensors(carry))
         for static, given in ((self.draws, draws), (self.sp, sp),
                               (self.hypers, hypers)):
             if given is not None:
-                _copy_into(_tensors(static), _tensors(given))
+                _copy_into(tree_tensors(static), tree_tensors(given))
         self.t_dev.zero_()
         self.n_dev.zero_()
         plan, (step, size) = drv._schedule(carry.agent_state, self.n_slots)
@@ -618,12 +828,16 @@ class _ScanEpisode:
                 record_build(drv.label, CAPTURE_EVENT,
                              time.perf_counter() - t0, len(self.graphs))
             for due, _, _ in plan:
+                if self.shard is not None:
+                    self.graphs["fleets"].replay()
+                    self._exchange()
                 self.graphs[due].replay()
         else:
+            body = self._body if self.shard is None else self._sharded_slot
             for _, s, z in plan:
-                self._body(drv, _with_mirrors(self.static, s, z), self.gen,
-                           write=True)
-        final = _refill(self.static, (x.clone() for x in self.leaves))
+                body(drv, _with_mirrors(self.static, s, z), self.gen,
+                     write=True)
+        final = tree_refill(self.static, (x.clone() for x in self.leaves))
         trace = RolloutTrace(*(x.clone() for x in self.trace))
         return _with_mirrors(final, step, size), trace
 

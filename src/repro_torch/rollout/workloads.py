@@ -68,10 +68,11 @@ class InitDraws(NamedTuple):
 
 
 class WorkloadDraws(NamedTuple):
-    """The uniforms of one ``poisson``/``mmpp`` ``sample``."""
-    burst: torch.Tensor       # [...] MMPP flip (unread for poisson)
-    arrive: torch.Tensor      # [..., M] arrival Bernoullis
-    churn: torch.Tensor       # [..., M] churn Bernoullis
+    """The uniforms of one ``sample`` (``iid``: rate, capacity and slot
+    only)."""
+    burst: Optional[torch.Tensor]   # [...] MMPP flip (unread for poisson)
+    arrive: Optional[torch.Tensor]  # [..., M] arrival Bernoullis
+    churn: Optional[torch.Tensor]   # [..., M] churn Bernoullis
     rate: torch.Tensor        # [..., M, N] AR(1) uniform and normal
     capacity: torch.Tensor    # [..., N] AR(1) uniform and normal
     slot: SlotUniforms        # assemble_slot's size, CSI, jitter, links
@@ -128,16 +129,25 @@ class WorkloadGen:
             burst=torch.zeros(batch, dtype=torch.int32, device=dev))
 
     # ---------------------------------------------------------------- sample
-    def _draws(self, generator: torch.Generator,
-               batch: Tuple[int, ...]) -> WorkloadDraws:
-        """One ``sample``'s uniforms from ``generator``, in field order
-        (``burst`` only for ``mmpp``)."""
+    def draws(self, generator: torch.Generator,
+              batch: Tuple[int, ...]) -> WorkloadDraws:
+        """One ``sample``'s uniforms from ``generator`` for ``batch``
+        networks, in the order ``sample`` draws them itself: for ``iid``
+        ``env.sample_slot``'s (``burst``, ``arrive`` and ``churn`` None),
+        else ``burst`` (``mmpp`` only), then field order. Drawn for every
+        network and sliced, they are what a slice of the networks draws
+        (the fleet-sharded episode)."""
         env, dev = self.env, self.env.device
         m, n, l = env.M, env.N, env.L
 
         def u(shape):
             return torch.rand(batch + shape, generator=generator, device=dev)
 
+        if self.kind == "iid":
+            rate, capacity = u((m, n)), u((n,))
+            return WorkloadDraws(None, None, None, rate, capacity,
+                                 SlotUniforms(u((m,)), u((m, n)), u((n, l)),
+                                              u((m, n))))
         burst = (u(()) if self.kind == "mmpp"
                  else torch.zeros(batch, device=dev))
         return WorkloadDraws(burst, u((m,)), u((m,)), u((m, n)), u((n,)),
@@ -153,17 +163,19 @@ class WorkloadGen:
 
         ``iid`` returns ``state`` unchanged beside ``env.sample_slot`` for
         ``batch`` networks (default: the state's batch axes, or one
-        network). The others advance ``state`` with ``draws`` or, without
-        them, uniforms from ``generator``.
+        network). The others advance ``state``. The uniforms are ``draws``
+        (``draws()``'s layout) or, without them, drawn from ``generator``.
         """
         env = self.env
         if self.kind == "iid":
             if batch is None:
                 batch = () if state is None else tuple(state.burst.shape)
-            return state, env.sample_slot(generator, batch, sp)
+            return state, env.sample_slot(
+                generator, batch, sp, draws=None if draws is None else
+                (draws.rate, draws.capacity, draws.slot))
         sp = env._sp(sp)
         if draws is None:
-            draws = self._draws(generator, tuple(state.burst.shape))
+            draws = self.draws(generator, tuple(state.burst.shape))
 
         # --- arrival process -> active mask
         if self.kind == "poisson":

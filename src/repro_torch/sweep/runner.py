@@ -13,7 +13,14 @@ captured slot graphs: one episode built and two graphs captured per pack
 on the card, however many cells it holds. Where the reference ``vmap``s a
 pack's cells into one program, the port loops over them (the actor
 kernels take one weight set per launch). Per-cell metrics come from the
-driver's device-resident accumulator (``carry_metrics``).
+driver's device-resident accumulator (``carry_metrics``). With a
+``fleet`` mesh (``sharding.fleet.fleet_mesh()``: one rank per card) a
+pack's cells are padded to the rank count with ``pad_to_devices``, as the
+reference pads them, and split over the ranks in contiguous blocks; each
+rank runs its real cells through its own driver, the padding produces no
+row and runs nothing, and the rows are all-gathered in cell order, so
+every rank returns the whole pack's. Only rank 0 writes the store and the
+history.
 
 ``run_cell`` is the sequential reference: a fresh ``RolloutDriver`` per
 cell, ``sp=None`` for named scenarios, the same seeds — used by the
@@ -42,6 +49,8 @@ from repro_torch.mec.scenarios import resolve_scenario
 from repro_torch.obs.log import json_safe
 from repro_torch.rollout.driver import (RolloutDriver, carry_metrics,
                                         carry_telemetry)
+from repro_torch.sharding.fleet import (gather_objects, is_lead,
+                                        local_slice, pad_to_devices)
 from repro_torch.sweep.packer import Pack, cell_config, pack_cells
 from repro_torch.sweep.spec import Cell, SweepSpec, cell_seeds
 from repro_torch.sweep.store import SweepStore
@@ -108,8 +117,9 @@ class PackProgram:
     """One pack's episode program: the template driver (``driver``, whose
     ``label`` is the pack's) and the cells it runs.
 
-    ``run()`` executes every cell in pack order, ``run_one(i)`` cell ``i``
-    alone, in ``mode`` (``"loop"`` for a cost count: a graph replay
+    ``run()`` executes every cell in pack order (on a ``mesh``, this rank's
+    block of them, then every rank's rows in cell order), ``run_one(i)``
+    cell ``i`` alone, in ``mode`` (``"loop"`` for a cost count: a graph replay
     dispatches nothing). In scan mode the first cell builds the episode
     (on the card: warm-up and capture of its two graphs); every later
     one, and a second ``run()``, replays them. ``cell_s`` holds the
@@ -117,10 +127,16 @@ class PackProgram:
     metrics' host copy).
     """
 
-    def __init__(self, pack: Pack, *, telemetry: bool = False, device=None,
-                 mode: str = "scan"):
+    def __init__(self, pack: Pack, *, mesh=None, telemetry: bool = False,
+                 device=None, mode: str = "scan"):
         self.pack = pack
         self.mode = mode
+        self.mesh = mesh
+        # this rank's block of the cells padded to the rank count; the
+        # padding (past the last cell) runs nothing
+        n = len(pack.cells)
+        block = local_slice(pad_to_devices(n, mesh), mesh)
+        self.mine = range(block.start, min(block.stop, n))
         ref = pack.cells[0]
         self.device = resolve_device(device)
         env = MECEnv(_resolve_cell(ref, self.device)[0], device=self.device)
@@ -161,18 +177,23 @@ class PackProgram:
         return row
 
     def run(self) -> list:
-        """Execute the pack; one metrics row per cell, in pack order."""
-        return [self.run_one(i) for i in range(len(self.pack.cells))]
+        """Execute the pack; one metrics row per cell, in pack order (on a
+        mesh every rank's, gathered)."""
+        return gather_objects([self.run_one(i) for i in self.mine],
+                              self.mesh)
 
 
-def run_pack(pack: Pack, *, telemetry: bool = False, device=None) -> list:
-    """Run every cell of a pack through one episode program.
+def run_pack(pack: Pack, *, mesh=None, telemetry: bool = False,
+             device=None) -> list:
+    """Run every cell of a pack through one episode program (on ``mesh``,
+    the cells split over its ranks).
 
     Returns one metrics row per cell, in pack order. ``telemetry=True``
     attaches each cell's registry snapshot + summary under
     ``row["telemetry"]`` (JSON-safe).
     """
-    return PackProgram(pack, telemetry=telemetry, device=device).run()
+    return PackProgram(pack, mesh=mesh, telemetry=telemetry,
+                       device=device).run()
 
 
 # -------------------------------------------------------------- sequential
@@ -211,7 +232,7 @@ def run_cell(cell: Cell, *, telemetry: bool = False, device=None,
 
 # ------------------------------------------------------------------- sweep
 def run_sweep(spec: SweepSpec, *, store: Optional[SweepStore] = None,
-              packed: bool = True, log=print,
+              mesh=None, packed: bool = True, log=print,
               telemetry: bool = False, history=None, device=None) -> list:
     """Run the whole grid; returns rows in ``spec.expand()`` order.
 
@@ -229,15 +250,24 @@ def run_sweep(spec: SweepSpec, *, store: Optional[SweepStore] = None,
     ``history`` (a ``repro_torch.obs.HistoryStore``) appends one
     manifest-stamped ``sweep`` record per *executed* cell — cached rows
     were recorded by the run that produced them.
+
+    With a ``fleet`` ``mesh`` each pack's cells (or, ``packed=False``,
+    its missing cells) are split over the ranks and every rank returns
+    every row; which cells are missing is read from the store before any
+    pack runs, and only rank 0 logs, writes the store and appends to the
+    history.
     """
     dev = resolve_device(device)
     backend = backend_of(dev)
     cells = spec.expand()
     packs = pack_cells(cells)
+    lead = is_lead(mesh)
+    if not lead:
+        log = _quiet
+    stored = {c for c in cells if store is not None and store.has(c)}
     results: dict = {}
     for pack in packs:
-        missing = [c for c in pack.cells
-                   if store is None or not store.has(c)]
+        missing = [c for c in pack.cells if c not in stored]
         for c in pack.cells:
             if c not in missing:
                 results[c] = store.load(c, backend=backend)
@@ -254,7 +284,7 @@ def run_sweep(spec: SweepSpec, *, store: Optional[SweepStore] = None,
         if packed:
             # the whole pack runs (one episode program), but cached cells
             # keep their stored rows — never recomputed results
-            prog = PackProgram(pack, **kw)
+            prog = PackProgram(pack, mesh=mesh, **kw)
             rows = prog.run()
             cell_s = prog.cell_s
             del prog            # free its graphs before the next pack's
@@ -262,23 +292,33 @@ def run_sweep(spec: SweepSpec, *, store: Optional[SweepStore] = None,
                      if c in missing]
         else:
             # per-cell runs are independent: execute only the missing ones
-            pairs, cell_s = [], []
-            for c in missing:
+            # (on a mesh, this rank's block of them)
+            block = local_slice(pad_to_devices(len(missing), mesh), mesh)
+            rows, cell_s = [], []
+            for c in missing[block.start:block.stop]:
                 t1 = time.perf_counter()
-                pairs.append((c, run_cell(c, **kw)))
+                rows.append(run_cell(c, **kw))
                 cell_s.append(time.perf_counter() - t1)
+            pairs = list(zip(missing, gather_objects(rows, mesh)))
         wall = time.perf_counter() - t0
         rest = (f", then {sum(cell_s[1:]) / (len(cell_s) - 1) / pack.cells[0].n_slots * 1e3:.4f}"
                 f" ms a slot per cell" if len(cell_s) > 1 else "")
-        log(f"  [sweep] {pack.label()}: ran {len(cell_s)} cells in "
-            f"{wall:.4f} s (first {cell_s[0]:.4f} s with its build{rest})")
+        if cell_s:
+            log(f"  [sweep] {pack.label()}: ran {len(cell_s)} cells in "
+                f"{wall:.4f} s (first {cell_s[0]:.4f} s with its build"
+                f"{rest})" + (f" on rank 0 of {mesh.size()}"
+                              if mesh is not None else ""))
         for c, row in pairs:
             results[c] = row
-            if store is not None:
+            if store is not None and lead:
                 store.save(c, row)
-            if history is not None:
+            if history is not None and lead:
                 _append_history(history, c, row, device=dev)
     return [results[c] for c in cells]
+
+
+def _quiet(msg: str) -> None:
+    """The log of ranks other than 0."""
 
 
 def _append_history(history, cell: Cell, row: dict, *,

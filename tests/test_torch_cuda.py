@@ -387,7 +387,7 @@ def test_population_driver_replays_one_capture(cuda):
     from repro_torch.mec.scenarios import scenario_space
     from repro_torch.obs import CompileTracker
     from repro_torch.pop import Curriculum, PopulationTrainer
-    from repro_torch.rollout.driver import _tensors
+    from repro_torch.nn.pytree import tree_tensors
 
     env = MECEnv(make_scenario("fig5_baseline", n_devices=6), device=cuda)
     space = scenario_space(n_devices=6, device=cuda)
@@ -406,7 +406,7 @@ def test_population_driver_replays_one_capture(cuda):
                                     offset=torch.full((4,), 0.5))
     runs = [tr.driver.run_generation(ts.pop, 3, sps, mode=mode)
             for mode in ("scan", "loop")]
-    xs, ys = _tensors(runs[0]), _tensors(runs[1])
+    xs, ys = tree_tensors(runs[0]), tree_tensors(runs[1])
     assert len(xs) == len(ys) and all(
         bool(((x == y) | (x.isnan() & y.isnan())).all())
         for x, y in zip(xs, ys))

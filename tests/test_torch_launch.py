@@ -28,8 +28,8 @@ from repro_torch.launch.__main__ import COMMANDS
 from repro_torch.launch.__main__ import main as launch_main
 from repro_torch.mec import MECEnv, make_scenario
 from repro_torch.models import INPUT_SHAPES
+from repro_torch.nn.pytree import tree_tensors
 from repro_torch.rollout import RolloutDriver
-from repro_torch.rollout.driver import _tensors
 
 torch.set_num_threads(1)
 
@@ -150,15 +150,18 @@ def test_dryrun_one_writes_one_record(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--sweep", "--mesh", "multi"],
-    ["--sweep", "--mesh", "single"],
-    ["--one", "llama3_2_1b", "long_500k", "--mesh", "multi"],
+    ["--sweep", "--mesh", "pod"],
+    ["--sweep", "--mesh", "16x16"],
+    ["--one", "llama3_2_1b", "long_500k", "--mesh", "tpu_v5e"],
 ])
 def test_dryrun_refuses_a_mesh(argv, tmp_path, capsys):
+    """A mesh other than card, single, multi (or both) is refused before
+    anything is written; single and multi are the reference's meshes
+    (tests/test_torch_sharding.py)."""
     with pytest.raises(SystemExit) as exc:
         dryrun.main(argv + ["--out", str(tmp_path / "d.jsonl")])
     assert exc.value.code == 2
-    assert "one card" in capsys.readouterr().err
+    assert "invalid choice" in capsys.readouterr().err
     assert not (tmp_path / "d.jsonl").exists()
 
 
@@ -211,10 +214,22 @@ def test_run_sharded_is_the_scan_episode_on_one_card():
                         train_every=5, device="cpu")
     want = drv.run(3, 15, mode="scan")
     got = drv.run_sharded(3, 15, mesh=None)
-    xs, ys = _tensors(got), _tensors(want)
+    xs, ys = tree_tensors(got), tree_tensors(want)
     assert len(xs) == len(ys)
     for x, y in zip(xs, ys):      # bit for bit, NaN equal to NaN
         assert x.dtype == y.dtype and torch.equal(
             torch.nan_to_num(x, nan=7.0), torch.nan_to_num(y, nan=7.0))
-    with pytest.raises(ValueError, match="one card"):
-        drv.run_sharded(3, 15, mesh=object())
+
+    class Mesh3:
+        """A fleet mesh of three devices (its size is all run_sharded
+        reads before it refuses)."""
+
+        @staticmethod
+        def size():
+            return 3
+
+    # the reference's refusal: the fleets must divide the devices (the
+    # sharded episode itself: tests/test_torch_sharded_rollout.py)
+    with pytest.raises(ValueError, match="n_fleets=4 not divisible by 3 "
+                                         "devices"):
+        drv.run_sharded(3, 15, mesh=Mesh3())

@@ -35,10 +35,10 @@ from repro_torch.pop import (Curriculum, MemberHypers, PBTConfig,
                              PopulationTrainer, default_hypers,
                              exit_mask_from_tau, init_population, pbt_update,
                              sample_hypers)
+from repro_torch.nn.pytree import tree_tensors
 from repro_torch.pop.pbt import PBTDraws
 from repro_torch.pop.population import gather_members, member_state
 from repro_torch.rollout import RolloutDriver
-from repro_torch.rollout.driver import _tensors
 from repro_torch.train import restore_population, save_population
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,7 +74,7 @@ def tiny_trainer(adef=None, **kw):
 
 def same_leaves(a, b) -> bool:
     """Every tensor equal bit for bit (NaN equal to NaN)."""
-    xs, ys = _tensors(a), _tensors(b)
+    xs, ys = tree_tensors(a), tree_tensors(b)
     return len(xs) == len(ys) and all(
         x.shape == y.shape and x.dtype == y.dtype
         and bool(((x == y) | (x.isnan() & y.isnan())).all())
@@ -145,7 +145,7 @@ class TestPopulation:
 
     def test_init_stacks_member_axis(self):
         pop = init_population(tiny_adef(), 0, 5)
-        for leaf in _tensors(pop.agents):
+        for leaf in tree_tensors(pop.agents):
             assert leaf.shape[0] == 5
         assert int(pop.generation) == 0 and pop.generation.dtype == \
             torch.int32

@@ -23,13 +23,13 @@ import torch
 from repro_torch.core import agent_def, agent_state_from_params, make_agent
 from repro_torch.mec import (MECEnv, MECState, ScenarioParams, SlotTasks,
                              SlotUniforms, make_scenario, scenario_space)
-from repro_torch.nn.pytree import flatten_dict
+from repro_torch.nn.pytree import flatten_dict, tree_refill, tree_tensors
 from repro_torch.obs import telemetry_host
 from repro_torch.rollout import (InitDraws, RolloutDriver, SlotDraws,
                                  WorkloadDraws, carry_metrics,
                                  carry_telemetry, make_workload,
                                  trace_metrics)
-from repro_torch.rollout.driver import _at, _refill, _tensors
+from repro_torch.rollout.driver import _at
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -243,7 +243,7 @@ def small_driver(train=True, telemetry=True, b=2):
 def assert_same_run(a, b):
     """Two (carry, trace) pairs equal bit for bit, NaN equal to NaN, and
     the host mirrors too."""
-    xs, ys = _tensors(a), _tensors(b)
+    xs, ys = tree_tensors(a), tree_tensors(b)
     assert len(xs) == len(ys)
     for i, (x, y) in enumerate(zip(xs, ys)):
         assert x.dtype == y.dtype and x.shape == y.shape, i
@@ -279,9 +279,9 @@ def test_scan_results_do_not_alias_its_buffers():
     again: the scan hands out copies of its static buffers."""
     drv = small_driver()
     c1, t1 = drv.run(1, 12)
-    kept = [x.clone() for x in _tensors((c1, t1))]
+    kept = [x.clone() for x in tree_tensors((c1, t1))]
     drv.run(2, 12)
-    for x, y in zip(kept, _tensors((c1, t1))):
+    for x, y in zip(kept, tree_tensors((c1, t1))):
         assert torch.equal(torch.nan_to_num(x, nan=7.0),
                            torch.nan_to_num(y, nan=7.0))
 
@@ -293,7 +293,7 @@ def test_telemetry_does_not_perturb_trajectories():
     c_off, t_off = small_driver(telemetry=False).run(3, 25)
     assert torch.equal(t_on.decisions, t_off.decisions)
     assert torch.equal(t_on.reward, t_off.reward)
-    for a, b in zip(_tensors(c_on.params), _tensors(c_off.params)):
+    for a, b in zip(tree_tensors(c_on.params), tree_tensors(c_off.params)):
         assert torch.equal(a, b)
     assert c_off.telemetry is None and carry_telemetry(c_off) is None
 
@@ -699,7 +699,8 @@ def test_per_fleet_run_equals_one_fleet_runs(method):
         d_i = SlotDraws(
             None, rand[:, i:i + 1],
             init=InitDraws(*(x[i:i + 1] for x in init)),
-            workload=_refill(wl, (x[:, i:i + 1] for x in _tensors(wl))))
+            workload=tree_refill(wl, (x[:, i:i + 1]
+                                      for x in tree_tensors(wl))))
         _, alone = one.run(0, n_slots, mode="loop", agent_state=st,
                            sp=ScenarioParams(*(x[i:i + 1] for x in sp)),
                            draws=d_i)
@@ -765,7 +766,7 @@ def test_agent_shim_through_the_driver_equals_agent_def():
     adef = agent_def("droo", env, device="cpu", buffer_size=32,
                      batch_size=8, train_every=5)
     st = adef.init(torch.Generator().manual_seed(3))
-    for a, b in zip(_tensors(st.params), _tensors(shim.state.params)):
+    for a, b in zip(tree_tensors(st.params), tree_tensors(shim.state.params)):
         assert torch.equal(a, b)
     via_shim = drv.run(4, 20)
     direct = RolloutDriver(adef, 2, device="cpu").run(4, 20, agent_state=st)

@@ -340,21 +340,28 @@ class TestReport:
 # ----------------------------------------------------------------- sharding
 class TestSharding:
     def test_fleet_mesh_is_one_device(self):
+        """Without a process group ``fleet_mesh()`` is the reference's
+        single-device None; a mesh over more devices than the group has
+        ranks raises and names how to start one rank per card (the
+        multi-rank mesh itself: tests/test_torch_sharded_rollout.py)."""
         from repro_torch.sharding import (FLEET_AXIS, fleet_mesh,
-                                          pad_to_devices, replicate,
-                                          shard_leading_axis)
+                                          gather_leading, pad_to_devices,
+                                          replicate, shard_leading_axis)
         assert FLEET_AXIS == "fleet"
         assert fleet_mesh() is None and fleet_mesh(1) is None
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        with pytest.raises(ValueError, match="over 4 devices.*1 rank.*"
+                                             "torchrun --nproc-per-node 4"):
             fleet_mesh(4)
         tree = {"x": torch.zeros(3)}
         assert shard_leading_axis(tree, None) is tree
         assert replicate(tree, None) is tree
+        assert gather_leading(tree, None) is tree
         assert pad_to_devices(5, None) == 5
 
         class M:
-            class devices:
-                size = 4
+            @staticmethod
+            def size():
+                return 4
 
         assert pad_to_devices(6, M) == 8 and pad_to_devices(8, M) == 8
 
