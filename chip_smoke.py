@@ -6,8 +6,9 @@ full width), its serving engines and their throughput benchmark
 (serve-bench), its experiment sweep, its population training, its
 profiler and cost hooks, LM training, the paper's multi-exit VGG-16
 pipeline, the long-context window decode, the one-card dry run, the
-examples and the fleet, member and cell axes over the cards (one rank a
-card) on the NVIDIA GPUs of one machine and check them.
+examples, the fleet, member and cell axes over the cards (one rank a
+card) and the paper's §VI experiments on the NVIDIA GPUs of one machine
+and check them.
 
     python3 chip_smoke.py
 
@@ -208,8 +209,10 @@ order, each fatal on failure:
    baseline", "fig8_csi") draw per fleet): ssp, avg_accuracy, slot ms,
    the first run's warm-up and capture seconds, the GRLE/GRL and
    GRLE/DROOE accuracy ratios (printed, not gated); from the profiler's
-   device records exactly 880 gcn_agg and 220 edge_score launches per
-   GCN run and none per MLP run; per scenario one greedy_decision on a
+   device records over a METHODS_PROFILED-slot run of the same seed (its
+   decisions the 200-slot run's first 40) exactly 176 gcn_agg and 44
+   edge_score launches per GCN run and none per MLP run, one graph launch
+   a slot; per scenario one greedy_decision on a
    fresh slot and GRLE's q_best over the oracle's value (Fig 4's
    normalization); the phase's wall seconds;
 24. the paper's results grid through ``repro_torch.sweep``: ``run_sweep``
@@ -220,12 +223,13 @@ order, each fatal on failure:
    ``SweepSpec`` defaults (M=14, T=300, B=1, ring 128, minibatch 64,
    omega 10), telemetry on: 96 cells in 6 packs (iid 32, poisson 12,
    mmpp 4, per actor family). Fatal: a ``CompileTracker`` reads one
-   episode built and two graphs captured per pack; ``run_cell`` on every
-   seed-0 cell of the iid GCN pack and the poisson MLP pack gives its
-   packed row bit for bit (every field, the telemetry too); the
+   episode built and two graphs captured per pack; ``run_cell`` on the
+   seed-0 cells of the first and last scenario of the iid GCN pack and of
+   the poisson MLP pack gives each its packed row bit for bit (every
+   field, the telemetry too); the
    profiler's device records over one GRLE cell's replays inside its
    pack count 4 x (T + train steps) gcn_agg and T + train steps
-   edge_score, over one DROO cell none; one stored cell of the iid GCN
+   edge_score, over one DROO cell none; one stored cell of the mmpp GCN
    pack deleted, a rerun runs that pack alone and rewrites the file byte
    for byte, every other file untouched, and a third run executes
    nothing; every GCN cell's final loss finite. Prints per pack its
@@ -461,10 +465,32 @@ order, each fatal on failure:
    slot ms sharded and unsharded and the graph launches a slot (2
    sharded: the fleets' half and the learner's, the all-gather between
    them outside the graphs; 1 unsharded);
+47. the paper's §VI experiments through ``repro_torch.figures``: both
+   actor kernels at the figures' new shapes (M=6 and M=10, O=10; B=1 and
+   the B=64 minibatch) against their plain versions (TOL) with every
+   input's gradient (phase 21's rule); Fig 4 at M=14, GRLE and DROOE,
+   400 slots each (``convergence.loop_convergence``: Q̂ against the
+   greedy + local-search oracle every 10 slots) and the B=8 scan variant
+   (``scan_convergence``): rows finite, each loss curve falling (the mean
+   of its last 5 below its first 5); one M=14 column of Figs 5-8
+   (``rollout_method``: the four methods, fig5_baseline at τ 10 and 30
+   ms, fig6_capacity, fig7_jitter and fig8_csi at 30 ms, 80 slots):
+   every row finite, ``ssp`` and ``avg_accuracy`` in [0, 1]; over each
+   loop run exactly gcn_agg 4 and edge_score 1 a decision and a train
+   step the agent's own gate makes due for GRLE and GRL, none for DROOE
+   and DROO (wrapper counts); GRLE's accuracy ratios printed beside the
+   paper's 3.41x and 1.45x, not gated; the learning check
+   (``figures.learning``) at ``CARD_SPEC`` (fig5_baseline, GRLE and
+   DROOE, 16 seeds, M=14, 600 slots, the paper's learner, through
+   ``run_sweep``) against ``tests/data/torch_figures_golden.npz``: per
+   method the mean ``final_loss``, ``ssp`` and ``avg_accuracy`` within 3
+   standard errors of the reference's, and the first 4 seeds at learning
+   rate 1e-12 rejected on ``final_loss``;
 43. (last) one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
    one ``{"dense_kernel_shapes": [...]}`` line (phase 41's), one
    ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35, 36,
-   38, 39, 41, 42, 45 and 46 and the LM prefills and decodes), the card line
+   38, 39, 41, 42, 45, 46 and 47 and the LM prefills and decodes), the
+   card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
@@ -488,6 +514,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()     # phase headers print the seconds since it
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.kernels.cost import (  # noqa: E402
@@ -607,9 +634,12 @@ ASYNC_LATENCY_RTOL = 1e-6
 DYN_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_dyn_golden.npz")
 DYN_RUNS = ("droo_fig8", "drooe_bursty", "grle_space")
 DYN_KW = dict(replay_capacity=32, batch_size=8, train_every=5)
-# the paper's four methods (§VI-C) and phase 23's scenarios
+# the paper's four methods (§VI-C) and phase 23's scenarios; phase 23
+# profiles a run of its first 40 slots (4 train steps at B=64), not its
+# 200: the profiler's records took ~4 s a run
 METHODS = ("grle", "grl", "drooe", "droo")
 SPACE = ("fig5_baseline", "fig8_csi")
+METHODS_PROFILED = 40
 # phase 24's grid: the paper's figures and the dynamic scenarios, with
 # four space draws, at the SweepSpec defaults; its store lives under build/
 SWEEP_SCENARIOS = ("fig5_baseline", "fig6_capacity", "fig7_jitter",
@@ -693,7 +723,8 @@ ZOO_SERVE_ARGS = ("--arch", "zamba2_2_7b", "--slots", "10", "--decode")
 
 
 def phase(n, title):
-    print(f"\n== phase {n}: {title}", flush=True)
+    print(f"\n== phase {n}: {title} (at {time.perf_counter() - START:.1f} s)",
+          flush=True)
 
 
 def ptxas_report(log):
@@ -2494,7 +2525,9 @@ def methods_phase(dev):
     the port's generator from seed 0. Per run the §VI-D metrics, slot ms
     of a second run, the first run's seconds (warm-up and capture
     included) and, from the profiler, the actor kernels' device launches
-    (fatal: 880 / 220 for the GCN methods, none for the MLP ones); per
+    over a METHODS_PROFILED-slot run of the same seed (fatal: 176 / 44 for
+    the GCN methods, none for the MLP ones; its decisions the 200-slot
+    run's first 40); per
     scenario the accuracy ratios and GRLE's q_best over the greedy
     oracle's on a fresh slot."""
     from repro_torch.core import agent_def
@@ -2531,30 +2564,34 @@ def methods_phase(dev):
             carry, trace = drv.run(SEED, N_SLOTS, sp=sp)
             torch.cuda.synchronize()
             slot_ms = (time.perf_counter() - t1) / N_SLOTS * 1e3
+            # the short episode is built and captured before the window
+            drv.run(SEED, METHODS_PROFILED, sp=sp)
             (_, p_trace), ours, _, kernels, graphs, busy = profiled_episode(
-                drv, "scan", sp=sp)
+                drv, "scan", n_slots=METHODS_PROFILED, sp=sp)
             m = drv.metrics(carry)
             gcn = adef.actor == "gcn"
-            want = ({"gcn_agg": 4 * (N_SLOTS + n_train),
-                     "edge_score": N_SLOTS + n_train} if gcn
+            n_prof = METHODS_PROFILED + METHODS_PROFILED // 10
+            want = ({"gcn_agg": 4 * n_prof, "edge_score": n_prof} if gcn
                     else {"gcn_agg": 0, "edge_score": 0})
             acc[method] = m["avg_accuracy"]
             print(f"  {method:5s}: ssp {m['ssp']:.6f} avg_accuracy "
                   f"{m['avg_accuracy']:.6f} final_loss {m['final_loss']:.6f}"
                   f"; slot {slot_ms:.3f} ms; first run {first_s:.3f} s "
                   f"(warm-up and capture included); profiled: actor kernels"
-                  f" {ours}, {kernels / N_SLOTS:.2f} CUDA kernels and "
-                  f"{graphs / N_SLOTS:.2f} graph launches a slot, busy "
-                  f"{busy:.1%}", flush=True)
-            if ours != want or graphs != N_SLOTS:
+                  f" {ours} in {METHODS_PROFILED} slots, "
+                  f"{kernels / METHODS_PROFILED:.2f} CUDA kernels and "
+                  f"{graphs / METHODS_PROFILED:.2f} graph launches a slot, "
+                  f"busy {busy:.1%}", flush=True)
+            if ours != want or graphs != METHODS_PROFILED:
                 raise SystemExit(f"methods {label} {method}: actor kernels "
                                  f"{ours}, expected {want}; {graphs} graph "
-                                 f"launches for {N_SLOTS} slots")
+                                 f"launches for {METHODS_PROFILED} slots")
             if (int(m["train_steps"]) != n_train
                     or not math.isfinite(m["final_loss"])
                     or not 0.0 < m["ssp"] <= 1.0
                     or not torch.isfinite(trace.reward).all()
-                    or not torch.equal(p_trace.decisions, trace.decisions)):
+                    or not torch.equal(p_trace.decisions,
+                                       trace.decisions[:METHODS_PROFILED])):
                 raise SystemExit(f"methods {label} {method}: output "
                                  f"malformed or runs of one seed differ")
             if method == "grle":
@@ -2737,9 +2774,13 @@ def sweep_phase(dev):
                 raise SystemExit(f"sweep {c.label()}: row malformed: "
                                  f"{ {k: r[k] for k in ('backend', 'ssp', 'train_steps', 'final_loss')} }")
 
-        # sequential rows equal packed ones
-        seq = [c for key in (("gcn", "iid"), ("mlp", "poisson"))
-               for c in pack_of[key].cells if c.seed == 0]
+        # sequential rows equal packed ones: the seed-0 cells of each
+        # pack's first and last scenario
+        seq = []
+        for key in (("gcn", "iid"), ("mlp", "poisson")):
+            cells0 = [c for c in pack_of[key].cells if c.seed == 0]
+            ends = {cells0[0].scenario, cells0[-1].scenario}
+            seq += [c for c in cells0 if c.scenario in ends]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for c in seq:
@@ -2749,8 +2790,9 @@ def sweep_phase(dev):
                 raise SystemExit(f"sweep {c.label()}: run_cell differs from "
                                  f"its packed row in {diff}")
         seq_s = time.perf_counter() - t1
-        print(f"sequential: run_cell on {len(seq)} cells (seed 0 of the iid "
-              f"GCN and poisson MLP packs) in {seq_s:.3f} s, "
+        print(f"sequential: run_cell on {len(seq)} cells (seed 0 of the "
+              f"first and last scenario of the iid GCN and poisson MLP "
+              f"packs) in {seq_s:.3f} s, "
               f"{len(seq) / seq_s:.3f} cells/s, every row equal to its "
               f"packed row bit for bit; packed/sequential cells/s "
               f"{(len(rows) / packed_s) / (len(seq) / seq_s):.3f}")
@@ -2778,13 +2820,14 @@ def sweep_phase(dev):
                                  f" or its row differs from the packed one")
             del prog
 
-        # resume: one cell of the iid GCN pack lost
+        # resume: one cell of the mmpp GCN pack lost (its four cells rerun;
+        # the iid pack's 32 would test the same at eight times the cost)
         files = sorted(os.listdir(SWEEP_STORE))
         before = {f: (open(os.path.join(SWEEP_STORE, f), "rb").read(),
                       os.stat(os.path.join(SWEEP_STORE, f)).st_mtime_ns)
                   for f in files}
-        gcn_iid = pack_of[("gcn", "iid")]
-        victim = gcn_iid.cells[5]
+        lost_pack = pack_of[("gcn", "mmpp")]
+        victim = lost_pack.cells[1]
         os.unlink(store.path(victim))
         logs.clear()
         t1 = time.perf_counter()
@@ -2796,7 +2839,7 @@ def sweep_phase(dev):
                  for f in sorted(os.listdir(SWEEP_STORE))}
         name = os.path.basename(store.path(victim))
         ran = [m for m in logs if ": running" in m]
-        if (len(ran) != 1 or gcn_iid.label() not in ran[0]
+        if (len(ran) != 1 or lost_pack.label() not in ran[0]
                 or set(after) != set(before)
                 or after[name][0] != before[name][0]
                 or any(after[f] != before[f] for f in before if f != name)
@@ -2809,7 +2852,7 @@ def sweep_phase(dev):
         if ct.n_backend_compiles or any(": running" in m for m in logs):
             raise SystemExit("sweep: a fully cached run executed a pack")
         print(f"resume: {victim.label()} deleted; the rerun ran "
-              f"{gcn_iid.label()} alone in {resume_s:.3f} s and rewrote "
+              f"{lost_pack.label()} alone in {resume_s:.3f} s and rewrote "
               f"{name} byte for byte, {len(before) - 1} other files "
               f"untouched; a third run executed nothing")
         report = build_report(rows)
@@ -6360,6 +6403,204 @@ def examples_phase(dev) -> dict:
     return totals
 
 
+# ----------------------------------------------- the paper's experiments (47)
+FIGURES_GOLDEN = os.path.join(ROOT, "tests", "data",
+                              "torch_figures_golden.npz")
+# Fig 4 at M=14: 400 slots a method (the figure's --quick run; the paper's:
+# 1500), and the scan variant's B=8 fleets; Figs 5-8 one column each, M=14
+# at 80 slots a run (two train steps; the paper's: M in {6, 10, 14}, 500
+# slots, python -m repro_torch.figures). Cut for the phase's 60 s: a loop
+# slot costs ~11 ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+FIG4_SLOTS, FIG4_FLEETS = 400, 8
+FIG_M, FIG_SLOTS = 14, 80
+# the actor kernels at the figures' new shapes: M=6 and M=10 (O = 10)
+FIG_ACTOR_M = (6, 10)
+# the paper's headline claims (§VI): GRLE's accuracy over GRL's, DROOE's
+PAPER_RATIOS = {"grl": 3.41, "drooe": 1.45}
+
+
+def due_steps(adef, n_slots: int) -> int:
+    """The train steps the agent's own gate (``AgentDef.train_due``) makes
+    due in ``n_slots`` slots of one network, on its host mirrors."""
+    st = adef.init(torch.Generator(device=adef.device).manual_seed(SEED))
+    due = 0
+    for _ in range(n_slots):
+        due += adef.train_due(st, 1)
+        size = min(st.replay.host_size + 1, adef.buffer_size)
+        st = st._replace(host_step=st.host_step + 1,
+                         replay=st.replay._replace(host_size=size))
+    return due
+
+
+def figure_launches(dev, method, scenario, n_slots, counts, label,
+                    **scenario_kw):
+    """Gate one loop run's wrapper counts (``counts``) on what its agent's
+    train gate makes due: gcn_agg 4 and edge_score 1 a decision and a
+    train step for GRLE and GRL, none for DROOE and DROO."""
+    from repro_torch.core import agent_def
+    from repro_torch.mec import MECEnv, make_scenario
+    env = MECEnv(make_scenario(scenario, **scenario_kw), device=dev)
+    adef = agent_def(method, env, device=dev)
+    n = n_slots + due_steps(adef, n_slots)
+    want = ({"gcn_agg": 4 * n, "edge_score": n} if adef.actor == "gcn"
+            else {"gcn_agg": 0, "edge_score": 0})
+    got = {k: counts[k] for k in want}
+    if got != want or any(counts[k] for k in counts if k not in want):
+        raise SystemExit(f"figures {label}: launches {counts}, expected "
+                         f"{want} ({n_slots} decisions, "
+                         f"{n - n_slots} train steps)")
+    return got
+
+
+def finite_row(row, label):
+    """Every number of a figure row finite (curves too); ``ssp`` and
+    ``avg_accuracy`` in [0, 1]."""
+    nums = [v for v in row.values() if isinstance(v, (int, float))
+            and not isinstance(v, bool)]
+    nums += [x for v in row.values() if isinstance(v, list) for x in v]
+    if not all(math.isfinite(x) for x in nums) or any(
+            not 0.0 <= row[k] <= 1.0 for k in ("ssp", "avg_accuracy")
+            if k in row):
+        raise SystemExit(f"figures {label}: row malformed: {row}")
+
+
+def figures_actor_check(dev) -> dict:
+    """Both actor kernels at the figures' new shapes (M=6 and M=10 on
+    fig5_baseline, O=10): the five launches of a decision (B=1) and of
+    the training minibatch (B=64), each wrapper against its plain version
+    (TOL) and each input's gradient against autograd of the plain version
+    (grad_err, phase 21's rule). Returns each kernel's largest error."""
+    from repro_torch.core import agent_def
+    from repro_torch.mec import MECEnv, make_scenario
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {"gcn_agg": 0.0, "edge_score": 0.0}
+    for m in FIG_ACTOR_M:
+        env = MECEnv(make_scenario("fig5_baseline", n_devices=m), device=dev)
+        adef = agent_def("grle", env, device=dev)
+        params = adef.init(gen).params
+        for b in (1, adef.batch_size):
+            for kernel, name, args, fn, plain, _ in actor_cases(env, params,
+                                                                gen, b):
+                err = float((fn(*args) - plain(*args)).abs().max())
+                torch.cuda.synchronize()
+                print(f"  {kernel:10s} {name:14s} M={m} B={b} max_abs_err "
+                      f"{err:.3e}", flush=True)
+                if not err <= TOL:
+                    raise SystemExit(f"figures {kernel} {name} M={m} B={b}: "
+                                     f"max abs error {err} above {TOL}")
+                g = grad_err(dev, kernel, name, args, plain, gen,
+                             f"M={m} B={b}")
+                worst[kernel] = max(worst[kernel], err, g)
+    return worst
+
+
+def figures_phase(dev) -> tuple:
+    """47. The paper's §VI experiments through ``repro_torch.figures`` at
+    M=14 (see the module docstring). Returns (the loop runs' wrapper
+    launches, each actor kernel's largest error)."""
+    from repro_torch.figures import (accuracy_ratios, convergence,
+                                     imperfect_csi, learning, rollout_method,
+                                     vary_capacity, vary_devices,
+                                     vary_inference_time)
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    total = {"gcn_agg": 0, "edge_score": 0}
+    worst = figures_actor_check(dev)
+    print(f"  actor kernels at M={FIG_ACTOR_M}: done at "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # Fig 4: Q̂ against the greedy + local-search oracle, the loss curve
+    for method in convergence.METHODS:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        row = convergence.loop_convergence(method, slots=FIG4_SLOTS,
+                                           device=dev)
+        torch.cuda.synchronize()
+        got = figure_launches(dev, method, "fig5_baseline", FIG4_SLOTS,
+                              ops.launch_counts(), f"fig4 {method}",
+                              n_devices=convergence.N_DEVICES)
+        for k in total:
+            total[k] += got[k]
+        finite_row(row, f"fig4 {method}")
+        loss = row["loss_curve"]
+        print(f"  fig4 {method:6s} M={convergence.N_DEVICES} T={FIG4_SLOTS}: "
+              f"final Q̂(ma) {row['final_moving_Qhat']:.4f} (max "
+              f"{row['max_moving_Qhat']:.4f}), loss {np.mean(loss[:5]):.4f} "
+              f"-> {row['final_loss']:.4f} over {len(loss)} train steps, "
+              f"wall {row['wall_s']:.2f} s, launches {got}", flush=True)
+        if not np.mean(loss[-5:]) < np.mean(loss[:5]):
+            raise SystemExit(f"figures fig4 {method}: the loss does not "
+                             f"fall: {loss}")
+    for method in convergence.METHODS:
+        row = convergence.scan_convergence(method, slots=FIG4_SLOTS,
+                                           n_fleets=FIG4_FLEETS, device=dev)
+        finite_row(row, f"fig4 {row['method']}")
+        loss = row["loss_curve"]
+        print(f"  fig4 {row['method']:14s}: final reward(ma) "
+              f"{row['final_moving_reward']:.4f}, loss "
+              f"{np.mean(loss[:5]):.4f} -> {row['final_loss']:.4f} over "
+              f"{len(loss)} train steps, wall {row['wall_s']:.2f} s "
+              f"(build and capture included)", flush=True)
+        if not np.mean(loss[-5:]) < np.mean(loss[:5]):
+            raise SystemExit(f"figures fig4 {row['method']}: the loss does "
+                             f"not fall: {loss}")
+
+    print(f"  Fig 4: done at {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # Figs 5-8: one column (M=14) of each, the four methods
+    for module in (vary_devices, vary_capacity, vary_inference_time,
+                   imperfect_csi):
+        rows = []
+        for method in METHODS:
+            for tau in module.TAUS_MS:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                row = rollout_method(method, module.SCENARIO,
+                                     n_devices=FIG_M, slot_ms=tau,
+                                     slots=FIG_SLOTS, device=dev)
+                torch.cuda.synchronize()
+                label = f"{module.SCENARIO} {method} tau={tau:g}"
+                got = figure_launches(dev, method, module.SCENARIO,
+                                      FIG_SLOTS, ops.launch_counts(), label,
+                                      n_devices=FIG_M, slot_ms=tau)
+                for k in total:
+                    total[k] += got[k]
+                finite_row(row, label)
+                rows.append(row)
+                print(f"  {label:28s} M={FIG_M}: ssp {row['ssp']:.6f} "
+                      f"avg_accuracy {row['avg_accuracy']:.6f} throughput "
+                      f"{row['throughput_tps']:.2f}/s, wall "
+                      f"{row['wall_s']:.2f} s", flush=True)
+        for other, vals in accuracy_ratios(rows).items():
+            print(f"  {module.SCENARIO}: GRLE/{other.upper()} accuracy "
+                  f"{', '.join(f'{v:.4f}' for v in vals)} (the paper: up to "
+                  f"{PAPER_RATIOS[other]}x; printed, not gated)", flush=True)
+
+    print(f"  Figs 5-8: done at {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the learning check against the reference's M=14 rows
+    with np.load(FIGURES_GOLDEN) as z:
+        if str(z["learn/card/spec"]) != learning.spec_json(
+                learning.CARD_SPEC):
+            raise SystemExit("figures: the golden file's spec is not "
+                             "learning.CARD_SPEC")
+        ref = {k[len("learn/card/"):]: z[k] for k in z.files
+               if k.startswith("learn/card/")}
+    t1 = time.perf_counter()
+    res = learning.learning_check(learning.CARD_SPEC, ref, device=dev)
+    print(f"  learning check: {time.perf_counter() - t1:.2f} s; within "
+          f"{learning.LEARN_SE} standard errors: {res['ok']}; lr "
+          f"{learning.CONTROL_LR:g} control rejected: "
+          f"{res['control_rejected']}", flush=True)
+    if not (res["ok"] and res["control_rejected"]):
+        raise SystemExit("figures: the learning check failed (see its "
+                         "lines above)")
+    print(f"phase 47 launches (loop runs, wrapper counts) {total}; errors "
+          f"{worst}")
+    print(f"phase 47 wall {time.perf_counter() - t0:.2f} s")
+    return total, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6680,6 +6921,11 @@ def main() -> int:
               "against the unsharded runs")
     fleet_counts = fleet_phase(dev)
 
+    phase(47, "the paper's experiments: Fig 4's convergence against the "
+              "greedy oracle, one M=14 column of Figs 5-8, the learning "
+              "check against the reference (python -m repro_torch.figures)")
+    fig_counts, fig_err = figures_phase(dev)
+
     phase(43, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
@@ -6693,8 +6939,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": counts[name] + zoo_serve[name] + vgg_counts[name]
-            + ex_counts[name] + bench_counts[name] + fleet_counts[name],
-            "max_abs_err": max(grad_err, bench_err[name],
+            + ex_counts[name] + bench_counts[name] + fleet_counts[name]
+            + fig_counts[name],
+            "max_abs_err": max(grad_err, bench_err[name], fig_err[name],
                                *(v["err"] for v in stats[name].values())),
             "ms": s["ms"], "plain_ms": s["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
@@ -6767,7 +7014,9 @@ def main() -> int:
           "also those of phase 45's two timed serve-bench windows, and "
           "their error phase 45's at the engines' shapes (M=4 and M=64); "
           "gcn_agg and edge_score also those of phase 46's sharded loop "
-          "episodes, summed over the ranks; "
+          "episodes, summed over the ranks, and those of phase 47's loop "
+          "runs (Fig 4's two, Figs 5-8's twenty; wrapper counts), their "
+          "error also phase 47's at M=6 and M=10; "
           "the zoo's new shapes timed in phase 28, the GQA configs' in "
           "phase 41:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))

@@ -116,11 +116,16 @@ class OffloadingAgent:
 
     # --------------------------------------------------------------- acting
     def act(self, state: MECState, tasks: SlotTasks, *, train: bool = True,
-            sp=None):
-        """Algorithm 1, one slot. Returns (decision [M], info dict)."""
+            sp=None, rand_cands=None, take=None):
+        """Algorithm 1, one slot. Returns (decision [M], info dict). The
+        exploration candidates (``rand_cands`` [K, M]) and, on a train
+        step, the minibatch's replay rows (``take`` [batch_size]) are drawn
+        from the agent's generator unless injected (the reference's
+        draws)."""
         if train:
             self.state, decision, aux = self.adef.step(
-                self.state, state, tasks, generator=self.generator, sp=sp)
+                self.state, state, tasks, generator=self.generator, sp=sp,
+                rand_cands=rand_cands, take=take)
             info = {"q_est": float(aux.q_est),
                     "n_candidates": self.adef.n_candidates}
             loss = float(aux.loss)
@@ -129,7 +134,8 @@ class OffloadingAgent:
                 self.loss_history.append(loss)
             return decision, info
         decision, q_best, _ = self.adef.decide(
-            self.state, state, tasks, generator=self.generator, sp=sp)
+            self.state, state, tasks, generator=self.generator, sp=sp,
+            rand_cands=rand_cands)
         return decision, {"q_est": float(q_best),
                           "n_candidates": self.adef.n_candidates}
 

@@ -78,12 +78,14 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = MESH) -> dict:
     if mesh is not None:
         rec["opts"] = sorted(R.opts())
     if shape.mode == "train":
-        state, _ = S.train_state_struct(cfg, mesh=mesh)
+        state, _, _ = S.train_state_struct(cfg, mesh)
         args = (state, S.batch_struct(cfg, shape, mesh))
     elif shape.mode == "prefill":
-        args = (S.params_struct(cfg, mesh), S.batch_struct(cfg, shape, mesh))
+        args = (S.params_struct(cfg, mesh)[0],
+                S.batch_struct(cfg, shape, mesh))
     else:
-        args = (S.params_struct(cfg, mesh), *S.decode_struct(cfg, shape, mesh))
+        args = (S.params_struct(cfg, mesh)[0],
+                *S.decode_struct(cfg, shape, mesh))
     if mesh is None:
         cost = flops_bytes_model(cfg, shape)
         rec["flops"] = float(cost["flops"])

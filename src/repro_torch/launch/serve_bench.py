@@ -31,17 +31,11 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
-import time
 from typing import Optional, Sequence
-
-import numpy as np
-import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
-from repro_torch.obs.history import default_store, history_manifest
-from repro_torch.obs.log import card_line, run_manifest
+from repro_torch.obs.rows import record_rows, stamp_rows, timed
 from repro_torch.serve import (ContinuousServingEngine, EdgeServingEngine,
                                Replica, make_trace)
 
@@ -57,10 +51,6 @@ DEADLINE_SLACK_S = 600.0
 WARM_SEED, MAIN_SEED = 99, 7
 WARM_SLOTS, MAIN_SLOTS = 4, 4000
 DEFAULT_OUT = "BENCH_torch_serve.json"
-# Row keys that are labels or stamps, not measurements: left out of the
-# metric set a history record carries.
-NON_METRIC_KEYS = ("backend", "n_devices", "git_rev", "torch_version",
-                   "device_name", "power_limit")
 
 
 def quick_shape(quick: bool) -> dict:
@@ -89,22 +79,6 @@ def traces(slot_s: float, *, n_users: int, n_requests: int):
     main = make_trace(n_slots=MAIN_SLOTS, seed=MAIN_SEED,
                       max_requests=n_requests, **kw)
     return warm, main
-
-
-def _sync_device(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def timed(fn, device: torch.device):
-    """Run ``fn`` and return (result, wall seconds) on a monotonic clock
-    that starts after the card has finished earlier work and stops only
-    after ``torch.cuda.synchronize``, so queued device work is counted."""
-    _sync_device(device)
-    t0 = time.perf_counter()
-    out = fn()
-    _sync_device(device)
-    return out, time.perf_counter() - t0
 
 
 def _shifted(trace, t0):
@@ -218,54 +192,6 @@ def bench_rows(sync, cont, main, warm) -> list:
 
 
 # ------------------------------------------------------------- rows out
-def card_stamp(device: torch.device) -> dict:
-    """The card's name and power limit as ``nvidia-smi`` reports them
-    (``obs.log.card_line``); the limit None where it cannot be read.
-    Empty off the card."""
-    if device.type != "cuda":
-        return {}
-    try:
-        line = card_line(device.index if device.index is not None else 0)
-        name, limit = (v.strip() for v in line.split(",", 1))
-    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
-        name, limit = torch.cuda.get_device_name(device), None
-    return {"device_name": name, "power_limit": limit}
-
-
-def stamp_rows(rows, device: torch.device) -> list:
-    """Stamp every row with where it was measured: ``run_manifest``'s git
-    rev, torch version, backend (``cuda``/``cpu``) and device count, and
-    on the card its name and power limit. History comparisons filter on
-    these, so a CPU number never gates a card's trend."""
-    man = run_manifest(backend=device.type)
-    stamp = {k: man[k] for k in ("backend", "n_devices", "git_rev",
-                                 "torch_version")}
-    stamp.update(card_stamp(device))
-    for row in rows:
-        for k, v in stamp.items():
-            row.setdefault(k, v)
-    return rows
-
-
-def record_rows(rows) -> None:
-    """Append one manifest-stamped ``bench`` history record per row to
-    the env-configured store (``REPRO_HISTORY``, default
-    ``results/torch_history``; empty string disables). The record's
-    metrics are every finite numeric row entry except the stamps."""
-    store = default_store()
-    if store is None:
-        return
-    for row in rows:
-        metrics = {k: v for k, v in row.items()
-                   if k not in NON_METRIC_KEYS
-                   and isinstance(v, (int, float))
-                   and not isinstance(v, bool) and np.isfinite(v)}
-        if metrics:
-            store.append("bench", row["name"], metrics,
-                         manifest=history_manifest(backend=row["backend"]),
-                         derived=row["derived"])
-
-
 def merge_bench_rows(path: str, new_rows) -> None:
     """Refresh only the rows whose names ``new_rows`` re-measured, keeping
     every other row of the file; the re-measured rows also append to run

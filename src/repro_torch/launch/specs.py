@@ -12,9 +12,11 @@ shape-only ``launch.mesh.make_production_mesh``) every tensor is one
 device's shard under the reference's partition rules
 (``sharding/partition.py``: ``params_specs``, ``train_state_specs`` and
 ``cache_specs`` give the specs themselves), the per-device shapes of the
-reference's ``NamedSharding`` structs. ``params_struct`` returns the tree
-alone and ``train_state_struct`` the state and the optimizer. The dry run
-(``launch/dryrun.py``) reads its static bytes from them.
+reference's ``NamedSharding`` structs. ``params_struct(cfg, mesh)`` and
+``train_state_struct(cfg, mesh, optimizer)`` take and return what the
+reference's do: ``(struct, specs)`` and ``(state, specs, optimizer)``, the
+specs None without a mesh. The dry run (``launch/dryrun.py``) reads its
+static bytes from them.
 """
 from __future__ import annotations
 
@@ -86,13 +88,16 @@ def params_specs(cfg: ArchConfig, mesh) -> dict:
     return param_pspecs(cfg, _global_params(cfg), mesh)
 
 
-def params_struct(cfg: ArchConfig, mesh=None) -> dict:
-    """The param tree of ``model_for(cfg)`` on the meta device: whole, or
-    one device's shards on ``mesh``."""
+def params_struct(cfg: ArchConfig, mesh=None):
+    """``(struct, specs)``: the param tree of ``model_for(cfg)`` on the meta
+    device and its specs (``params_specs``), as the reference returns them.
+    On ``mesh`` every leaf is one device's shard; with ``mesh=None`` the
+    tree is whole and ``specs`` is None (no mesh, no partition)."""
     params = _global_params(cfg)
     if mesh is None:
-        return params
-    return shard_shapes(params, params_specs(cfg, mesh), mesh)
+        return params, None
+    pspecs = params_specs(cfg, mesh)
+    return shard_shapes(params, pspecs, mesh), pspecs
 
 
 def train_state_specs(cfg: ArchConfig, state, mesh):
@@ -104,17 +109,20 @@ def train_state_specs(cfg: ArchConfig, state, mesh):
     return type(state)(pspecs, opt, PSpec())
 
 
-def train_state_struct(cfg: ArchConfig, optimizer=None, mesh=None):
-    """(TrainState, optimizer) on the meta device: the params, the
-    optimizer's state (``adamw(3e-4)`` by default: step, mu, nu) and the
-    step, as ``train.steps.make_train_state`` builds them; on ``mesh`` one
-    device's shards."""
+def train_state_struct(cfg: ArchConfig, mesh=None, optimizer=None):
+    """``(state, specs, optimizer)``, as the reference returns them: the
+    ``TrainState`` on the meta device (the params, the optimizer's state,
+    ``adamw(3e-4)`` by default: step, mu, nu, and the step, as
+    ``train.steps.make_train_state`` builds them), its specs
+    (``train_state_specs``) and the optimizer. On ``mesh`` every leaf is
+    one device's shard; with ``mesh=None`` the state is whole and ``specs``
+    is None."""
     state, opt = make_train_state(cfg, None, optimizer or adamw(3e-4),
                                   params=_global_params(cfg))
-    if mesh is not None:
-        state = shard_shapes(state, train_state_specs(cfg, state, mesh),
-                             mesh)
-    return state, opt
+    if mesh is None:
+        return state, None, opt
+    tspecs = train_state_specs(cfg, state, mesh)
+    return shard_shapes(state, tspecs, mesh), tspecs, opt
 
 
 def _batched(mesh, shape, dtype):

@@ -62,7 +62,14 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.train, repro_torch.optim.schedules\n"
             "import repro_torch.launch.specs, repro_torch.launch.analysis\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.__main__\n"
-            "import repro_torch.launch.serve_bench\n"
+            "import repro_torch.launch.serve_bench, repro_torch.obs.rows\n"
+            "import repro_torch.figures, repro_torch.figures.__main__\n"
+            "import repro_torch.figures.convergence\n"
+            "import repro_torch.figures.learning\n"
+            "import repro_torch.figures.vary_devices\n"
+            "import repro_torch.figures.vary_capacity\n"
+            "import repro_torch.figures.vary_inference_time\n"
+            "import repro_torch.figures.imperfect_csi\n"
             "import repro_torch.models.lm, repro_torch.nn.initializers\n"
             "import repro_torch.kernels.decode_attention\n"
             "import repro_torch.kernels.flash_attention\n"

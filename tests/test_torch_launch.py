@@ -107,10 +107,11 @@ def test_describe_and_meta_trees_equal_reference(arch, host_mesh):
     cfg, jcfg = get_arch(arch), jax_get_arch(arch)
     assert specs.describe(cfg) == jax_specs.describe(jcfg)
     want, _ = jax_specs.params_struct(jcfg, host_mesh)
-    assert port_leaves(specs.params_struct(cfg)) == jax_leaves(want)
+    params, pspecs = specs.params_struct(cfg)
+    assert port_leaves(params) == jax_leaves(want) and pspecs is None
     want, _, _ = jax_specs.train_state_struct(jcfg, host_mesh)
-    state, _ = specs.train_state_struct(cfg)
-    assert port_leaves(state) == jax_leaves(want)
+    state, tspecs, _ = specs.train_state_struct(cfg)
+    assert port_leaves(state) == jax_leaves(want) and tspecs is None
     for shape in INPUT_SHAPES:
         cfg, jcfg = cfgs(arch, shape)
         s, js = INPUT_SHAPES[shape], JAX_SHAPES[shape]

@@ -35,6 +35,7 @@ from repro_torch.launch import serve_bench
 from repro_torch.launch.__main__ import main as launch_main
 from repro_torch.nn.pytree import flatten_dict
 from repro_torch.obs import HistoryStore
+from repro_torch.obs import rows as obs_rows
 from repro_torch.serve import Replica, ServeRequest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -210,7 +211,7 @@ def test_main_quick_on_cpu_writes_rows_and_leaves_bench_serve(tmp_path,
     assert [r["name"] for r in recs] == ["serve_sync_slots4",
                                          "serve_continuous_slots32"]
     assert recs[1]["metrics"]["queue_depth_p99"] == cont["queue_depth_p99"]
-    assert not set(recs[0]["metrics"]) & set(serve_bench.NON_METRIC_KEYS)
+    assert not set(recs[0]["metrics"]) & set(obs_rows.NON_METRIC_KEYS)
     assert ref_file.read_bytes() == before
     assert sorted(p.name for p in tmp_path.iterdir()) == ["bench.json",
                                                           "hist"]
@@ -227,7 +228,7 @@ def test_card_stamp_reads_nvidia_smi_and_falls_back(monkeypatch):
     """Off the card no stamp; on it the name and limit from
     ``obs.log.card_line``'s query of the card's index; the torch name and
     no limit where ``nvidia-smi`` cannot be run."""
-    assert serve_bench.card_stamp(torch.device("cpu")) == {}
+    assert obs_rows.card_stamp(torch.device("cpu")) == {}
     calls = []
 
     def smi(cmd, **kw):
@@ -236,9 +237,9 @@ def test_card_stamp_reads_nvidia_smi_and_falls_back(monkeypatch):
             cmd, 0, "NVIDIA H100 80GB HBM3, 700.00 W\nCard B, 350.00 W\n")
 
     monkeypatch.setattr(subprocess, "run", smi)
-    assert serve_bench.card_stamp(torch.device("cuda", 1)) == {
+    assert obs_rows.card_stamp(torch.device("cuda", 1)) == {
         "device_name": "Card B", "power_limit": "350.00 W"}
-    assert serve_bench.card_stamp(torch.device("cuda")) == {
+    assert obs_rows.card_stamp(torch.device("cuda")) == {
         "device_name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
     assert calls[0] == ["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"]
@@ -248,7 +249,7 @@ def test_card_stamp_reads_nvidia_smi_and_falls_back(monkeypatch):
 
     monkeypatch.setattr(subprocess, "run", missing)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "a card")
-    assert serve_bench.card_stamp(torch.device("cuda")) == {
+    assert obs_rows.card_stamp(torch.device("cuda")) == {
         "device_name": "a card", "power_limit": None}
 
 

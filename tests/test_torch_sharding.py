@@ -146,7 +146,7 @@ def test_param_specs_equal_the_reference(arch):
     """Every param leaf's spec on the four meshes, and the bytes a device
     holds under it (``shard_shapes``) against the reference's specs'."""
     cfg = get_arch(arch)
-    params = specs.params_struct(cfg)
+    params, _ = specs.params_struct(cfg)
     shapes = jax_params(arch)
     jcfg = jax_get_arch(arch)
     for name, mesh in MESHES.items():
@@ -286,8 +286,8 @@ def test_params_struct_on_a_mesh_is_a_device_shard():
     config's inference params."""
     cfg = get_arch("deepseek_moe_16b")
     mesh = MESHES["single"]
-    whole = flatten_dict(specs.params_struct(cfg))
-    local = flatten_dict(specs.params_struct(cfg, mesh))
+    whole = flatten_dict(specs.params_struct(cfg)[0])
+    local = flatten_dict(specs.params_struct(cfg, mesh)[0])
     spec = flatten_dict(specs.params_specs(cfg, mesh))
     assert local.keys() == whole.keys()
     assert spec["embed/table"] == PSpec("model", "data")
