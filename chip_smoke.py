@@ -7,8 +7,9 @@ full width), its serving engines and their throughput benchmark
 profiler and cost hooks, LM training, the paper's multi-exit VGG-16
 pipeline, the long-context window decode, the one-card dry run, the
 examples, the fleet, member and cell axes over the cards (one rank a
-card) and the paper's §VI experiments on the NVIDIA GPUs of one machine
-and check them.
+card), the paper's §VI experiments, and the LM steps partitioned on
+DTensors with the dry run on the production meshes on the NVIDIA GPUs of
+one machine and check them.
 
     python3 chip_smoke.py
 
@@ -486,12 +487,30 @@ order, each fatal on failure:
    method the mean ``final_loss``, ``ssp`` and ``avg_accuracy`` within 3
    standard errors of the reference's, and the first 4 seeds at learning
    rate 1e-12 rejected on ``final_loss``;
+48. the partitioned step: the torch.distributed tools the dry run needs
+   import (the fake process group, FakeTensorMode, CommDebugMode,
+   MemTracker, implicit_replication, local_map); on a 1x1 ("data",
+   "model") NCCL mesh, params, batch and cache placed by the partition
+   rules as DTensors, with the hand kernels through ``ops``'
+   ``local_map`` (``PART_MODELS``): Llama-3.2-1B at full width, bf16,
+   the prefill (B=4, S=2048), one decode step into a 256-row cache and
+   one AdamW train step (B=8, S=256, phase 35's), and RWKV-6-7B at full
+   width cut to 4 layers, its prefill and a decode step; each equal bit
+   for bit to the unsharded steps (logits, caches, loss, params, mu,
+   nu), launching exactly one flash kernel a layer a prefill, one
+   decode kernel a layer a decode step, two flash kernels a layer a
+   train step (remat) and one scan kernel a layer a RWKV prefill
+   (wrapper counts); then
+   the fake-mesh dry run, run on the host meanwhile since phase 2 (a
+   process without the card): ``dryrun.run_one`` for llama3_2_1b at the
+   four shapes on ``single`` and ``multi``, rwkv6_7b x train_4k and
+   deepseek_moe_16b x prefill_32k on ``single``, each record printed,
+   every one ``ok`` with the partitioned step's keys;
 43. (last) one ``{"zoo_kernel_shapes": [...]}`` line (phase 28's timed shapes),
    one ``{"dense_kernel_shapes": [...]}`` line (phase 41's), one
    ``{"kernels": [...]}`` line (launches of phases 18, 30, 31, 35, 36,
-   38, 39, 41, 42, 45, 46 and 47 and the LM prefills and decodes), the
-   card line
-   again, and last ``{"ok": true, "device": {...}}``.
+   38, 39, 41, 42, 45, 46, 47 and 48 and the LM prefills and decodes),
+   the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no GPU is available.
 """
@@ -6601,6 +6620,428 @@ def figures_phase(dev) -> tuple:
     return total, worst
 
 
+# ------------------------------------------------ the partitioned step
+PART_PREFILL = (4, 2048)          # phase 8's prefill: B, S
+PART_TRAIN = (8, 256)             # phase 35's batch: B, S
+# the host dry run of phase 48: (arch, shape, mesh)
+HOST_DRYRUN = tuple(
+    [("llama3_2_1b", s, m) for s in ("train_4k", "prefill_32k",
+                                     "decode_32k", "long_500k")
+     for m in ("single", "multi")]
+    + [("rwkv6_7b", "train_4k", "single"),
+       ("deepseek_moe_16b", "prefill_32k", "single")])
+PARTITIONED_KEYS = ("flops", "bytes_accessed", "collectives",
+                    "collectives_flat", "output_size_in_bytes",
+                    "temp_size_in_bytes", "argument_size_in_bytes")
+HOST_DRYRUN_CODE = """
+import json, sys, traceback
+from repro_torch.launch import dryrun
+for arch, shape, mesh in json.loads(sys.argv[1]):
+    try:
+        rec = dryrun.run_one(arch, shape, mesh)
+    except Exception:
+        rec = {"arch": arch, "shape": shape, "mesh": mesh, "ok": False,
+               "error": traceback.format_exc()[-2000:]}
+    print(json.dumps(rec), flush=True)
+"""
+
+
+def start_host_dryrun():
+    """Phase 48's dry run, started at once in a process of its own on the
+    host (the card hidden, two threads): it runs the partitioned steps on
+    fake meshes, CPU work beside the phases in between. Its output goes to
+    build/host_dryrun.jsonl; the process is killed when this one exits."""
+    import atexit
+
+    path = os.path.join(ROOT, "build", "host_dryrun.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    out = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", HOST_DRYRUN_CODE, json.dumps(HOST_DRYRUN)],
+        env=env, stdout=out, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    proc.out_path, proc.started = path, time.perf_counter()
+    return proc
+
+
+def finish_host_dryrun(proc, timeout_s: float = 600.0) -> list:
+    """The host dry run's records, once its process ends; fails on a
+    failed process, a missing combination, an ``ok: false`` record or a
+    record without the partitioned step's keys."""
+    try:
+        _, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise SystemExit(f"phase 48: the host dry run did not end within "
+                         f"{timeout_s} s")
+    wall = time.perf_counter() - proc.started
+    with open(proc.out_path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    if proc.returncode or len(recs) != len(HOST_DRYRUN):
+        raise SystemExit(f"phase 48: the host dry run exited "
+                         f"{proc.returncode} with {len(recs)} of "
+                         f"{len(HOST_DRYRUN)} records:\n{err[-3000:]}")
+    for rec in recs:
+        short = {k: rec.get(k) for k in ("arch", "shape", "mesh", "devices",
+                                         "ok", "total_s", "flops",
+                                         "temp_size_in_bytes")}
+        short["collectives"] = {k: v["count"] for k, v in
+                                rec.get("collectives", {}).items()}
+        print("  " + json.dumps(short), flush=True)
+        if not rec.get("ok"):
+            raise SystemExit(f"phase 48: {rec['arch']} x {rec['shape']} x "
+                             f"{rec['mesh']} failed:\n{rec.get('error')}")
+        missing = [k for k in PARTITIONED_KEYS if k not in rec]
+        if missing or rec["collectives"] != rec["collectives_flat"]:
+            raise SystemExit(f"phase 48: {rec['arch']} x {rec['shape']} x "
+                             f"{rec['mesh']}: keys {missing} missing")
+    print(f"  host dry run: {len(recs)} records ok, "
+          f"{sum(r['total_s'] for r in recs):.1f} s of steps (beside phases "
+          f"41 to 47), collected {wall:.1f} s after its start", flush=True)
+    return recs
+
+
+def partitioned_steps(cfg, params, prefill_tokens, train_batch=None,
+                      decode_rows=0, mesh=None):
+    """A prefill, with ``decode_rows`` one decode step (the last prompt
+    token at position 0 into a fresh cache of that many rows) and with
+    ``train_batch`` one AdamW train step, partitioned on ``mesh`` (params,
+    tokens, batch and cache placed by the partition rules) or unsharded
+    (None), each with the kernel launches it made -> {"prefill": (logits,
+    cache), "decode": (logits, cache), "train": (state, metrics),
+    "launches": {part: counts}}, the tensors whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import model_for
+    from repro_torch.nn.pytree import tree_refill, tree_tensors
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import (batch_pspecs, cache_pspecs,
+                                      distribute_tree, param_pspecs)
+    from repro_torch.train.steps import (make_prefill_step, make_serve_step,
+                                         make_train_state, make_train_step)
+
+    def place(tree, specs_fn):
+        return tree if mesh is None else distribute_tree(
+            tree, specs_fn(tree), mesh)
+
+    def whole(tree):
+        return tree_refill(tree, iter([
+            x.full_tensor() if isinstance(x, DTensor) else x
+            for x in tree_tensors(tree)]))
+
+    def run(part, fn, *args):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out["launches"][part] = ops.launch_counts()
+        out[part] = whole(res)
+
+    def batched(tree):
+        return place(tree, lambda t: batch_pspecs(t, mesh))
+
+    out = {"launches": {}}
+    p = place(params, lambda t: param_pspecs(cfg, t, mesh))
+    run("prefill", make_prefill_step(cfg), p,
+        batched({"tokens": prefill_tokens}))
+    if decode_rows:
+        b = prefill_tokens.shape[0]
+        cache = place(model_for(cfg).init_cache(
+            cfg, b, decode_rows, device=prefill_tokens.device),
+            lambda t: cache_pspecs(cfg, t, mesh, decode_rows))
+        step_in = batched({"tokens": prefill_tokens[:, -1],
+                           "pos": torch.zeros_like(prefill_tokens[:, 0])})
+        run("decode", make_serve_step(cfg), p, cache, step_in["tokens"],
+            step_in["pos"])
+    if train_batch is not None:
+        state, opt = make_train_state(cfg, None, adamw(3e-4), params=p)
+        run("train", make_train_step(cfg, opt), state, batched(train_batch))
+    return out
+
+
+# phase 48's models on the 1x1 mesh: (arch, depth or None for the
+# config's, decode rows, train), the kernels each part must launch
+PART_MODELS = (("llama3_2_1b", None, 256, True),
+               ("rwkv6_7b", 4, 256, False))
+
+
+def partitioned_parts(cfg, dev, decode_rows, train) -> tuple:
+    """Phase 48 for one model: its steps unsharded, then on a 1x1 NCCL
+    ("data", "model") mesh; every tensor bit for bit and the launches
+    equal and as expected. Returns (the partitioned launches summed over
+    the parts, a line to print)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.nn.pytree import tree_tensors
+
+    params, prefill_tokens, batch = partitioned_inputs(cfg, dev)
+    args = (cfg, params, prefill_tokens, batch if train else None,
+            decode_rows)
+    t0 = time.perf_counter()
+    want = partitioned_steps(*args)
+    t1 = time.perf_counter()
+    if dist.is_initialized():
+        raise SystemExit("phase 48: a process group is already initialized")
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        got = partitioned_steps(*args, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    t2 = time.perf_counter()
+    kernel = "ssm_scan" if cfg.ssm_kind != "none" else "flash_attention"
+    expect = {"prefill": {kernel: cfg.n_layers},
+              "decode": {} if cfg.ssm_kind != "none"
+              else {"decode_attention": cfg.n_layers},
+              "train": {kernel: (2 if cfg.remat else 1) * cfg.n_layers}}
+    n_tensors = 0
+    for part, counts in got["launches"].items():
+        want_counts = {k: expect[part].get(k, 0) for k in counts}
+        if counts != want["launches"][part] or counts != want_counts:
+            raise SystemExit(f"phase 48 {cfg.arch_id}: the partitioned {part} "
+                             f"launched {counts}; the unsharded one "
+                             f"{want['launches'][part]}; expected "
+                             f"{want_counts}")
+        ws, gs = tree_tensors(want[part]), tree_tensors(got[part])
+        bad = [i for i, (w, g) in enumerate(zip(ws, gs))
+               if not same_bits(w, g)]
+        if len(ws) != len(gs) or bad:
+            raise SystemExit(f"phase 48 {cfg.arch_id}: the partitioned {part} "
+                             f"differs from the unsharded one in {len(bad)} "
+                             f"of {len(ws)} tensors (first {bad[:5]})")
+        if not all(bool(torch.isfinite(x).all()) for x in gs
+                   if x.is_floating_point()):
+            raise SystemExit(f"phase 48 {cfg.arch_id}: the partitioned {part} "
+                             f"is not finite")
+        n_tensors += len(gs)
+    launches = {k: sum(c[k] for c in got["launches"].values())
+                for k in got["launches"]["prefill"]}
+    parts = ", ".join(
+        f"{part} {sum(c.values())} launches" for part, c in
+        got["launches"].items())
+    line = (f"  1x1 NCCL mesh, {cfg.arch_id} ({cfg.n_layers} layers, "
+            f"{cfg.dtype}): prefill {tuple(prefill_tokens.shape)}"
+            + (f", a decode step into {decode_rows} rows" if decode_rows
+               else "")
+            + (f", a train step {tuple(batch['tokens'].shape)} (loss "
+               f"{float(got['train'][1]['loss']):.6f})" if train else "")
+            + f" equal the unsharded steps bit for bit ({n_tensors} "
+            f"tensors); {parts}; wall unsharded {t1 - t0:.2f} s, "
+            f"partitioned {t2 - t1:.2f} s (first DTensor dispatch of each "
+            f"op included)")
+    return launches, line
+
+
+def partitioned_phase(dev, host_dryrun) -> dict:
+    """Phase 48 (see the module docstring). Returns the partitioned
+    steps' wrapper launch counts."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import get_arch
+
+    for mod, name in (
+            ("torch.testing._internal.distributed.fake_pg", "FakeStore"),
+            ("torch._subclasses.fake_tensor", "FakeTensorMode"),
+            ("torch.distributed.tensor.debug", "CommDebugMode"),
+            ("torch.distributed._tools.mem_tracker", "MemTracker"),
+            ("torch.distributed.tensor.experimental",
+             "implicit_replication"),
+            ("torch.distributed.tensor.experimental", "local_map")):
+        getattr(importlib.import_module(mod), name)
+    print(f"  torch {torch.__version__}: FakeStore, FakeTensorMode, "
+          f"CommDebugMode, MemTracker, implicit_replication, local_map "
+          f"import", flush=True)
+    totals = {}
+    for arch, layers, decode_rows, train in PART_MODELS:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers,
+                                      exit_layers=(layers,))
+        launches, line = partitioned_parts(cfg, dev, decode_rows, train)
+        print(line, flush=True)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    finish_host_dryrun(host_dryrun)
+    return totals
+
+
+def partitioned_inputs(cfg, dev):
+    """Phase 48's Llama params (``DecoderLM.init`` from SEED on ``dev``),
+    prefill tokens and train batch."""
+    from repro_torch.models.lm import DecoderLM
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = DecoderLM.init(gen, cfg, device=dev)
+    b, s = PART_PREFILL if cfg.d_model >= 1024 else (4, 64)
+    prefill_tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                   device=dev)
+    b, s = PART_TRAIN if cfg.d_model >= 1024 else (8, 32)
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device=dev)
+    return params, prefill_tokens, {"tokens": toks[:, :-1],
+                                    "labels": toks[:, 1:]}
+
+
+def partitioned_rank(spec: dict) -> dict:
+    """One rank of the multi-card check (``partitioned_multicard``): the
+    phase 48 steps on a ("data", "model") 2x2 mesh over the group's four
+    ranks, each counted by ``launch.analysis.partitioned_cost`` -> the
+    prefill logits and cache, the train step's loss and new params (whole
+    tensors gathered, then ``sample``d), and each step's collectives by
+    kind."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.analysis import partitioned_cost
+    from repro_torch.nn.pytree import flatten_dict, tree_tensors
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import (batch_pspecs, distribute_tree,
+                                      param_pspecs)
+    from repro_torch.train.steps import (make_prefill_step,
+                                         make_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = dist.get_backend() == "nccl"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    mesh = init_device_mesh("cuda" if cuda else "cpu", (2, 2),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_arch("llama3_2_1b", reduced=spec["reduced"])
+    params, prefill_tokens, batch = partitioned_inputs(cfg, dev)
+    params = distribute_tree(params, param_pspecs(cfg, params, mesh), mesh)
+    toks = {"tokens": prefill_tokens}
+    toks = distribute_tree(toks, batch_pspecs(toks, mesh), mesh)
+    batch = distribute_tree(batch, batch_pspecs(batch, mesh), mesh)
+    pre, (logits, cache) = partitioned_cost(make_prefill_step(cfg), params,
+                                            toks)
+    state, opt = make_train_state(cfg, None, adamw(3e-4), params=params)
+    tr, (state, metrics) = partitioned_cost(make_train_step(cfg, opt),
+                                            state, batch)
+
+    def whole(x):
+        return sample(x.full_tensor())
+
+    return {"logits": whole(logits),
+            "cache": [whole(x) for x in tree_tensors(cache)],
+            "loss": float(metrics["loss"].full_tensor()),
+            "params": {k: whole(v)
+                       for k, v in flatten_dict(state.params).items()},
+            "collectives": {"prefill": {k: v["count"] for k, v in
+                                        pre["collectives"].items()},
+                            "train": {k: v["count"] for k, v in
+                                      tr["collectives"].items()}}}
+
+
+MULTICARD_SAMPLE = 65536
+
+
+def sample(x) -> np.ndarray:
+    """``x`` flattened, as float32 numpy: whole up to MULTICARD_SAMPLE
+    entries, else that many evenly spaced (the ranks send their results
+    through pipes; a whole Llama is 5 GB in float32)."""
+    flat = x.detach().reshape(-1)
+    if flat.numel() > MULTICARD_SAMPLE:
+        flat = flat[::flat.numel() // MULTICARD_SAMPLE][:MULTICARD_SAMPLE]
+    return flat.float().cpu().numpy()
+
+
+def partitioned_multicard(device: str = "cuda") -> None:
+    """Phase 48's steps on four ranks, a 2x2 ("data", "model") mesh (NCCL,
+    one rank a card; ``device="cpu"``: gloo processes and the reduced
+    config), against the unsharded steps in this process within bf16's
+    2e-2 relative gate (relative L2 of the logits, each cache leaf and
+    each param after the step, each over ``sample``'s entries; the loss
+    relative); and each collective
+    kind's count of each step on the real mesh equal to the fake 2x2
+    mesh's (``launch.dryrun.partitioned_step`` on the same config and
+    shapes). Prints the cards' name and power limit first."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import partitioned_step
+    from repro_torch.launch.mesh import fake_device_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.nn.pytree import flatten_dict, tree_tensors
+    from repro_torch.sharding.ranks import RankPool
+
+    cuda = device == "cuda"
+    if cuda:
+        print(card_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.cuda.synchronize = lambda *a: None
+    dev = torch.device(device)
+    cfg = get_arch("llama3_2_1b", reduced=not cuda)
+    params, prefill_tokens, batch = partitioned_inputs(cfg, dev)
+    t0 = time.perf_counter()
+    want = partitioned_steps(cfg, params, prefill_tokens, batch)
+    want = {"logits": sample(want["prefill"][0]),
+            "cache": [sample(x) for x in tree_tensors(want["prefill"][1])],
+            "loss": float(want["train"][1]["loss"]),
+            "params": {k: sample(v) for k, v in
+                       flatten_dict(want["train"][0].params).items()}}
+    shapes = {"prefill": ShapeSpec("prefill", prefill_tokens.shape[1],
+                                   prefill_tokens.shape[0], "prefill"),
+              "train": ShapeSpec("train", batch["tokens"].shape[1],
+                                 batch["tokens"].shape[0], "train")}
+    del params, prefill_tokens, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with RankPool(4, backend="nccl" if cuda else "gloo",
+                  init_method=f"tcp://localhost:{free_port()}",
+                  cuda_devices=[0, 1, 2, 3] if cuda else None,
+                  threads=4 if cuda else 1) as pool:
+        ranks = pool.run(partitioned_rank, {"reduced": not cuda})
+    t2 = time.perf_counter()
+    fake = {}
+    with fake_device_mesh((2, 2), ("data", "model")) as mesh:
+        for part, shape in shapes.items():
+            fake[part] = {k: v["count"] for k, v in partitioned_step(
+                cfg, shape, mesh)["collectives"].items()}
+    t3 = time.perf_counter()
+    gate = 2e-2 if cfg.dtype == "bfloat16" else 1e-4
+    for r, got in enumerate(ranks):
+        def err(a, b):
+            return rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+
+        errs = {"logits": err(got["logits"], want["logits"]),
+                "cache": max(err(a, b) for a, b in
+                             zip(got["cache"], want["cache"])),
+                "params": max(err(got["params"][k], v)
+                              for k, v in want["params"].items()),
+                "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"])}
+        print(f"  rank {r}: relative errors against one card "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; collectives {got['collectives']}", flush=True)
+        if max(errs.values()) > gate:
+            raise SystemExit(f"rank {r}: the 2x2 steps differ from the "
+                             f"unsharded ones beyond {gate}: {errs}")
+        if got["collectives"] != fake:
+            raise SystemExit(f"rank {r}: collectives {got['collectives']} "
+                             f"on the real mesh, {fake} on the fake one")
+    print(f"  2x2 {'NCCL' if cuda else 'gloo'} mesh, {cfg.arch_id} "
+          f"{cfg.dtype}: prefill {shapes['prefill'].global_batch}x"
+          f"{shapes['prefill'].seq_len} and one train step "
+          f"{shapes['train'].global_batch}x{shapes['train'].seq_len} within "
+          f"{gate} of one card's; collective counts equal the fake 2x2 "
+          f"mesh's {fake}; walls: unsharded {t1 - t0:.2f} s, four ranks "
+          f"{t2 - t1:.2f} s (start included), fake mesh {t3 - t2:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6638,6 +7079,9 @@ def main() -> int:
                              f"{serialized}); keep every wgmma and its wait "
                              f"out of branches")
     print(f"no wgmma serialized (ptxas warnings {WGMMA_SERIALIZED})")
+    # phase 48's dry run on fake meshes needs only the host: it runs in a
+    # process of its own from here on
+    host_dryrun = start_host_dryrun()
 
     # phase 41 runs here, right after the build, where the allocator is
     # cleanest: Chameleon-34B's weights take 68.6 GB of the card's 80
@@ -6926,6 +7370,14 @@ def main() -> int:
               "check against the reference (python -m repro_torch.figures)")
     fig_counts, fig_err = figures_phase(dev)
 
+    phase(48, "the partitioned steps: Llama-3.2-1B's prefill, decode and "
+              "train step and RWKV-6's prefill and decode on DTensors over "
+              "a 1x1 NCCL mesh against the unsharded steps; the dry run on "
+              "the fake 16x16 and 2x16x16 meshes")
+    t0 = time.perf_counter()
+    part_counts = partitioned_phase(dev, host_dryrun)
+    print(f"phase 48 wall {time.perf_counter() - t0:.2f} s")
+
     phase(43, "summary")
     sources = {"gcn_agg": ("src/repro_torch/csrc/gcn_agg.cu",
                            "src/repro/kernels/gcn_agg.py:40"),
@@ -6963,13 +7415,15 @@ def main() -> int:
                 + ssm_train["flash_attention"]
                 + window["flash_attention"]
                 + dense["launches"]["flash_attention"]
-                + ex_counts["flash_attention"],
+                + ex_counts["flash_attention"]
+                + part_counts["flash_attention"],
                 "decode_attention": decode_launches
                 + zoo_totals["decode_attention"]
                 + zoo_serve["decode_attention"]
                 + window["decode_attention"]
                 + dense["launches"]["decode_attention"]
-                + ex_counts["decode_attention"]}
+                + ex_counts["decode_attention"]
+                + part_counts["decode_attention"]}
     for name, replaces in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:70"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:56")):
@@ -6983,7 +7437,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:93",
         "launches": ssm_launches + zoo_totals["ssm_scan"]
-        + ssm_train["ssm_scan"], **ssm})
+        + ssm_train["ssm_scan"] + part_counts["ssm_scan"], **ssm})
     print("gcn_agg, edge_score: times per slot at B=64, the sum over one "
           "actor forward's launches (4 and 1), launches of the training "
           "path (phase 18: 200 slots' and 20 train steps' forwards), error "
@@ -7016,7 +7470,8 @@ def main() -> int:
           "gcn_agg and edge_score also those of phase 46's sharded loop "
           "episodes, summed over the ranks, and those of phase 47's loop "
           "runs (Fig 4's two, Figs 5-8's twenty; wrapper counts), their "
-          "error also phase 47's at M=6 and M=10; "
+          "error also phase 47's at M=6 and M=10; the three LM kernels also "
+          "those of phase 48's partitioned steps; "
           "the zoo's new shapes timed in phase 28, the GQA configs' in "
           "phase 41:")
     print(json.dumps({"zoo_kernel_shapes": zoo_rows}))

@@ -117,7 +117,15 @@ def bind(name: str, symbol: str, n_ptr: int, n_int: int):
 
 # ------------------------------------------------------------- binding helpers
 def device_of(*tensors: torch.Tensor) -> torch.device:
-    """The one device all ``tensors`` lie on; raises on a mix."""
+    """The one device all ``tensors`` lie on; raises on a mix, and on a
+    DTensor: one reaches a kernel only as its local shard, through
+    ``ops``' ``local_map``."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a DTensor reached a kernel's wrapper: call the "
+                        "kernel through repro_torch.kernels.ops, which runs "
+                        "it on each device's local shard")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")

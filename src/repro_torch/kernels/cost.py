@@ -53,11 +53,22 @@ def flash_cost(q, k, window, causal=True):
     return nbytes, 4 * b * h * d * pairs
 
 
+def flash_bwd_flops(q, k, window, causal=True):
+    """The backward's operations: QK^T recomputed, and dP = dO V^T,
+    dV = P^T dO, dQ = dS K, dK = dS^T Q over the same pairs, 2.5 times the
+    forward's two products."""
+    return 5 * flash_cost(q, k, window, causal)[1] // 2
+
+
 def decode_cost(q, k, lengths):
     """q and the output once, the K/V rows below each length once (the
-    kernel reads no others), the lengths; QK^T and PV over those rows."""
+    kernel reads no others), the lengths; QK^T and PV over those rows.
+    Lengths without data (fake tensors: the dry run) count every row."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
     b, h, d = q.shape
-    rows = int(lengths.clamp(max=k.shape[1]).sum())
+    rows = (b * k.shape[1] if isinstance(lengths, FakeTensor)
+            else int(lengths.clamp(max=k.shape[1]).sum()))
     nbytes = (q.element_size() * (2 * q.numel() + 2 * rows * k.shape[2] * d)
               + 4 * b)
     return nbytes, 4 * h * d * rows
@@ -77,3 +88,9 @@ def ssm_cost(q, v, log_w, u, s0):
               + sum(4 * x.numel() for x in (u, s0) if x is not None))
     per_token = 5 * dk * dv + (3 * dk + 2 * dv if u is not None else 0)
     return nbytes, b * t * h * per_token
+
+
+def ssm_bwd_flops(q, v, log_w, u, s0):
+    """The backward's operations: two products per forward product (the
+    cotangent of each operand), twice the forward's."""
+    return 2 * ssm_cost(q, v, log_w, u, s0)[1]

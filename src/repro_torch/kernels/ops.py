@@ -37,6 +37,23 @@ While a cost counter (``obs.cost``) is active, each call is counted as one
 operation whose FLOPs come from its formula in ``kernels/cost.py``, and
 the PyTorch operations inside it (its plain version's, on the CPU) are not
 counted, so that a program costs the same on the CPU and on the card.
+
+The three LM kernels take DTensors too (the partitioned steps,
+``sharding/partition.py``): ``flash_attention``, ``decode_attention``
+and ``ssm_scan`` given a DTensor run through ``local_map``, one call per
+device on its local shards. The batch stays split over the data axes
+where the query has it split, and the heads go over ``model`` where their
+count divides it; K/V heads that do not divide it (GQA's 8 on a 16-wide
+axis) are gathered whole and each device slices the ones its query heads
+read, and a cache split over its sequence or head_dim is gathered first:
+those collectives are the DTensor redistributions ``local_map`` makes,
+counted as any other. The per-device call is the kernel on the card and
+the plain version on the CPU, as for a plain tensor, and is counted on
+its local shapes. On fake tensors (``FakeTensorMode``, the dry run) a
+call computes nothing: it allocates its outputs (and, in a backward, the
+inputs' gradients) and is costed by its formula (``_ShapeOnly``). The
+gcn_agg and edge_score kernels take no DTensor; a DTensor that reaches a
+CUDA kernel by any other route raises (``_build.device_of``).
 """
 from __future__ import annotations
 
@@ -44,6 +61,9 @@ import functools
 import inspect
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import decode_attention as _decode
@@ -52,6 +72,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gcn_agg as _gcn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.sharding.runtime import heads_parallel
 
 _MODULES = {"gcn_agg": _gcn, "edge_score": _edge,
             "flash_attention": _flash, "decode_attention": _decode,
@@ -84,6 +105,9 @@ def _counted(fn):
 
     @functools.wraps(fn)
     def op(*args, **kwargs):
+        if name in _SHARDED and any(isinstance(x, DTensor) for x in
+                                    (*args, *kwargs.values())):
+            return _SHARDED[name](op, *args, **kwargs)
         if not _COST_COUNTERS:
             return fn(*args, **kwargs)
         bound = sig.bind(*args, **kwargs)
@@ -185,6 +209,159 @@ class _SsmScan(torch.autograd.Function):
                                    needs=ctx.needs_input_grad[:6]), None)
 
 
+class _ShapeOnly(torch.autograd.Function):
+    """A kernel's call on fake tensors: the outputs ``outs`` ((shape,
+    dtype) each) allocated on the inputs' device, nothing computed. Its
+    backward allocates the gradients of the inputs that need one and is
+    counted by the innermost cost counter as one operation of
+    ``bwd_flops``."""
+
+    @staticmethod
+    def forward(ctx, bwd_flops, outs, *inputs):
+        ctx.bwd_flops = bwd_flops
+        ctx.metas = [None if x is None else (x.shape, x.dtype)
+                     for x in inputs]
+        device = next(x.device for x in inputs if x is not None)
+        res = tuple(torch.empty(s, dtype=d, device=device) for s, d in outs)
+        return res if len(res) > 1 else res[0]
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        device = next(g.device for g in cotangents if g is not None)
+
+        def grads(*_):
+            return tuple(
+                torch.empty(m[0], dtype=m[1], device=device)
+                if m is not None and need else None
+                for m, need in zip(ctx.metas, ctx.needs_input_grad[2:]))
+
+        live = [g for g in cotangents if g is not None]
+        out = (_COST_COUNTERS[-1].kernel(ctx.bwd_flops, grads, live, {})
+               if _COST_COUNTERS else grads())
+        return (None, None, *out)
+
+
+def _is_fake(*tensors) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+# ------------------------------------------------------------ on DTensors
+def _model_dim(mesh):
+    names = tuple(mesh.mesh_dim_names or ())
+    return names.index("model") if "model" in names else None
+
+
+def _placements(mesh, like, batch_dim, head_dim, split_heads: bool):
+    """Per mesh dim: ``Shard(head_dim)`` on ``model`` if ``split_heads``;
+    on another axis ``Shard(batch_dim)`` where ``like`` (the query) has
+    its batch split there; else ``Replicate()``."""
+    m = _model_dim(mesh)
+    out = []
+    for i, p in enumerate(like.placements):
+        if i == m:
+            out.append(Shard(head_dim) if split_heads else Replicate())
+        elif isinstance(p, Shard) and p.dim == batch_dim and \
+                batch_dim is not None:
+            out.append(Shard(batch_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _head_split(mesh, h: int, kvh: int):
+    """(query heads split over ``model``, K/V heads split with them, each
+    device slices its K/V heads from the whole set)."""
+    m = _model_dim(mesh)
+    if m is None or h % mesh.size(m):
+        return False, False, False
+    if kvh % mesh.size(m) == 0:
+        return True, True, False
+    hl, g = h // mesh.size(m), h // kvh
+    if hl % g == 0 or g % hl == 0:
+        return True, False, True
+    return False, False, False
+
+
+def _kv_slice(mesh, k, v, h_local: int, group: int):
+    """This device's K/V heads of the whole set: those its ``h_local``
+    query heads (a block of ``model``) read."""
+    lo = mesh.get_local_rank("model") * h_local // group
+    n = max(1, h_local // group)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
+
+def _grad_placements(mesh, pl, partial_on_model: bool):
+    """A sliced input's gradient: partial sums over ``model``."""
+    if not partial_on_model:
+        return pl
+    m = _model_dim(mesh)
+    return tuple(Partial() if i == m else p for i, p in enumerate(pl))
+
+
+def _on_mesh(*xs):
+    """The mesh of the first DTensor among ``xs``, and ``xs`` with every
+    plain tensor as a replicated DTensor on it (a constant the caller
+    built)."""
+    mesh = next(x.device_mesh for x in xs if isinstance(x, DTensor))
+    return mesh, [x if x is None or isinstance(x, DTensor)
+                  else DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                          run_check=False)
+                  for x in xs]
+
+
+def _flash_sharded(op, q, k, v, *, causal: bool = True, window=None):
+    mesh, (q, k, v) = _on_mesh(q, k, v)
+    h, kvh = q.shape[2], k.shape[2]
+    split, kv_split, kv_slice = _head_split(mesh, h, kvh)
+    q_pl = _placements(mesh, q, 0, 2, split)
+    kv_pl = _placements(mesh, q, 0, 2, kv_split)
+
+    def local(q, k, v):
+        if kv_slice:
+            k, v = _kv_slice(mesh, k, v, q.shape[2], h // kvh)
+        return op(q, k, v, causal=causal, window=window)
+
+    kv_grad = _grad_placements(mesh, kv_pl, kv_slice)
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _decode_sharded(op, q, k, v, lengths):
+    mesh, (q, k, v, lengths) = _on_mesh(q, k, v, lengths)
+    h, kvh = q.shape[1], k.shape[2]
+    split, kv_split, kv_slice = _head_split(mesh, h, kvh)
+    q_pl = _placements(mesh, q, 0, 1, split)
+    kv_pl = _placements(mesh, q, 0, 2, kv_split)
+    len_pl = _placements(mesh, q, 0, None, False)
+
+    def local(q, k, v, lengths):
+        if kv_slice:
+            k, v = _kv_slice(mesh, k, v, q.shape[1], h // kvh)
+        return op(q, k, v, lengths)
+
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl, len_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, lengths)
+
+
+def _ssm_sharded(op, q, k, v, log_w, bonus_u=None, *, chunk: int,
+                 initial_state=None):
+    return heads_parallel(
+        lambda q, k, v, log_w, u, s0: op(q, k, v, log_w, u, chunk=chunk,
+                                         initial_state=s0),
+        (q, k, v, log_w, bonus_u, initial_state), (2, 2, 2, 2, 0, 1),
+        (2, 1), (True,) * 4 + (False, True))
+
+
+# name -> the op's call on DTensors, given the op to run on each device
+_SHARDED = {"flash_attention": _flash_sharded,
+            "decode_attention": _decode_sharded,
+            "ssm_scan": _ssm_sharded}
+
+
 @_counted
 def gcn_agg(adj, self_feat, nbr_feat, w_self, w_nbr, bias):
     """Eq-12 message passing: relu(self @ w_self + agg @ w_nbr + bias).
@@ -215,6 +392,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """GQA softmax attention: q [B,S,H,d], k/v [B,S,KVH,d] -> [B,S,H,d],
     keys j <= i (``causal``; all keys without it) with i - j <
     ``window``. Differentiable in q, k and v."""
+    if _is_fake(q, k, v):
+        _flash.check_shapes(q, k, v, window)
+        return _ShapeOnly.apply(
+            _cost.flash_bwd_flops(q, k, window, causal),
+            ((q.shape, q.dtype),), q, k, v)
     if _wants_grad((q, k, v)) and q.device.type == "cuda":
         return _FlashAttention.apply(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
@@ -225,6 +407,9 @@ def decode_attention(q, k, v, lengths):
     """One query token per sequence against a KV cache: q [B,H,d],
     k/v [B,S,KVH,d], keys j < lengths[b] -> [B,H,d]."""
     _forward_only("decode_attention", q, k, v)
+    if _is_fake(q, k, v, lengths):
+        _decode.check_shapes(q, k, v, lengths)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _decode.decode_attention(q, k, v, lengths)
 
 
@@ -237,6 +422,13 @@ def ssm_scan(q, k, v, log_w, bonus_u=None, *, chunk: int,
     Mamba/SSD; ``initial_state`` None starts from zeros. Differentiable in
     every input, with cotangents on y and on the final state."""
     args = (q, k, v, log_w, bonus_u, initial_state)
+    if _is_fake(q, k, v, log_w):
+        _ssm.check_shapes(*args, chunk)
+        b, t, h, dk = q.shape
+        return _ShapeOnly.apply(
+            _cost.ssm_bwd_flops(q, v, log_w, bonus_u, initial_state),
+            (((b, t, h, v.shape[-1]), q.dtype),
+             ((b, h, dk, v.shape[-1]), torch.float32)), *args)
     if _wants_grad([x for x in args if x is not None]):
         return _SsmScan.apply(*args, chunk)
     return _ssm.ssm_scan(q, k, v, log_w, bonus_u, chunk=chunk,

@@ -1,17 +1,219 @@
-"""The analytic FLOPs / HBM-bytes model of every architecture × input
-shape (counterpart of ``repro/launch/analysis.py``).
+"""What one step costs: the analytic FLOPs / HBM-bytes model of every
+architecture × input shape, and the per-device accounting of a
+partitioned step (counterpart of ``repro/launch/analysis.py``).
 
 ``flops_bytes_model`` gives the global FLOPs and HBM bytes of one step of
 the shape's mode, ``_param_count`` the parameter counts it rests on and
 ``_cache_bytes`` the decode cache's bytes; pure arithmetic over
 ``ArchConfig`` and ``ShapeSpec``, the same operations in the same order as
-the reference's, so the numbers are equal. The reference's HLO walkers
-(``parse_computations``, ``collective_bytes_nested``) are not ported: one
-card runs no collectives and there is no HLO to read.
+the reference's, so the numbers are equal.
+
+``partitioned_cost`` is the counterpart of the reference's reading of a
+compiled partitioned program (``cost_analysis``, ``memory_analysis`` and
+the HLO walkers ``parse_collectives``/``collective_bytes_nested``): it
+runs a step on DTensors once and counts, per device,
+
+* ``flops`` and ``bytes_accessed``: ``obs/cost.py``'s rules
+  (``torch.utils.flop_counter``'s formulas, each hand-written kernel by
+  ``kernels/cost.py``, each operation's inputs and outputs) on each
+  device's local operations, which DTensor runs on local shapes;
+* ``collectives``: per kind (all-gather, all-reduce, reduce-scatter,
+  all-to-all, collective-permute) the ``count`` of the functional
+  collectives DTensor issues, their ``bytes`` (the result's bytes on one
+  device, as the reference counts an HLO collective's result type) and
+  ``wire_bytes`` (``bytes`` times the reference's ring factor
+  ``_WIRE_FACTOR``). On a "cpu" mesh (gloo, or the dry run's fake
+  group) DTensor turns a Shard(i) -> Shard(j) all-to-all into an
+  all-gather and a chunk; it is counted as the one all-to-all a NCCL
+  mesh issues, with the all-to-all's result bytes;
+* ``argument_size_in_bytes`` and ``output_size_in_bytes``: the local
+  bytes of the step's arguments and results; ``temp_size_in_bytes``: the
+  peak of the bytes live on the device while the step ran
+  (``torch.distributed._tools.mem_tracker.MemTracker``, which tracks the
+  local tensors under fake tensors too) less the argument bytes.
 """
 from __future__ import annotations
 
+import contextlib
+
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models.config import ArchConfig, ShapeSpec
+from repro_torch.obs.cost import _CostCounter, _nbytes, _on_meta, _tensor_list
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# wire-traffic factor per output byte (ring algorithms, large-n limit), the
+# reference's (repro/launch/dryrun.py)
+_WIRE_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+                "all-to-all": 1.0, "collective-permute": 1.0}
+# functional collective (op name without the overload) -> kind
+_KINDS = {"all_gather_into_tensor": "all-gather",
+          "all_gather_into_tensor_coalesced": "all-gather",
+          "all_gather_into_tensor_out": "all-gather",
+          "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "reduce_scatter_tensor_coalesced": "reduce-scatter",
+          "all_to_all_single": "all-to-all",
+          "shard_dim_alltoall": "all-to-all"}
+_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+
+
+# other collectives of those namespaces, counted under their own names
+_OTHER = ("broadcast", "scatter", "gather", "reduce", "send", "recv",
+          "isend", "irecv", "all_")
+
+
+def collective_kind(func):
+    """The kind of a functional collective op (``_KINDS``), its own name
+    for another collective of those namespaces (``_OTHER``), None for any
+    other op (``wait_tensor``, autograd wrappers, DTensor's helpers)."""
+    if getattr(func, "namespace", None) not in _NAMESPACES:
+        return None
+    name = func._opname
+    if name in _KINDS:
+        return _KINDS[name]
+    return name if name.startswith(_OTHER) else None
+
+
+def _is_wait(func) -> bool:
+    """A functional collective's wait: it moves nothing of its own."""
+    return (getattr(func, "namespace", None) in _NAMESPACES
+            and func._opname == "wait_tensor")
+
+
+class StepCounter(_CostCounter):
+    """``obs.cost``'s counter (which lets DTensor run first and counts its
+    local operations), plus the collectives by kind."""
+
+    def __init__(self):
+        super().__init__()
+        self.collectives = {}
+
+    def count(self, kind: str, out) -> None:
+        rec = self.collectives.setdefault(
+            kind, {"count": 0, "bytes": 0, "wire_bytes": 0.0})
+        nbytes = _nbytes(out)
+        rec["count"] += 1
+        rec["bytes"] += nbytes
+        rec["wire_bytes"] += nbytes * _WIRE_FACTOR.get(kind, 1.0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _is_wait(func):
+            return func(*args, **(kwargs or {}))
+        kind = collective_kind(func)
+        if kind is None:
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        out = func(*args, **(kwargs or {}))
+        if not self._paused and not _on_meta(out):
+            self.count(kind, out)
+            self.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        return out
+
+    def all_to_all(self, run, *args):
+        """DTensor's Shard(i) -> Shard(j) ``run(*args)`` as one
+        all-to-all, whatever the mesh's backend issues for it."""
+        self._paused += 1
+        try:
+            out = run(*args)
+        finally:
+            self._paused -= 1
+        if not self._paused:
+            self.count("all-to-all", out)
+            self.bytes += _nbytes(args[0]) + _nbytes(out)
+        return out
+
+
+@contextlib.contextmanager
+def _all_to_all_as_one(counter):
+    """DTensor's all-to-all helper counted by ``counter`` as one all-to-all
+    (on a "cpu" mesh DTensor issues an all-gather and a chunk for it)."""
+    from torch.distributed.tensor import placement_types
+
+    orig = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = (
+        lambda *a: counter.all_to_all(orig, *a))
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
+@contextlib.contextmanager
+def _propagation_unseen():
+    """DTensor's shape inference out of sight of the dispatch modes: its
+    sharding propagation runs each new operation once on tensors of the
+    global shapes (fake ones under the dry run's fake mode), which no
+    device computes or holds."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    name = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta") if hasattr(prop, n))
+    orig = getattr(prop, name)
+
+    def unseen(*args, **kwargs):
+        with _disable_current_modes():
+            return orig(*args, **kwargs)
+
+    setattr(prop, name, unseen)
+    try:
+        yield
+    finally:
+        delattr(prop, name)
+
+
+def _local_tensors(tree) -> list:
+    """One device's shard of every tensor of ``tree`` (a DTensor's local
+    tensor; a plain tensor whole)."""
+    return [x.to_local() if isinstance(x, DTensor) else x
+            for x in _tensor_list(tree)]
+
+
+def local_nbytes(tree) -> int:
+    return sum(x.nbytes for x in _local_tensors(tree))
+
+
+def partitioned_cost(fn, *args, fake_mode=None):
+    """Run ``fn(*args)`` once (under ``fake_mode``, a ``FakeTensorMode``,
+    if given: the dry run's fake tensors) and count one device's
+    ``flops``, ``bytes_accessed``, ``collectives``,
+    ``argument_size_in_bytes``, ``output_size_in_bytes`` and
+    ``temp_size_in_bytes`` (see the module docstring). Returns (that
+    dict, ``fn``'s result)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.kernels import ops
+
+    counter = StepCounter()
+    tracker = MemTracker()
+    tracker.track_external(*_local_tensors(args))
+    arg_bytes = local_nbytes(args)
+    ops._COST_COUNTERS.append(counter)
+    try:
+        with contextlib.ExitStack() as stack:
+            if fake_mode is not None:
+                stack.enter_context(fake_mode)
+            stack.enter_context(tracker)
+            stack.enter_context(_all_to_all_as_one(counter))
+            stack.enter_context(_propagation_unseen())
+            stack.enter_context(counter)
+            out = fn(*args)
+    finally:
+        ops._COST_COUNTERS.remove(counter)
+    peak = max((snap.get("Total", 0) for dev, snap
+                in tracker.get_tracker_snapshot("peak").items()
+                if dev.type != "meta"), default=0)
+    colls = {k: counter.collectives[k] for k in COLLECTIVES
+             if k in counter.collectives}
+    colls.update({k: v for k, v in counter.collectives.items()
+                  if k not in COLLECTIVES})
+    return {"flops": float(counter.flops),
+            "bytes_accessed": float(counter.bytes),
+            "collectives": colls,
+            "argument_size_in_bytes": int(arg_bytes),
+            "output_size_in_bytes": int(local_nbytes(out)),
+            "temp_size_in_bytes": int(max(peak - arg_bytes, 0))}, out
 
 
 # --------------------------------------------------------------------------

@@ -38,6 +38,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.rope import apply_rope
 from repro_torch.nn import Linear
+from repro_torch.sharding.runtime import (heads_parallel, merge_heads,
+                                          split_heads)
 
 _NEG = -1e30
 _Q_CHUNK = 1024
@@ -52,7 +54,17 @@ def sdpa(q, k, v, q_pos, k_pos, *, scale: float, causal: bool = True,
     q_pos under ``causal`` and q_pos - k_pos < ``window``). Logits and
     softmax in float32 over chunks of ``chunk`` queries (the largest
     divisor of Sq at most ``chunk``, as the reference picks it for
-    Whisper's 1500 frames) -> [B,Sq,H,Dv] in q's dtype."""
+    Whisper's 1500 frames) -> [B,Sq,H,Dv] in q's dtype. On DTensors each
+    device attends its sequences and heads
+    (``sharding.runtime.heads_parallel``)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(x, DTensor) for x in (q, k, v)):
+        return heads_parallel(
+            lambda q, k, v, qp, kp: sdpa(q, k, v, qp, kp, scale=scale,
+                                         causal=causal, window=window,
+                                         chunk=chunk),
+            (q, k, v, q_pos, k_pos), (2, 2, 2, None, None), (2,))
     b, sq, h, dk = q.shape
     kvh = k.shape[2]
     dv = v.shape[-1]
@@ -100,6 +112,47 @@ def ring_rows(rows, window: int):
     return ring
 
 
+def write_rows(cache, value, slot) -> None:
+    """``cache[b, slot[b]] = value[b]`` for every sequence b, in place:
+    cache [B, S, ...], value [B, ...], slot [B].
+
+    On a DTensor cache each device writes its own shard: ``value`` and
+    ``slot`` are redistributed to the cache's batch and inner splits, and
+    where the cache splits its sequence dim (``cache_pspecs``' long-context
+    and ``seqshard_cache`` splits) a device writes only the slots inside
+    its block (the others rewrite the row they hold)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(cache, DTensor):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, slot] = value.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    v_pl, s_pl, seq_axes = [], [], []
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            v_pl.append(Shard(0))
+            s_pl.append(Shard(0))
+            continue
+        v_pl.append(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                    else Replicate())
+        s_pl.append(Replicate())
+        if isinstance(p, Shard) and p.dim == 1:
+            seq_axes.append(i)
+    local = cache.to_local()
+    val = value.redistribute(mesh, v_pl).to_local().to(local.dtype)
+    slot = slot.redistribute(mesh, s_pl).to_local()
+    block = 0
+    for i in seq_axes:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    lo, s_loc = block * local.shape[1], local.shape[1]
+    rows = torch.arange(local.shape[0], device=local.device)
+    at = (slot - lo).clamp(0, s_loc - 1)
+    inside = ((slot >= lo) & (slot < lo + s_loc)).reshape(
+        -1, *([1] * (val.dim() - 1)))
+    local[rows, at] = torch.where(inside, val, local[rows, at])
+
+
 class GQAAttention:
     @staticmethod
     def param_shapes(cfg: ArchConfig) -> dict:
@@ -112,9 +165,12 @@ class GQAAttention:
     @staticmethod
     def _qkv(params, cfg: ArchConfig, x, positions):
         b, s, _ = x.shape
-        q = Linear.apply(params["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = Linear.apply(params["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = Linear.apply(params["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        q = split_heads(Linear.apply(params["wq"], x),
+                        (b, s, cfg.n_heads, cfg.head_dim))
+        k = split_heads(Linear.apply(params["wk"], x),
+                        (b, s, cfg.n_kv_heads, cfg.head_dim))
+        v = split_heads(Linear.apply(params["wv"], x),
+                        (b, s, cfg.n_kv_heads, cfg.head_dim))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
@@ -130,7 +186,7 @@ class GQAAttention:
         positions = torch.arange(s, device=x.device).expand(b, s)
         q, k, v = GQAAttention._qkv(params, cfg, x, positions)
         out = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
-        y = Linear.apply(params["wo"], out.reshape(b, s, -1))
+        y = Linear.apply(params["wo"], merge_heads(out, (b, s, -1)))
         if not want_cache:
             return y
         if cfg.window:
@@ -168,10 +224,9 @@ class GQAAttention:
                 f"at most {cfg.window} rows (init_cache, apply_dense)")
         b = x.shape[0]
         q, k_new, v_new = GQAAttention._qkv(params, cfg, x, pos[:, None])
-        rows = torch.arange(b, device=x.device)
         slot = pos % length
-        cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
+        write_rows(cache.k, k_new[:, 0], slot)
+        write_rows(cache.v, v_new[:, 0], slot)
         lengths = torch.clamp(pos + 1, max=length).to(torch.int32)
         out = ops.decode_attention(q[:, 0], cache.k, cache.v, lengths)
         y = Linear.apply(params["wo"], out.reshape(b, 1, -1))
@@ -212,7 +267,8 @@ class MLAAttention:
     def _queries(params, cfg: ArchConfig, x, positions):
         b, s, _ = x.shape
         dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
-        q = Linear.apply(params["wq"], x).reshape(b, s, cfg.n_heads, dn + dr)
+        q = split_heads(Linear.apply(params["wq"], x),
+                        (b, s, cfg.n_heads, dn + dr))
         return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
     @staticmethod
@@ -234,7 +290,7 @@ class MLAAttention:
         out = sdpa(q, k, v, positions, positions,
                    scale=MLAAttention._scale(cfg), causal=True,
                    window=cfg.window)
-        y = Linear.apply(params["wo"], out.reshape(b, s, -1))
+        y = Linear.apply(params["wo"], merge_heads(out, (b, s, -1)))
         return (y, MLACache(c_kv, k_pe)) if want_cache else y
 
     @staticmethod
@@ -260,10 +316,9 @@ class MLAAttention:
         q_nope, q_pe = MLAAttention._queries(params, cfg, x, pos[:, None])
         c_new, kpe_new = MLAAttention._latents(params, cfg, x, pos[:, None])
         s_len = cache.c_kv.shape[1]
-        rows = torch.arange(b, device=x.device)
         slot = pos.clamp(max=s_len - 1)
-        cache.c_kv[rows, slot] = c_new[:, 0].to(cache.c_kv.dtype)
-        cache.k_pe[rows, slot] = kpe_new[:, 0].to(cache.k_pe.dtype)
+        write_rows(cache.c_kv, c_new[:, 0], slot)
+        write_rows(cache.k_pe, kpe_new[:, 0], slot)
         # absorb W_uk into the query: q_c [B,1,H,r]
         q_c = torch.einsum("bqhd,rhd->bqhr", q_nope, params["w_uk"])
         c_f = cache.c_kv.float()
@@ -300,11 +355,12 @@ class CrossAttention:
         b, sq, _ = x.shape
         se = enc_out.shape[1]
         hd = cfg.head_dim
-        q = Linear.apply(params["wq"], x).reshape(b, sq, cfg.n_heads, hd)
-        k = Linear.apply(params["wk"], enc_out).reshape(b, se, cfg.n_kv_heads,
-                                                         hd)
-        v = Linear.apply(params["wv"], enc_out).reshape(b, se, cfg.n_kv_heads,
-                                                         hd)
+        q = split_heads(Linear.apply(params["wq"], x),
+                        (b, sq, cfg.n_heads, hd))
+        k = split_heads(Linear.apply(params["wk"], enc_out),
+                        (b, se, cfg.n_kv_heads, hd))
+        v = split_heads(Linear.apply(params["wv"], enc_out),
+                        (b, se, cfg.n_kv_heads, hd))
         if sq == 1:
             lengths = torch.full((b,), se, dtype=torch.int32, device=x.device)
             out = ops.decode_attention(q[:, 0], k, v, lengths)[:, None]
@@ -313,4 +369,4 @@ class CrossAttention:
             k_pos = torch.arange(se, device=x.device).expand(b, se)
             out = sdpa(q, k, v, q_pos, k_pos, scale=1.0 / math.sqrt(hd),
                        causal=False)
-        return Linear.apply(params["wo"], out.reshape(b, sq, -1))
+        return Linear.apply(params["wo"], merge_heads(out, (b, sq, -1)))

@@ -35,6 +35,8 @@ from repro_torch.models.ffn import DenseFFN, MoEFFN
 from repro_torch.models.ssm import (Mamba2Block, MambaState, RWKV6Block,
                                     RWKVState)
 from repro_torch.nn import Linear, RMSNorm
+from repro_torch.sharding.runtime import constrain_activations as _sp
+from repro_torch.sharding.runtime import merge_heads
 
 
 class BlockAux(NamedTuple):
@@ -94,10 +96,10 @@ class AttnBlock:
         cache = None
         if want_cache:
             y, cache = y
-        x = x + y
+        x = x + _sp(y)
         h = RMSNorm.apply(params["ln2"], x, eps=cfg.norm_eps)
         y, aux = _ffn_apply(params["ffn"], cfg, h)
-        return x + y, cache, aux
+        return x + _sp(y), cache, aux
 
     @staticmethod
     def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device,
@@ -143,9 +145,9 @@ class RWKVBlockWrap:
         """x [B,S,d] -> (x, RWKVState after the S tokens or None, aux)."""
         h = RMSNorm.apply(params["ln1"], x, eps=cfg.norm_eps)
         y, wkv, last_tm = RWKV6Block.apply_dense(params["core"], cfg, h)
-        x = x + y
+        x = x + _sp(y)
         h2 = RMSNorm.apply(params["ln2"], x, eps=cfg.norm_eps)
-        x = x + RWKV6Block.channel_mix(params["core"], h2)
+        x = x + _sp(RWKV6Block.channel_mix(params["core"], h2))
         cache = RWKVState(wkv, last_tm, h2[:, -1]) if want_cache else None
         return x, cache, ZERO_AUX
 
@@ -272,7 +274,8 @@ class EncoderBlock:
         pos = torch.arange(s, device=x.device).expand(b, s)
         q, k, v = GQAAttention._qkv(params["attn"], cfg, h, pos)
         out = ops.flash_attention(q, k, v, causal=False)
-        x = x + Linear.apply(params["attn"]["wo"], out.reshape(b, s, -1))
+        x = x + Linear.apply(params["attn"]["wo"],
+                             merge_heads(out, (b, s, -1)))
         h = RMSNorm.apply(params["ln2"], x, eps=cfg.norm_eps)
         return x + DenseFFN.apply(params["ffn"], h)
 

@@ -37,6 +37,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.nn import Embedding, Linear, RMSNorm
 from repro_torch.nn.initializers import (normal_init, ones_init,
                                          xavier_uniform, zeros_init)
+from repro_torch.sharding.runtime import constrain_activations
 
 
 # ------------------------------------------------------------- layer schedule
@@ -289,6 +290,7 @@ class DecoderLM:
                 for i in range(ev[1], ev[2]):
                     x, a = _train_layer(block.apply_dense,
                                         _layer(params["blocks"], i), cfg, x)
+                    x = constrain_activations(x)
                     aux = add_aux(aux, a)
             elif ev[0] == "shared":
                 x, _, a = AttnBlock.apply_dense(params["shared_block"], cfg,
@@ -349,6 +351,7 @@ class DecoderLM:
             for i in range(ev[1], ev[2]):
                 x, c, a = block.apply_dense(_layer(params["blocks"], i), cfg,
                                             x, want_cache=True)
+                x = constrain_activations(x)
                 caches.append(c)
                 aux = add_aux(aux, a)
         h = RMSNorm.apply(params["final_norm"], x, eps=cfg.norm_eps)

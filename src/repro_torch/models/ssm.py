@@ -31,6 +31,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn import Linear, RMSNorm
+from repro_torch.nn.layers import matmul
+from repro_torch.sharding.runtime import (heads_parallel, merge_heads,
+                                          split_heads)
 
 
 def chunked_linear_attn(q, k, v, log_w, *, chunk: int, bonus_u=None,
@@ -48,10 +51,17 @@ def chunked_linear_attn(q, k, v, log_w, *, chunk: int, bonus_u=None,
 
 def linear_attn_step(q, k, v, log_w, state, *, bonus_u=None):
     """Single decode step. q, k [B,H,dk], v [B,H,dv], state [B,H,dk,dv]
-    float32 -> (y [B,H,dv] in q's dtype, new state)."""
-    y, state = ref.ssm_step_ref(q, k, v, torch.exp(log_w.float()), state,
-                                bonus_u=bonus_u)
-    return y.to(q.dtype), state
+    float32 -> (y [B,H,dv] in q's dtype, new state). On DTensors each
+    device steps its heads (``sharding.runtime.heads_parallel``)."""
+
+    def step(q, k, v, log_w, state, bonus_u):
+        y, state = ref.ssm_step_ref(q, k, v, torch.exp(log_w.float()), state,
+                                    bonus_u=bonus_u)
+        return y.to(q.dtype), state
+
+    return heads_parallel(step, (q, k, v, log_w, state, bonus_u),
+                          (1, 1, 1, 1, 1, 0), (1, 1),
+                          (True,) * 5 + (False,))
 
 
 def naive_linear_attn(q, k, v, log_w, *, bonus_u=None, initial_state=None):
@@ -103,9 +113,9 @@ class RWKV6Block:
     def _mix_inputs(params, x, x_prev):
         """Data-dependent lerp between x_t and x_{t-1} for the 5 streams."""
         delta = x_prev - x
-        lora = torch.tanh((x + 0.5 * delta) @ params["lora_a"]) \
-            @ params["lora_b"]
-        lora = lora.reshape(*x.shape[:-1], 5, x.shape[-1])
+        lora = matmul(torch.tanh(matmul(x + 0.5 * delta, params["lora_a"])),
+                      params["lora_b"])
+        lora = split_heads(lora, (*x.shape[:-1], 5, x.shape[-1]))
         mix = torch.sigmoid(params["mix"] + lora)                # [..., 5, d]
         return x[..., None, :] + delta[..., None, :] * mix
 
@@ -114,15 +124,15 @@ class RWKV6Block:
         d, hd = cfg.d_model, cfg.ssm_head_dim
         xr, xk, xv, xw, xg = (streams[..., i, :] for i in range(5))
         sh = (*xr.shape[:-1], d // hd, hd)
-        r = Linear.apply(params["wr"], xr).reshape(sh)
-        k = Linear.apply(params["wk"], xk).reshape(sh)
-        v = Linear.apply(params["wv"], xv).reshape(sh)
+        r = split_heads(Linear.apply(params["wr"], xr), sh)
+        k = split_heads(Linear.apply(params["wk"], xk), sh)
+        v = split_heads(Linear.apply(params["wv"], xv), sh)
         g = F.silu(Linear.apply(params["wg"], xg))
         # data-dependent decay: w = exp(-exp(w0 + lora_w)) in (0, 1)
         logw = -torch.exp(params["w0"].float() + xw.float() * 0.0
-                          + (torch.tanh(xw @ params["lora_a"])
-                             @ params["lora_b"][:, :d]).float())
-        return r, k, v, g, logw.reshape(sh)
+                          + matmul(torch.tanh(matmul(xw, params["lora_a"])),
+                                   params["lora_b"][:, :d]).float())
+        return r, k, v, g, split_heads(logw, sh)
 
     @staticmethod
     def init_state(cfg: ArchConfig, batch: int, *, device,
@@ -148,7 +158,7 @@ class RWKV6Block:
         s0 = None if state is None else state.wkv
         y, s = chunked_linear_attn(r, k, v, logw, chunk=cfg.ssm_chunk,
                                    bonus_u=params["bonus_u"], initial_state=s0)
-        y = RMSNorm.apply(params["ln_x"], y.reshape(b, t, d)) * g
+        y = RMSNorm.apply(params["ln_x"], merge_heads(y, (b, t, d))) * g
         return Linear.apply(params["wo"], y), s, x[:, -1]
 
     @staticmethod
@@ -270,7 +280,7 @@ class Mamba2Block:
         dt = F.softplus(dt.float() + params["dt_bias"])           # [B,T,H]
         a = -torch.exp(params["a_log"])                           # [H] < 0
         log_w = (dt * a)[..., None].expand(b, t, h, n).contiguous()
-        xh = x.reshape(b, t, h, cfg.ssm_head_dim)
+        xh = split_heads(x, (b, t, h, cfg.ssm_head_dim))
         v = xh * dt[..., None].to(xh.dtype)                       # dt x
         k = bmat[:, :, None, :].expand(b, t, h, n)
         q = cmat[:, :, None, :].expand(b, t, h, n)
@@ -305,7 +315,7 @@ class Mamba2Block:
         y, ssd = chunked_linear_attn(
             q, k, v, log_w, chunk=cfg.ssm_chunk,
             initial_state=None if state is None else state.ssd)
-        y = y.reshape(b, t, Mamba2Block.dims(cfg)[0])
+        y = merge_heads(y, (b, t, Mamba2Block.dims(cfg)[0]))
         return Mamba2Block._out(params, y, z), MambaState(ssd, conv)
 
     @staticmethod

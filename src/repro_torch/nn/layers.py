@@ -12,6 +12,7 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.nn.initializers import (he_normal, ones_init,
                                          xavier_uniform, zeros_init)
@@ -31,10 +32,35 @@ class Linear:
 
     @staticmethod
     def apply(params, x):
+        if x.dim() > 2 and isinstance(x, DTensor):
+            return Linear._apply_sharded(params, x)
         y = x @ params["w"]
         if "b" in params:
             y = y + params["b"]
         return y
+
+
+    @staticmethod
+    def _apply_sharded(params, x):
+        y = matmul(x, params["w"])
+        if "b" in params:
+            y = y + params["b"]
+        return y
+
+
+def matmul(x, w):
+    """``x @ w``, x [..., K], w [K, N]. On a DTensor x of more than two
+    dims, x's inner leading dims, and the gradient of the result's, are
+    gathered where split (``sharding.runtime.flat_rows``) before the
+    matmul flattens them into rows."""
+    if x.dim() <= 2 or not isinstance(x, DTensor):
+        return x @ w
+    from repro_torch.sharding.runtime import flat_rows
+
+    y = flat_rows(x) @ w
+    if y.requires_grad:
+        y.register_hook(flat_rows)
+    return y
 
 
 class Embedding:
@@ -42,6 +68,9 @@ class Embedding:
 
     @staticmethod
     def apply(params, ids):
+        if isinstance(params["table"], DTensor):
+            from repro_torch.sharding.runtime import lookup
+            return lookup(params["table"], ids)
         return params["table"][ids]
 
 

@@ -13,12 +13,17 @@ operation it dispatches and adds up:
   version's, on the CPU) not counted. So a program's FLOPs are the same on
   the CPU and on the card: they do not depend on what implements a kernel;
 * ``bytes_accessed``: the unfused traffic, each dispatched operation's
-  input tensors' bytes plus its outputs' (views excluded: they move
-  nothing), with each hand-written kernel counted as one operation;
+  input tensors' bytes plus its outputs' (views and ``prim`` metadata
+  queries excluded: they move nothing), with each hand-written kernel
+  counted as one operation;
 * ``argument_bytes``/``output_bytes``: the sizes of the program's argument
   and result tensors; ``temp_bytes``: the peak memory allocated on the card
   while it ran, above what was allocated before (None on the CPU);
   ``generated_code_bytes``: None (nothing is compiled).
+
+On a program of DTensors (a partitioned step) every count is one
+device's: DTensor runs each operation on the local shards, and the
+counter sees those operations, not the global ones.
 
 The program must run eagerly: a CUDA-graph replay dispatches nothing, so
 the builders drive their programs with ``mode="loop"``. The three builders
@@ -37,6 +42,7 @@ device type too; ``use_pallas=`` of the reference becomes ``device=``
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -59,6 +65,13 @@ def _nbytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in _tensor_list(tree))
 
 
+def _on_meta(tree) -> bool:
+    """A result on the meta device: shape inference (DTensor's sharding
+    propagation runs each new operation once on meta tensors of the
+    global shapes), which moves and computes nothing."""
+    return any(x.device.type == "meta" for x in _tensor_list(tree))
+
+
 class _CostCounter(TorchDispatchMode):
     """Counts every dispatched operation's FLOPs and bytes; while a
     hand-written kernel runs (``kernel``), only the kernel is counted."""
@@ -70,9 +83,14 @@ class _CostCounter(TorchDispatchMode):
         self._paused = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor run first: its local operations and the
+            # collectives it issues come back here, on each device's shapes
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self._paused and not getattr(func, "is_view", False):
+        if not self._paused and not getattr(func, "is_view", False) \
+                and func.namespace != "prim" and not _on_meta(out):
             count = flop_registry.get(func.overloadpacket)
             if count is not None:
                 self.flops += int(count(*args, **kwargs, out_val=out))

@@ -20,9 +20,14 @@ The rules read a mesh's axis names and sizes only, so they take a
 ``to_placements`` turns a spec into DTensor placements on a
 ``DeviceMesh`` (``Shard(d)`` / ``Replicate()`` per mesh dim),
 ``distribute_tree`` places a tree of tensors under its specs (the
-reference's ``make_named_sharding`` + ``device_put``), and
-``shard_shapes`` gives each device's local shapes on the meta device (the
-reference's ``shard_tree_specs``).
+reference's ``make_named_sharding`` + ``device_put``), ``batch_pspecs``
+gives a step's batch (and decode tokens and positions) their batch split
+(the caches' specs are ``cache_pspecs``), ``shard_shapes`` gives each
+device's local shapes on the meta device (the reference's
+``shard_tree_specs``), and ``fake_tree`` places a tree of meta tensors as
+DTensors whose local shards are fake tensors of those shapes (the dry
+run's route: no full tensor is ever made, so a 236B config costs what a
+0.5B one does).
 """
 from __future__ import annotations
 
@@ -143,6 +148,16 @@ def _batch_axes(mesh, dim: int):
         if names and dim % _axis_size(sizes, names) == 0:
             return names if len(names) > 1 else names[0]
     return None
+
+
+def batch_pspecs(tree, mesh):
+    """A spec for every leaf of a tree of batch-leading tensors (a step's
+    batch; decode's tokens and positions): the leading dim over the best
+    data-parallel split that divides it (``_batch_axes``), the rest
+    whole."""
+    return tree_refill(tree, iter([
+        PSpec(_batch_axes(mesh, x.shape[0]), *([None] * (x.dim() - 1)))
+        for x in tree_tensors(tree)]))
 
 
 def cache_pspecs(cfg: ArchConfig, cache_shape: dict, mesh,
@@ -284,3 +299,25 @@ def shard_shapes(tree, specs, mesh):
     return tree_refill(tree, iter([
         torch.empty(local_shape(x.shape, s, mesh), dtype=x.dtype,
                     device="meta") for x, s in _pairs(tree, specs)]))
+
+
+def fake_tree(tree, specs, device_mesh, fake_mode):
+    """``tree`` (tensors whose shapes and dtypes count, on any device: the
+    meta device's do) as DTensors on ``device_mesh`` under ``specs``, each
+    local shard a tensor of ``fake_mode`` (a ``FakeTensorMode``) of this
+    device's shape on the mesh's device type. Nothing is allocated."""
+    from torch.distributed.tensor import DTensor
+
+    def place(x, spec):
+        shape = local_shape(x.shape, spec, device_mesh)
+        with fake_mode:
+            local = torch.empty(shape, dtype=x.dtype,
+                                device=device_mesh.device_type)
+        return DTensor.from_local(local, device_mesh,
+                                  to_placements(spec, device_mesh),
+                                  run_check=False, shape=x.shape,
+                                  stride=torch.empty(
+                                      x.shape, device="meta").stride())
+
+    return tree_refill(tree, iter([place(x, s)
+                                   for x, s in _pairs(tree, specs)]))

@@ -15,12 +15,24 @@ is a plain function (no ``jit``).
 * ``make_prefill_step``: full-sequence forward that fills the cache.
 
 The prefill and serve steps run under ``torch.no_grad()``.
+
+Each step also runs partitioned: given params (and batch, cache) as
+DTensors placed under the partition rules (``sharding/partition.py``),
+every operation runs on DTensors, DTensor's sharding propagation issuing
+the collectives, and the kernels run per device through ``ops``'
+``local_map``. The constants a model builds itself (rope tables,
+positions, masks, the CE chunks' labels) enter as replicated
+(``partitioned``: ``implicit_replication`` at the step's entry). On plain
+tensors nothing changes.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
@@ -29,8 +41,20 @@ from repro_torch.nn import Linear
 from repro_torch.nn.pytree import flatten_dict, unflatten_dict
 from repro_torch.optim import adamw
 from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.sharding.runtime import take_last
 
 EXIT_WEIGHT = 0.3   # weight of non-final exits in the training loss
+
+
+def partitioned(*trees):
+    """``implicit_replication()`` if any leaf of ``trees`` is a DTensor
+    (a partitioned step: the tensors the step builds itself enter as
+    replicated), else a context that does nothing."""
+    from repro_torch.nn.pytree import tree_tensors
+
+    if any(isinstance(x, DTensor) for t in trees for x in tree_tensors(t)):
+        return implicit_replication()
+    return contextlib.nullcontext()
 
 
 class TrainState(NamedTuple):
@@ -57,7 +81,7 @@ def make_train_state(cfg: ArchConfig, generator: torch.Generator,
 def _chunk_ce(head_params, h, lab):
     logits = Linear.apply(head_params, h).float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    gold = take_last(logits, lab)
     return torch.sum(logz - gold)
 
 
@@ -137,6 +161,10 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *,
     mark = on_part or (lambda _: None)
 
     def train_step(state: TrainState, batch):
+        with partitioned(state.params, batch):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         flat = {k: v.detach().requires_grad_() for k, v
                 in flatten_dict(state.params).items()}
         with torch.enable_grad():
@@ -165,8 +193,9 @@ def make_serve_step(cfg: ArchConfig, *, exit_layer: Optional[int] = None):
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.serve_step(params, cfg, tokens, cache, pos,
-                                exit_layer=exit_layer)
+        with partitioned(params, cache):
+            return model.serve_step(params, cfg, tokens, cache, pos,
+                                    exit_layer=exit_layer)
 
     return serve_step
 
@@ -182,6 +211,10 @@ def make_prefill_step(cfg: ArchConfig):
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        with partitioned(params, batch):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
         if model is EncDecLM:
             enc_out = EncDecLM.encode(params, cfg, batch["audio"])
             hiddens, _ = EncDecLM._decode_dense(params["decoder"], cfg,

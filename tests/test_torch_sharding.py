@@ -238,8 +238,9 @@ def test_dryrun_mesh_records(arch, shape, tmp_path, capsys, monkeypatch):
     """``dryrun --mesh both``: a ``single`` (256 devices) and a ``multi``
     (512) record, with the toggles in force and the per-device argument
     bytes: the reference's specs' bytes of the same arguments (params,
-    optimizer state for train, batch, cache, tokens and positions), and no
-    key that only a compiled XLA program gives."""
+    optimizer state for train, batch, cache, tokens and positions), and
+    the partitioned step's per-device counts (tests/
+    test_torch_dryrun_mesh.py holds them)."""
     monkeypatch.setenv("REPRO_OPT", "no_remat")
     out = tmp_path / "d.jsonl"
     dryrun.main(["--one", arch, shape, "--mesh", "both", "--out", str(out)])
@@ -250,7 +251,10 @@ def test_dryrun_mesh_records(arch, shape, tmp_path, capsys, monkeypatch):
     jcfg = jax_specs.arch_for_shape(jax_get_arch(arch), JAX_SHAPES[shape])
     for rec, mesh in zip(recs, (MESHES["single"], MESHES["multi"])):
         assert set(rec) == {"arch", "shape", "mesh", "devices", "opts",
-                            "argument_size_in_bytes", "ok", "total_s"}
+                            "argument_size_in_bytes", "ok", "total_s",
+                            "flops", "bytes_accessed", "collectives",
+                            "collectives_flat", "output_size_in_bytes",
+                            "temp_size_in_bytes"}
         assert rec["opts"] == ["no_remat"] and rec["ok"]
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         rm = ref_mesh(mesh)

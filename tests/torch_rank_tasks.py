@@ -330,3 +330,155 @@ def distribute_llama(spec: dict) -> dict:
                      tuple(specs_entry for specs_entry
                            in flatten_dict(specs)[path]))
     return out
+
+
+# ------------------------------------------------- the partitioned LM step
+def _lm_mesh(sharded: bool):
+    """("data", "model") 2x2 over the group's four ranks, or None."""
+    if not sharded:
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+
+def _placed(tree, specs_fn, mesh):
+    from repro_torch.sharding import distribute_tree
+    return tree if mesh is None else distribute_tree(tree, specs_fn(tree),
+                                                     mesh)
+
+
+def _full(tree) -> list:
+    """Every tensor of a tree as a numpy array, DTensors gathered whole."""
+    from torch.distributed.tensor import DTensor
+    return [(x.full_tensor() if isinstance(x, DTensor) else x)
+            .detach().cpu().numpy() for x in tree_tensors(tree)]
+
+
+def partitioned_lm(spec: dict, sharded: bool = True) -> dict:
+    """A reduced LM's prefill, one decode step after it and AdamW train
+    steps, partitioned on the 2x2 mesh (params under ``param_pspecs``,
+    batches, tokens and positions under ``batch_pspecs``, the cache under
+    ``cache_pspecs``) or unsharded (``sharded=False``). ``spec``: arch,
+    overrides (of ``reduced``), seed (``lm_params_numpy``), batches
+    (numpy tokens / labels [B, S]; the prefill reads the first's tokens),
+    next (the decode step's tokens [B]), schedule (lr, warm-up, decay
+    steps), weight_decay, seq_parallel. Returns numpy arrays: the prefill
+    logits and cache, the decode logits and cache, the gradients at the
+    initial params on the first batch (by path), each step's metrics and
+    the params, mu and nu after the last step (by path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bridge import lm_params_from_numpy, lm_params_numpy
+    from repro_torch.models.lm import model_for
+    from repro_torch.nn.pytree import flatten_dict, unflatten_dict
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.sharding import (batch_pspecs, cache_pspecs,
+                                      param_pspecs)
+    from repro_torch.sharding import runtime as R
+    from repro_torch.train.steps import (make_loss_fn, make_prefill_step,
+                                         make_serve_step, make_train_state,
+                                         make_train_step, partitioned)
+
+    cfg = dataclasses.replace(get_arch(spec["arch"], reduced=True),
+                              **spec.get("overrides", {}))
+    mesh = _lm_mesh(sharded)
+    if mesh is not None and spec.get("seq_parallel"):
+        R.set_activation_spec(R.default_seq_parallel_spec(mesh))
+
+    def batch(tree):
+        tree = {k: torch.tensor(v).long() for k, v in tree.items()}
+        return _placed(tree, lambda t: batch_pspecs(t, mesh), mesh)
+
+    try:
+        params = lm_params_from_numpy(lm_params_numpy(cfg, spec["seed"]),
+                                      cfg, device="cpu")
+        params = _placed(params, lambda t: param_pspecs(cfg, t, mesh), mesh)
+        first = spec["batches"][0]
+        b, s = first["tokens"].shape
+        out = {}
+        logits, cache = make_prefill_step(cfg)(
+            params, batch({"tokens": first["tokens"]}))
+        out["prefill_logits"] = _full(logits)[0]
+        out["prefill_cache"] = _full(cache)
+        # one decode step at position S, into the prefill cache grown by a
+        # row (the recurrent states as they are)
+        grown = model_for(cfg).init_cache(cfg, b, s + 1, device="cpu")
+        for new, old in zip(tree_tensors(grown), out["prefill_cache"]):
+            new[tuple(slice(0, n) for n in old.shape)] = torch.tensor(old)
+        grown = _placed(grown, lambda t: cache_pspecs(cfg, t, mesh, s + 1),
+                        mesh)
+        step_in = batch({"tokens": spec["next"], "pos": np.full((b,), s)})
+        logits, grown = make_serve_step(cfg)(params, grown,
+                                             step_in["tokens"],
+                                             step_in["pos"])
+        out["decode_logits"] = _full(logits)[0]
+        out["decode_cache"] = _full(grown)
+        # the gradients at the initial params, then the train steps
+        tb = [batch(x) for x in spec["batches"]]
+        flat = {k: v.detach().requires_grad_()
+                for k, v in flatten_dict(params).items()}
+        with partitioned(params, tb[0]):
+            loss, _ = make_loss_fn(cfg)(unflatten_dict(flat), tb[0])
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        out["grads"] = dict(zip(flat, _full(tuple(grads))))
+        opt = adamw(linear_warmup_cosine(*spec["schedule"]),
+                    weight_decay=spec["weight_decay"])
+        state, opt = make_train_state(cfg, None, opt, params=params)
+        step = make_train_step(cfg, opt)
+        out["metrics"] = []
+        for x in tb:
+            state, metrics = step(state, x)
+            out["metrics"].append({k: float(_full(v)[0])
+                                   for k, v in metrics.items()})
+        out["state"] = {name: dict(zip(flatten_dict(tree), _full(tree)))
+                        for name, tree in (("params", state.params),
+                                           ("mu", state.opt_state["mu"]),
+                                           ("nu", state.opt_state["nu"]))}
+        return out
+    finally:
+        R.set_activation_spec(None)
+
+
+def sharded_attention(spec: dict) -> dict:
+    """``ops.flash_attention`` (with its q, k, v gradients) and
+    ``ops.decode_attention`` on DTensors over the 2x2 mesh, batch on
+    ``data``, heads on ``model`` (K/V heads ``spec["kvh"]``, 1 and 2: each
+    device slices its K/V head from the whole set, or K/V split with the
+    query), and on the whole tensors in this process: numpy pairs."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops
+
+    mesh = _lm_mesh(True)
+    g = torch.Generator().manual_seed(spec["seed"])
+    b, s, h, kvh, d = 2, 16, 4, spec["kvh"], 32
+    q = torch.randn(b, s, h, d, generator=g)
+    k = torch.randn(b, s, kvh, d, generator=g)
+    v = torch.randn(b, s, kvh, d, generator=g)
+    dout = torch.randn(b, s, h, d, generator=g)
+    lengths = torch.tensor([5, 16], dtype=torch.int32)
+
+    def place(x, head_dim):
+        pl = [Shard(0), Shard(head_dim) if x.shape[head_dim] % 2 == 0
+              else Replicate()]
+        return distribute_tensor(x, mesh, pl)
+
+    out = {}
+    for name, (qq, kk, vv) in (("whole", (q, k, v)),
+                               ("sharded", (place(q, 2), place(k, 2),
+                                            place(v, 2)))):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (qq, kk, vv))
+        y = ops.flash_attention(qq, kk, vv, causal=True, window=6)
+        dy = dout if name == "whole" else place(dout, 2)
+        grads = torch.autograd.grad(y, (qq, kk, vv), dy)
+        with torch.no_grad():
+            dec = ops.decode_attention(
+                qq.detach()[:, -1] if name == "whole"
+                else place(q[:, -1], 1), kk.detach(), vv.detach(),
+                lengths if name == "whole"
+                else distribute_tensor(lengths, mesh,
+                                       [Shard(0), Replicate()]))
+        out[name] = {"flash": _full(y)[0], "decode": _full(dec)[0],
+                     "grads": _full(tuple(grads))}
+    return out

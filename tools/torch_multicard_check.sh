@@ -4,7 +4,12 @@
 # generations and evaluations, must be the same, with rank 0 alone
 # printing. On the card (DEV=cuda, one rank a card; local rank 0 builds
 # the actor kernels while the others wait) it then runs chip_smoke.py's
-# phase 46 over every card. With DEV=cpu the ranks are gloo processes.
+# phase 46 over every card. Last, the partitioned LM steps on four ranks
+# as a 2x2 ("data", "model") mesh (chip_smoke.partitioned_multicard):
+# Llama-3.2-1B's prefill and train step against one card's within bf16's
+# 2e-2, and each collective kind's count against the fake 2x2 mesh's.
+# With DEV=cpu the ranks are gloo processes (the partitioned check on the
+# reduced Llama, float32, within 1e-4).
 #
 #   N=4 bash tools/torch_multicard_check.sh          # four cards
 #   N=4 DEV=cpu bash tools/torch_multicard_check.sh  # four CPU processes
@@ -33,4 +38,6 @@ awk -v a=$t0 -v b=$t1 -v c=$t2 -v d=$t3 -v e=$t4 'BEGIN {printf "walls: sweep to
 if [ "$DEV" = cuda ]; then
   nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
   python3 -c "import torch, chip_smoke as cs; print(cs.fleet_phase(torch.device('cuda')))" 2>&1 | grep -v "Warning\|warn_once\|_set_sync_debug"
+  python3 -c "from repro_torch.kernels import _build; _build.build_all(('flash_attention', 'decode_attention', 'ssm_scan'))"
 fi
+python3 -c "import chip_smoke as cs; cs.partitioned_multicard('$DEV')" 2>&1 | grep -v "Warning\|warn_once\|UserWarning"
